@@ -1,4 +1,5 @@
-"""Seeded windows of sibling-path feasibility queries at EVM width.
+"""Seeded windows of sibling-path feasibility queries at EVM width, and
+seeded random cones for the ragged round.
 
 The query shapes LASER's forks send to get_models_batch: a 256-bit
 function-selector dispatch on the first calldata word, `callvalue < 2**40`,
@@ -7,6 +8,10 @@ function-selector dispatch on the first calldata word, `callvalue < 2**40`,
 `smt` is an SMT package with the mythril_tpu.smt API (this package's own,
 or the JAX package's when a test holds the two against each other), so the
 same seed builds the same constraint sets in either.
+
+random_cones and big_cone build packed AIG cones directly (no SMT layer):
+small cones for kernel windows, and one cone too large for the ragged
+kernel's shared-memory path.
 """
 
 import random
@@ -47,3 +52,45 @@ def sibling_window(smt, count: int, seed: int = 0,
             branch = branch + [smt.ULE(x, bound), smt.UGT(x, bound)]
         window.append(list(prefix) + [dispatch] + branch)
     return window
+
+
+def random_cones(rng: random.Random, count: int) -> list:
+    """`count` packed cones of 4-12 inputs and 20-80 random AND gates
+    (inputs negated at random), each asserting its last gate."""
+    from mythril_tpu_torch.gpu.circuit import PackedCircuit
+    from mythril_tpu_torch.smt.bitblast import AIG
+
+    cones = []
+    while len(cones) < count:
+        aig = AIG()
+        lits = [aig.lit_of_var(aig.new_var())
+                for _ in range(rng.randint(4, 12))]
+        for _ in range(rng.randint(20, 80)):
+            lits.append(aig.and_gate(rng.choice(lits) ^ rng.randint(0, 1),
+                                     rng.choice(lits) ^ rng.randint(0, 1)))
+        pc = PackedCircuit(aig, [lits[-1]])
+        if pc.ok:
+            cones.append(pc)
+    return cones
+
+
+def big_cone(rng: random.Random, gates: int = 30000, inputs: int = 64,
+             reach: int = 2048, roots: int = 32):
+    """A packed cone of about 20,000 variables over some 80 levels: each
+    gate reads two of the `reach` literals before it, and the last `roots`
+    gates are asserted, each negated at random."""
+    from mythril_tpu_torch.gpu.circuit import PackedCircuit
+    from mythril_tpu_torch.smt.bitblast import AIG
+
+    while True:
+        aig = AIG()
+        lits = [aig.lit_of_var(aig.new_var()) for _ in range(inputs)]
+        for _ in range(gates):
+            low = max(0, len(lits) - reach)
+            lits.append(aig.and_gate(
+                lits[rng.randrange(low, len(lits))] ^ rng.randint(0, 1),
+                lits[rng.randrange(low, len(lits))] ^ rng.randint(0, 1)))
+        pc = PackedCircuit(aig, [lit ^ rng.randint(0, 1)
+                                 for lit in lits[-roots:]])
+        if pc.ok:
+            return pc

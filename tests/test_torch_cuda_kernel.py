@@ -14,6 +14,7 @@ import torch
 
 from mythril_tpu_torch.gpu import circuit, ragged_kernel
 from mythril_tpu_torch.smt.bitblast import AIG
+from mythril_tpu_torch.support.workloads import big_cone, random_cones
 
 pytestmark = pytest.mark.cuda
 
@@ -27,47 +28,78 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-SMALL =ragged_kernel.KernelCaps(var_cap=4096, cone_cap=16, root_cap=16,
-                                 lane_tile=4, cone_tile=4, block=32)
+# lane_tile 2: a launch of 6 lanes leaves each cone's second block two
+# idle warps
+SMALL = ragged_kernel.KernelCaps(var_cap=4096, cone_cap=16, root_cap=16,
+                                 lane_tile=2, cone_tile=4, block=32)
 
 
-def _random_stream(seed, count):
-    rng = random.Random(seed)
-    entries = []
-    while len(entries) < count:
-        aig = AIG()
-        lits = [aig.lit_of_var(aig.new_var())
-                for _ in range(rng.randint(4, 12))]
-        for _ in range(rng.randint(20, 80)):
-            lits.append(aig.and_gate(rng.choice(lits) ^ rng.randint(0, 1),
-                                     rng.choice(lits) ^ rng.randint(0, 1)))
-        pc = circuit.PackedCircuit(aig, [lits[-1]])
-        if pc.ok:
-            # every third cone carries a pinned input, as cubes do
-            pins = ((1, bool(len(entries) % 2)),) if len(entries) % 3 \
-                else ()
-            entries.append((pc, pins))
-    return circuit.RaggedStream(entries)
+def _random_entries(seed, count):
+    """Every third cone carries a pinned input, as cubes do."""
+    return [(pc, ((1, bool(i % 2)),) if i % 3 else ())
+            for i, pc in enumerate(random_cones(random.Random(seed), count))]
 
 
-@pytest.mark.parametrize("seed, cones, lanes, steps", [
-    (1, 5, 8, 24), (2, 16, 12, 64), (3, 9, 4, 0)])
-def test_cuda_kernel_bit_identical_to_plain_round(cuda_device, seed, cones,
-                                                  lanes, steps):
-    stream = _random_stream(seed, cones)
+def _gate_free_cone():
+    """A cone with no gate: its root is an input, asserted FALSE."""
+    aig = AIG()
+    return circuit.PackedCircuit(aig, [aig.lit_of_var(aig.new_var()) ^ 1])
+
+
+def _assert_kernel_matches_plain(device, stream, caps, seed, lanes, steps):
     flat = ragged_kernel.device_flat(
-        ragged_kernel.flatten_stream(stream, SMALL), cuda_device)
-    gen = torch.Generator(device=cuda_device)
+        ragged_kernel.flatten_stream(stream, caps), device)
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    x = circuit.init_inputs(gen, lanes, SMALL.var_cap, cuda_device)
+    x = circuit.init_inputs(gen, lanes, caps.var_cap, device)
     x[:, 0] = 1  # column 0 is not owned: both must return the input's
     before = ragged_kernel.launches
     got_x, got_found = ragged_kernel.run_round_ragged_kernel(
-        flat, x, seed, steps, stream.num_levels + 4, SMALL)
+        flat, x, seed, steps, stream.num_levels + 4, caps)
     assert ragged_kernel.launches == before + 1
     want_x, want_found = ragged_kernel.run_round_ragged_plain(
-        flat, x, seed, steps, stream.num_levels + 4, SMALL)
+        flat, x, seed, steps, stream.num_levels + 4, caps)
     torch.cuda.synchronize()
     assert torch.equal(got_x, want_x)
     assert torch.equal(got_found, want_found)
     assert bool(got_x[:, 0].eq(1).all())
+    return flat, got_found
+
+
+@pytest.mark.parametrize("seed, cones, lanes, steps, gate_free", [
+    (1, 5, 8, 24, False), (2, 16, 12, 64, False), (3, 9, 4, 0, False),
+    (8, 7, 6, 40, True)])
+def test_cuda_kernel_bit_identical_to_plain_round(cuda_device, seed, cones,
+                                                  lanes, steps, gate_free):
+    entries = _random_entries(seed, cones)
+    if gate_free:
+        entries.append((_gate_free_cone(), ()))
+    _assert_kernel_matches_plain(cuda_device, circuit.RaggedStream(entries),
+                                 SMALL, seed, lanes, steps)
+
+
+@pytest.mark.parametrize("seed", [4, 5])
+def test_cuda_kernel_var0_roots_match_plain_round(cuda_device, seed):
+    """Two cones assert local var 0 (the constant FALSE) wanted TRUE: that
+    root is violated at every step and its walk flips var 0, which the
+    plain round undoes at the next simulate. No other cone may read the
+    flipped value: every cone's check and walk sees var 0 as 0."""
+    entries = [(pc, ((0, True),) if ci in (1, 2) else extra)
+               for ci, (pc, extra) in enumerate(_random_entries(seed, 6))]
+    _flat, found = _assert_kernel_matches_plain(
+        cuda_device, circuit.RaggedStream(entries), SMALL, seed, 8, 48)
+    assert not bool(found[:, 1:3].any()), "a var-0 root is never met"
+
+
+@pytest.mark.parametrize("extra", [(), ((0, True),)])
+def test_cuda_kernel_global_path_cone_matches_plain_round(cuda_device,
+                                                          extra):
+    """A cone too large for the kernel's shared-memory path takes its
+    global-table path, in the same launch as two small cones; with
+    `extra`, it also asserts local var 0 wanted TRUE."""
+    caps = ragged_kernel.kernel_caps()
+    stream = circuit.RaggedStream(
+        [(big_cone(random.Random(6)), extra)] + _random_entries(7, 2))
+    flat, _found = _assert_kernel_matches_plain(cuda_device, stream, caps,
+                                                6, 8, 12)
+    assert flat.cones.global_cones == (0,)

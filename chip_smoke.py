@@ -12,7 +12,8 @@ line):
           and g++ for the host CDCL (native/sat.cpp), started together,
           into mythril_tpu_torch/_build/;
   slice   get_models_batch with solver_backend="gpu" on a window of 64
-          sibling-path queries at 256 bits (the coalescing window cap):
+          sibling-path queries at 256 bits (the coalescing window cap),
+          pre-analysis and the result tiers off, through the router:
           verdicts must equal the port's own host-CDCL verdicts, every
           model must satisfy its constraints, the device must find models
           and the kernel must have been launched (counts read around this
@@ -31,18 +32,41 @@ line):
           forms (the full round, walk_depth 0, steps 0), the cube stream,
           the global-path window at the slice's lanes and steps, the plain
           version, and the bound (the least time the card could take for
-          the same work).
+          the same work);
+  router  the default solve path at full width (256-bit queries, 64
+          lanes, 64 steps, the default kernel capacities) behind a fresh
+          router, so its calibration really measures: (a) the same
+          64-query window through scheduler.solve_batch with pre-analysis
+          on, cold and warm, then once more with its verdicts kept
+          (the memory tier must answer all 64 without a launch), beside
+          the host CDCL with the same pre-analysis; (b) a window of 16 JUMPI fork pairs
+          (support/workloads.fork_window) through
+          scheduler.solve_fork_batch. Verdicts must equal the host
+          CDCL's, models must satisfy their constraints, K1 itself must
+          find models in (a) (components it solved, and queries whose
+          every part it solved, counted apart from those the router
+          settled on the host), fork pairs must pack shared cones and
+          ride a stream in (b), and K1 must have launched in each (counts
+          read around each run). It prints the calibration, the
+          admission, the streams the router launched and where the time
+          went, and holds K1 bit for bit against its plain version on the
+          largest stream the router launched in (a), and times it there.
 
+The kernel and timing phases build their streams with pre-analysis off,
+as this script's earlier versions did, so their timed stream stays the
+same.
 --forms-only times the same three streams with the host CDCL's verdicts
 and no other phase. It calls only the round's interface (flatten_stream,
 device_flat, run_round_ragged_kernel), so a copy of this script placed in
 a checkout of an earlier version of the port times that version's kernel.
 
-Then the {"kernels": [...]} line, the card's nvidia-smi line, and last
-{"ok": true, "device": {...}}. A copy of every JSON line goes to
-chiprun_out/chip_smoke.jsonl.
+Then the script's total seconds, the {"kernels": [...]} line (K1's times
+on the router's largest stream, the slice stream's beside them), the
+card's nvidia-smi line, and last {"ok": true, "device": {...}}. A copy of every
+JSON line goes to chiprun_out/chip_smoke.jsonl.
 """
 
+import contextlib
 import json
 import os
 import random
@@ -57,6 +81,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 WINDOW = 64        # service/scheduler.py DEFAULT_COALESCE_MAX_RAGGED
+FORK_PAIRS = 16    # the fork window: 32 queries
 SEED = 20261016
 OUT_DIR = "chiprun_out"
 
@@ -80,6 +105,20 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return done.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def _preanalysis(on: bool):
+    """MYTHRIL_GPU_PREANALYSIS pinned inside the block."""
+    saved = os.environ.get("MYTHRIL_GPU_PREANALYSIS")
+    os.environ["MYTHRIL_GPU_PREANALYSIS"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("MYTHRIL_GPU_PREANALYSIS", None)
+        else:
+            os.environ["MYTHRIL_GPU_PREANALYSIS"] = saved
 
 
 # -- phases ---------------------------------------------------------------
@@ -131,17 +170,21 @@ def _prepared_window(queries):
 
 
 def phase_slice(device):
+    """The 64-query window with pre-analysis off (the caller pins it) and
+    the result tiers off, so each run solves every query."""
     import mythril_tpu_torch.smt as smt
     from mythril_tpu_torch.gpu import backend as backend_mod
     from mythril_tpu_torch.gpu import ragged_kernel
     from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
     from mythril_tpu_torch.support.args import args
-    from mythril_tpu_torch.support.model import get_models_batch
+    from mythril_tpu_torch.support.model import clear_caches, get_models_batch
     from mythril_tpu_torch.support.workloads import sibling_window
 
     queries = sibling_window(smt, WINDOW, seed=SEED)
     stats = SolverStatistics()
     stats.enabled = True
+    clear_caches()
+    args.solve_cache = "off"
     # None: the entry point's default device, the CUDA card
     device_arg = None if device.type == "cuda" else device
 
@@ -187,6 +230,7 @@ def phase_slice(device):
     _results, wall_again = run("gpu")
     _results, host_s = run("cpu")
     busy = _device_busy(lambda: run("gpu"))
+    args.solve_cache = "memory"
     emit({"phase": "slice", "queries": len(queries),
           "sat": verdicts.count("sat"), "unsat": verdicts.count("unsat"),
           "unknown": verdicts.count("unknown"), "wall_s": wall,
@@ -327,12 +371,37 @@ def _slice_streams(device, queries, verdicts):
     if not entries:
         raise AssertionError("no UNSAT cone of the slice got a cube plan")
     cube = circuit.RaggedStream(entries)
-    chunks, _rejected = backend.chunk_window(
-        packed, caps, backend_mod.RAGGED_STREAM_BYTES_DEFAULT)
+    chunks = _greedy_chunks(packed, caps,
+                            backend_mod.RAGGED_STREAM_BYTES_DEFAULT)
     chunk = max(chunks, key=lambda c: sum(pc.num_gates for _i, pc, _e in c))
     plain = circuit.RaggedStream([(pc, extra) for _i, pc, extra in chunk])
     lanes = ragged_kernel.pad_lanes(backend.num_restarts, caps)
     return caps, lanes, backend.CIRCUIT_STEPS, cube, plain
+
+
+def _greedy_chunks(packed, caps, stream_budget):
+    """The window's cones in query order, cut where the next cone would
+    push the combined variable space past var_cap, the cone count past
+    cone_cap or the estimated stream bytes past `stream_budget`: the
+    chunking that made the timed stream before the router took over the
+    main path (the timed stream is its chunk with the most gates)."""
+    from mythril_tpu_torch.gpu.backend import DeviceSolverBackend
+
+    chunks = [[]]
+    chunk_vars = chunk_bytes = 0
+    for entry in packed:
+        pc = entry[1]
+        unit_vars = max(pc.v1 - 1, 0)
+        entry_bytes = DeviceSolverBackend.ragged_entry_bytes(pc)
+        if chunks[-1] and (1 + chunk_vars + unit_vars > caps.var_cap
+                           or len(chunks[-1]) >= caps.cone_cap
+                           or chunk_bytes + entry_bytes > stream_budget):
+            chunks.append([])
+            chunk_vars = chunk_bytes = 0
+        chunks[-1].append(entry)
+        chunk_vars += unit_vars
+        chunk_bytes += entry_bytes
+    return [chunk for chunk in chunks if chunk]
 
 
 def _walk_depth(stream) -> int:
@@ -485,6 +554,300 @@ def phase_timing(device, queries, verdicts, with_plain=True):
             "bound_by": bound_by}
 
 
+def _run_counted(device, solver_backend, solve, streams=None,
+                 keep_tiers=False):
+    """One run of `solve` with every count set to 0 just before it and
+    read just after: (results, wall seconds, {launches, counters, spans,
+    backend deltas}). The result tiers are emptied first unless
+    `keep_tiers`, so the run solves every query; `streams` collects
+    (stream, entries) of each ragged stream the backend assembles."""
+    from mythril_tpu_torch.gpu import ragged_kernel
+    from mythril_tpu_torch.gpu.backend import get_device_backend
+    from mythril_tpu_torch.observe.tracer import get_tracer
+    from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
+    from mythril_tpu_torch.support.args import args
+    from mythril_tpu_torch.support.model import clear_result_tiers
+
+    args.solver_backend = solver_backend
+    args.torch_device = None if device.type == "cuda" else device
+    backend = get_device_backend(args.torch_device)
+    if not keep_tiers:
+        clear_result_tiers()
+    stats = SolverStatistics()
+    stats.enabled = True
+    stats.reset()
+    ragged_kernel.reset_launches()
+    before = backend.stats()
+    tracer = get_tracer()
+    tracer.reset()
+    tracer.enable(None)
+    if streams is not None:
+        backend.on_stream = lambda stream, entries: streams.append(
+            (stream, entries))
+    torch_sync(device)
+    start = time.monotonic()
+    try:
+        results = solve()
+        torch_sync(device)
+        wall = time.monotonic() - start
+    finally:
+        backend.on_stream = None
+        spans = tracer.summary()
+        tracer.reset()
+    after = backend.stats()
+    deltas = {key: round(after[key] - before[key], 4) for key in after
+              if isinstance(after[key], (int, float))}
+    return results, wall, {"launches": ragged_kernel.launches,
+                           "counters": stats.as_dict(), "spans": spans,
+                           "backend": deltas}
+
+
+def _breakdown(info, wall) -> dict:
+    """Where one run's `wall` went. The parts: the memory-tier and
+    quick-sat probes; prepare (with its pre-analysis stages beside it);
+    the router's admission plan (partition, component instances and pack,
+    pack_s beside it); its calibration; its chunking; stream assembly +
+    upload; the round loop; the host check of K1's models; landing them
+    (merging component models into their queries); the router's own
+    component settle; the reconstruction of device models; the CDCL
+    settle pass. unattributed_s is the wall less those parts (the cold
+    run's calibration holds one small prepare of its own, counted in
+    both), and router_other_s the router's span less its parts. The counters beside cnf_prep_s say what it worked
+    on: its instances, the AIG nodes before and after the rewrite, the
+    units it propagated, the clauses it removed and its propagation
+    rounds (each a pass over every literal)."""
+    counters, spans, backend = (info["counters"], info["spans"],
+                                info["backend"])
+
+    def span_s(name):
+        return spans.get(name, [0, 0.0])[1]
+
+    parts = {"probe_s": span_s("cache.probe"),
+             "prepare_s": counters["prepare_wall"],
+             "router_plan_s": span_s("router.plan"),
+             "calibration_s": span_s("router.calibrate"),
+             "chunk_s": span_s("router.chunk"),
+             "stream_assembly_upload_s": backend.get("ragged_seconds", 0.0),
+             "round_loop_s": backend.get("solve_seconds", 0.0),
+             "device_check_s": span_s("device.check"),
+             "land_s": span_s("router.land"),
+             "router_settle_s": span_s("router.settle_components"),
+             "reconstruct_s": span_s("solver.reconstruct"),
+             "cdcl_settle_s": span_s("solver.settle_pass")}
+    router_parts = ("router_plan_s", "calibration_s", "chunk_s",
+                    "stream_assembly_upload_s", "round_loop_s",
+                    "device_check_s", "land_s", "router_settle_s")
+    return {**parts,
+            "unattributed_s": wall - sum(parts.values()),
+            "router_s": span_s("router.dispatch"),
+            "router_other_s": span_s("router.dispatch") - sum(
+                parts[key] for key in router_parts),
+            "incremental_s": span_s("solver.prefix_resume"),
+            "aig_opt_s": span_s("solver.aig_opt"),
+            "cnf_prep_s": span_s("solver.cnf_prep"),
+            "pack_s": backend.get("pack_seconds", 0.0),
+            "cnf_prep_instances": spans.get("solver.cnf_prep", [0, 0.0])[0],
+            "aig_nodes_before": counters["aig_nodes_before"],
+            "aig_nodes_after": counters["aig_nodes_after"],
+            "aig_const_folds": counters["aig_const_folds"],
+            "cnf_units_propagated": counters["cnf_units_propagated"],
+            "cnf_prep_rounds": counters["cnf_prep_rounds"],
+            "cnf_clauses_removed": counters["cnf_clauses_removed"],
+            "router_clauses": counters["router_dispatched_clauses"]}
+
+
+def _check_against_host(name, results, host, queries):
+    verdicts = [status for status, _model in results]
+    host_verdicts = [status for status, _model in host]
+    if verdicts != host_verdicts:
+        raise AssertionError(f"{name}: verdicts differ from the host CDCL: "
+                             f"{verdicts} vs {host_verdicts}")
+    for (status, model), constraints in zip(results, queries):
+        if status == "sat" and not model.satisfies(constraints):
+            raise AssertionError(f"{name}: a model fails its constraints")
+    return verdicts
+
+
+def _stream_rows(streams):
+    """Per captured stream: cones (distinct packed cones), variables,
+    combined levels, and the deepest cone's levels and variables."""
+    rows = []
+    for stream, entries in streams:
+        deepest = max((pc for pc, _extra in entries),
+                      key=lambda pc: pc.num_levels)
+        rows.append({"cones": stream.num_cones,
+                     "distinct_cones": len({id(pc) for pc, _e in entries}),
+                     "pinned": sum(1 for _pc, extra in entries if extra),
+                     "vars": stream.v1, "levels": stream.num_levels,
+                     "deepest_cone_levels": deepest.num_levels,
+                     "deepest_cone_vars": deepest.v1})
+    return rows
+
+
+def phase_router(device):
+    """The default solve path behind a fresh router (see the module
+    note). Returns the launches of each run and the largest error of the
+    bit-for-bit comparison."""
+    import torch
+
+    import mythril_tpu_torch.smt as smt
+    from mythril_tpu_torch.gpu import circuit, ragged_kernel
+    from mythril_tpu_torch.gpu.backend import get_device_backend
+    from mythril_tpu_torch.gpu.router import get_router
+    from mythril_tpu_torch.service.scheduler import get_scheduler
+    from mythril_tpu_torch.support.model import clear_caches
+    from mythril_tpu_torch.support.workloads import fork_window, sibling_window
+
+    clear_caches()  # a fresh router, scheduler and pre-analysis memos
+    queries = sibling_window(smt, WINDOW, seed=SEED)
+
+    def batch():
+        return get_scheduler().solve_batch(queries)
+
+    streams = []
+    results, cold_s, cold = _run_counted(device, "gpu", batch, streams)
+    _results, warm_s, warm = _run_counted(device, "gpu", batch)
+    # the window once more, its verdicts kept: the memory tier answers
+    again, tier_s, tier = _run_counted(device, "gpu", batch,
+                                       keep_tiers=True)
+    host, host_s, host_info = _run_counted(device, "cpu", batch)
+    verdicts = _check_against_host("sibling window", results, host, queries)
+    counters = cold["counters"]
+    if counters["device_batch_hits"] <= 0:
+        raise AssertionError("router: the router returned no model")
+    if (counters["router_device_found"] <= 0
+            or counters["aig_device_component_hits"] <= 0):
+        raise AssertionError("router: K1 found no model (the router's "
+                             "models were all settled on the host)")
+    if cold["launches"] <= 0:
+        raise AssertionError("router: K1 was never launched")
+    _check_against_host("memory tier", again, host, queries)
+    if (tier["launches"] or tier["counters"]["memory_hits"]
+            != len(queries)):
+        raise AssertionError("router: the repeated window was not served "
+                             "by the memory tier alone")
+    for info in (cold, warm, host_info):
+        if info["counters"]["resilience_degraded"]:
+            raise AssertionError("router: a pre-analysis stage degraded")
+    backend = get_device_backend(None if device.type == "cuda" else device)
+    router = get_router(None if device.type == "cuda" else device)
+    rates = router.attainable_rates()
+    if not rates.get("kernel_cells_s"):
+        raise AssertionError("router: calibration measured no kernel rate")
+    rows = _stream_rows(streams)
+    emit({"phase": "router", "window": "sibling", "queries": len(queries),
+          "sat": verdicts.count("sat"), "unsat": verdicts.count("unsat"),
+          "unknown": verdicts.count("unknown"),
+          "wall_cold_s": cold_s, "wall_warm_s": warm_s,
+          "wall_memory_tier_s": tier_s,
+          "memory_hits": tier["counters"]["memory_hits"],
+          "host_cdcl_s": host_s,
+          "calibration": {"seconds": router.calibration_seconds,
+                          "kernel_timer": ("cuda events"
+                                           if device.type == "cuda"
+                                           else "perf_counter"),
+                          **rates},
+          "admission": {"host_direct": counters["router_host_direct"],
+                        "components_dispatched":
+                            counters["aig_device_components"],
+                        "components_found_by_k1":
+                            counters["aig_device_component_hits"],
+                        "components_to_host":
+                            counters["aig_host_components"],
+                        "aig_components": counters["aig_components"],
+                        "cap_rejects": counters["cap_rejects"],
+                        "cap_rejects_floor": counters["cap_rejects_floor"]},
+          "device_batch_queries": counters["device_batch_queries"],
+          "device_batch_hits": counters["device_batch_hits"],
+          "router_device_found": counters["router_device_found"],
+          "router_host_settled": counters["router_host_settled"],
+          "router_trivial_settled": counters["router_trivial_settled"],
+          "warm_device_batch_hits":
+              warm["counters"]["device_batch_hits"],
+          "warm_router_device_found":
+              warm["counters"]["router_device_found"],
+          "cdcl_settles": counters["cdcl_settles"],
+          "cubes_dispatched": counters["cubes_dispatched"],
+          "kernel_launches": cold["launches"],
+          "warm_kernel_launches": warm["launches"],
+          "streams": {"count": len(rows),
+                      "cones_per_stream": [row["cones"] for row in rows],
+                      "deepest_cone_levels": max(
+                          row["deepest_cone_levels"] for row in rows),
+                      "deepest_cone_vars": max(
+                          row["deepest_cone_vars"] for row in rows),
+                      "each": rows},
+          "breakdown_cold": _breakdown(cold, cold_s),
+          "breakdown_warm": _breakdown(warm, warm_s),
+          "breakdown_host": _breakdown(host_info, host_s)})
+
+    # K1 bit for bit on the largest stream the router launched
+    stream, entries = max(streams, key=lambda item: sum(
+        pc.num_gates for pc, _extra in item[1]))
+    caps = ragged_kernel.kernel_caps()
+    flat = ragged_kernel.device_flat(
+        ragged_kernel.flatten_stream(stream, caps), device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 7)
+    lanes = ragged_kernel.pad_lanes(backend.num_restarts, caps)
+    x = circuit.init_inputs(gen, lanes, caps.var_cap, device)
+    steps, walk_depth = backend.CIRCUIT_STEPS, _walk_depth(stream)
+    err = _compare(flat, x, 19, steps, walk_depth, caps)
+    # its time: launches made here are not counted
+    launches_before = ragged_kernel.launches
+    ms = _time_ms(lambda: ragged_kernel.run_round_ragged_kernel(
+        flat, x, 19, steps, walk_depth, caps), repeats=5)
+    plain_ms = _time_ms(lambda: ragged_kernel.run_round_ragged_plain(
+        flat, x, 19, steps, walk_depth, caps), repeats=1)
+    ragged_kernel.launches = launches_before
+    bound_ms, bound_by, moved, ops = _bound(flat, stream.v1, lanes, steps,
+                                            caps)
+    emit({"phase": "router", "window": "router-stream",
+          **_stream_fields(stream, flat), "lanes": lanes, "steps": steps,
+          "walk_depth": walk_depth,
+          "global_path_cones": list(flat.cones.global_cones),
+          "bit_identical": True, "max_abs_err": err, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "bytes": moved, "ops": ops})
+
+    sets, pairs = fork_window(smt, FORK_PAIRS, seed=SEED)
+
+    def forks():
+        return get_scheduler().solve_fork_batch(sets, pairs)
+
+    fork_streams = []
+    fork_results, fork_s, fork = _run_counted(device, "gpu", forks,
+                                              fork_streams)
+    fork_host, fork_host_s, _info = _run_counted(device, "cpu", forks)
+    fork_verdicts = _check_against_host("fork window", fork_results,
+                                        fork_host, sets)
+    counters = fork["counters"]
+    if counters["fork_pair_pack_hits"] <= 0:
+        raise AssertionError("router: no fork pair packed a shared cone")
+    if counters["fork_stream_dispatches"] <= 0:
+        raise AssertionError("router: no stream carried fork cones")
+    if fork["launches"] <= 0:
+        raise AssertionError("router: K1 was never launched on the forks")
+    emit({"phase": "router", "window": "fork", "pairs": len(pairs),
+          "queries": len(sets), "sat": fork_verdicts.count("sat"),
+          "unsat": fork_verdicts.count("unsat"),
+          "unknown": fork_verdicts.count("unknown"),
+          "wall_s": fork_s, "host_cdcl_s": fork_host_s,
+          "fork_pair_pack_attempts": counters["fork_pair_pack_attempts"],
+          "fork_pair_pack_hits": counters["fork_pair_pack_hits"],
+          "fork_stream_dispatches": counters["fork_stream_dispatches"],
+          "device_batch_hits": counters["device_batch_hits"],
+          "router_device_found": counters["router_device_found"],
+          "router_host_settled": counters["router_host_settled"],
+          "router_trivial_settled": counters["router_trivial_settled"],
+          "kernel_launches": fork["launches"],
+          "streams": _stream_rows(fork_streams),
+          "breakdown": _breakdown(fork, fork_s)})
+    return {"launches": cold["launches"], "fork_launches": fork["launches"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def _host_verdicts(device, queries):
     from mythril_tpu_torch.support.args import args
     from mythril_tpu_torch.support.model import get_models_batch
@@ -501,8 +864,9 @@ def forms_only(device) -> int:
 
     phase_build()
     queries = sibling_window(smt, WINDOW, seed=SEED)
-    phase_timing(device, queries, _host_verdicts(device, queries),
-                 with_plain=False)
+    with _preanalysis(False):
+        phase_timing(device, queries, _host_verdicts(device, queries),
+                     with_plain=False)
     return 0
 
 
@@ -519,6 +883,7 @@ def main() -> int:
         return fail(f"the port is not importable from here: {error}")
     os.makedirs(OUT_DIR, exist_ok=True)
     device = torch.device("cuda", 0)
+    start = time.monotonic()
     try:
         smi = nvidia_smi_line()
         emit({"phase": "env", "python": sys.version.split()[0],
@@ -530,9 +895,12 @@ def main() -> int:
             print(smi, flush=True)
             return 0
         phase_build()
-        queries, verdicts, launches = phase_slice(device)
-        max_err = phase_kernel(device, queries, verdicts)
-        timing = phase_timing(device, queries, verdicts)
+        with _preanalysis(False):
+            queries, verdicts, slice_launches = phase_slice(device)
+            max_err = phase_kernel(device, queries, verdicts)
+            timing = phase_timing(device, queries, verdicts)
+        router = phase_router(device)
+        emit({"phase": "total", "seconds": time.monotonic() - start})
     except Exception as error:
         import traceback
 
@@ -543,13 +911,23 @@ def main() -> int:
         "route": "cuda",
         "source": "mythril_tpu_torch/csrc/ragged_round.cu",
         "replaces": "mythril_tpu/tpu/pallas_kernel.py:268",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
+        # the default path's launches (the router phase's sibling window)
+        "launches": router["launches"],
+        "launches_by_path": {"slice": slice_launches,
+                             "router": router["launches"],
+                             "router_forks": router["fork_launches"]},
+        "max_abs_err": max(max_err, router["max_abs_err"]),
+        # times of one round on the largest stream the default path
+        # launched; the slice's stream of earlier versions beside them
+        "ms": router["ms"],
+        "plain_ms": router["plain_ms"],
+        "bound_ms": router["bound_ms"],
+        "bound_by": router["bound_by"],
         "library_ms": None,
+        "slice_stream": {"ms": timing["ms"],
+                         "plain_ms": timing["plain_ms"],
+                         "bound_ms": timing["bound_ms"],
+                         "bound_by": timing["bound_by"]},
     }]})
     with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w") as fd:
         fd.write("\n".join(_lines) + "\n")

@@ -1,12 +1,13 @@
 """Host-side driver of the device circuit-SLS solver.
 
-solve_window() is the batched device solve: it levelizes each blasted
-query's AIG cone (cached by circuit structure), chunks the window to the
-ragged kernel's capacities, packs each chunk into ONE ragged flat stream
-(circuit.RaggedStream) and runs rounds of the ragged round
-(ragged_kernel.py) until every cone is solved or the search stalls. Found
-models are checked against the CNF on the host; None entries are left to
-the caller's CDCL, which alone proves UNSAT.
+try_solve_batch_ragged() solves one chunk of a window: the router
+(gpu/router.py) levelizes each admitted cone through pack_cone (cached by
+circuit structure), chunks the window, and hands each chunk here; the
+chunk is packed into ONE ragged flat stream (circuit.RaggedStream) and
+rounds of the ragged round (ragged_kernel.py) run until every cone is
+solved or the search stalls, with the cube second pass on the cones the
+plain rounds miss. Found models are checked against the CNF on the host;
+None entries are left to the caller's CDCL, which alone proves UNSAT.
 
 A kernel that fails to build or to launch, a device error, or a chunk past
 a kernel capacity raises: nothing here drops the device path silently.
@@ -29,12 +30,26 @@ from mythril_tpu_torch.support.env import env_int
 
 log = logging.getLogger(__name__)
 
-# per-stream memory budget of the chunking, as the JAX package's router
-# (MYTHRIL_TPU_RAGGED_STREAM_BYTES) bounds an assembled ragged stream
+# per-stream memory budget of the router's chunking
+# (MYTHRIL_GPU_RAGGED_STREAM_BYTES overrides)
 RAGGED_STREAM_BYTES_DEFAULT = 48 * 1024 * 1024
-# the cube second pass: the JAX package's router defaults on a real device
+# the cube second pass: split width on a real device, and the depth a
+# missed cone needs to get it
 CUBE_VARS_DEFAULT = 7
 CUBE_MIN_LEVELS_DEFAULT = 64
+
+
+def shape_bucket(n: int) -> int:
+    """1.5x geometric shape bucket: 64, 96, 128, 192, 256, ... (the JAX
+    package pads its XLA rounds to it). The router groups cones by the
+    bucket of their depth and charges its cost model over bucketed
+    rectangles, as the JAX package's router does."""
+    size = 64
+    while size < n:
+        if size + size // 2 >= n:
+            return size + size // 2
+        size *= 2
+    return size
 
 
 def _circuit_struct_key(aig, roots) -> tuple:
@@ -141,12 +156,26 @@ class DeviceSolverBackend:
         self.kernel_cells_stepped = 0
         self._seed = 0
         self._pack_cache = _LRU(512)  # struct key -> PackedCircuit
+        # test hook: on_stream(stream, entries) before each upload
+        self.on_stream = None
 
-    def count_cap_reject(self, count: int = 1) -> None:
-        """A cone past a kernel capacity: never sent, the CDCL settles
-        it. Mirrored into SolverStatistics."""
+    def count_cap_reject(self, count: int = 1,
+                         under_floor: bool = False) -> None:
+        """A cone the router turned away from the device: never sent, the
+        CDCL settles it. Mirrored into SolverStatistics; `under_floor`
+        flags a cone inside the admission floor (must never happen)."""
         self.cap_rejects += count
-        SolverStatistics().add_cap_reject(count)
+        SolverStatistics().add_cap_reject(count, under_floor=under_floor)
+
+    def pack_problem(self, problem, v1_cap: int):
+        """Levelize one (num_vars, clauses, aig_roots) query through the
+        pack cache; None on a pre-pack var-cap reject (counted), so a
+        query past the kernel's variable space never pays for packing."""
+        num_vars, _clauses, aig_roots = problem[:3]
+        if num_vars + 1 > v1_cap:
+            self.count_cap_reject()
+            return None
+        return self.pack_cone(aig_roots[0], aig_roots[1])
 
     def pack_cone(self, aig, roots, carry_lits=()):
         """Levelize one root cone through the pack cache. `carry_lits`:
@@ -170,8 +199,6 @@ class DeviceSolverBackend:
             self.pack_bytes += pc.nbytes
         return pc
 
-    # -- the window: chunked to the kernel capacities -------------------------
-
     @staticmethod
     def ragged_entry_bytes(pc) -> int:
         """Estimated contribution of one cone to an assembled ragged
@@ -181,84 +208,6 @@ class DeviceSolverBackend:
         rows = pc.level_rows
         widest = int(rows.max()) if len(rows) else 1
         return (pc.num_levels * widest * 5 + pc.v1 * 5) * 4 * 2
-
-    def chunk_window(self, packed, caps: ragged_kernel.KernelCaps,
-                     stream_budget: int) -> Tuple[List[list], list]:
-        """Greedy chunking of (index, pc, extra) entries into streams that
-        fit the kernel: a chunk closes when the next cone would push the
-        combined variable space past var_cap, the cone count past
-        cone_cap, or the estimated stream bytes past `stream_budget`. A
-        single cone over a capacity is returned in `rejected`."""
-        chunks: List[list] = [[]]
-        rejected = []
-        chunk_vars = chunk_bytes = 0
-        for entry in packed:
-            pc, extra = entry[1], entry[2]
-            unit_vars = max(pc.v1 - 1, 0)
-            if (1 + unit_vars > caps.var_cap
-                    or pc.num_roots + len(extra) > caps.root_cap
-                    or pc.num_levels > ragged_kernel.LEVEL_CAP):
-                rejected.append(entry)
-                continue
-            entry_bytes = self.ragged_entry_bytes(pc)
-            if chunks[-1] and (
-                    1 + chunk_vars + unit_vars > caps.var_cap
-                    or len(chunks[-1]) >= caps.cone_cap
-                    or chunk_bytes + entry_bytes > stream_budget):
-                chunks.append([])
-                chunk_vars = chunk_bytes = 0
-            chunks[-1].append(entry)
-            chunk_vars += unit_vars
-            chunk_bytes += entry_bytes
-        return [chunk for chunk in chunks if chunk], rejected
-
-    def solve_window(self, problems: Sequence[Tuple[int, Sequence, Tuple]],
-                     budget_seconds: float = 4.0,
-                     num_restarts: Optional[int] = None,
-                     steps: Optional[int] = None
-                     ) -> List[Optional[List[bool]]]:
-        """The batched device solve of a window of blasted queries
-        ((num_vars, clauses, (aig, roots[, dense])) each): chunked to the
-        kernel capacities, one ragged stream per chunk, all chunks inside
-        one `budget_seconds` deadline, with the cube second pass on the
-        cones the plain rounds miss (MYTHRIL_GPU_CUBE_VARS, 0 = off).
-        Returns per-query model bits or None (the caller's CDCL settles
-        those and alone proves UNSAT)."""
-        caps = ragged_kernel.kernel_caps()
-        stream_budget = env_int("MYTHRIL_GPU_RAGGED_STREAM_BYTES",
-                                RAGGED_STREAM_BYTES_DEFAULT)
-        cube_vars = env_int("MYTHRIL_GPU_CUBE_VARS", CUBE_VARS_DEFAULT)
-        cube_min_levels = env_int("MYTHRIL_GPU_CUBE_MIN_LEVELS",
-                                  CUBE_MIN_LEVELS_DEFAULT)
-        results: List[Optional[List[bool]]] = [None] * len(problems)
-        deadline = time.monotonic() + budget_seconds
-        packed = []
-        for qi, (num_vars, _clauses, aig_roots) in enumerate(problems):
-            if num_vars == 0:
-                continue
-            pc = self.pack_cone(aig_roots[0], aig_roots[1])
-            if pc.ok:
-                packed.append((qi, pc, ()))
-        chunks, rejected = self.chunk_window(packed, caps, stream_budget)
-        if rejected:
-            self.count_cap_reject(len(rejected))
-        for chunk in chunks:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break  # the CDCL settles the rest inside its own window
-            hint = [None] * len(problems)
-            for qi, pc, _extra in chunk:
-                hint[qi] = pc
-            indices = [qi for qi, _pc, _extra in chunk]
-            bits = self.try_solve_batch_ragged(
-                [problems[qi] for qi in indices], budget_seconds=remaining,
-                num_restarts=num_restarts, steps=steps,
-                packed_hint=[hint[qi] for qi in indices],
-                cube_vars=cube_vars, cube_min_levels=cube_min_levels,
-                stream_budget=stream_budget)
-            for qi, model in zip(indices, bits):
-                results[qi] = model
-        return results
 
     # -- ragged flat-stream dispatch (circuit.RaggedStream) ------------------
 
@@ -280,7 +229,7 @@ class DeviceSolverBackend:
         whole window regardless of per-cone shape. Returns per-query model
         bits or None. `extra_roots[qi]`: (local var, want) pins asserted
         as additional roots of that query's cone. Raises when the window
-        exceeds a kernel capacity (solve_window chunks to them).
+        exceeds a kernel capacity (the router chunks to them).
 
         Cones the plain rounds miss get a cube-and-conquer second pass
         when `cube_vars` > 0: the cone is replicated onto a fresh stream
@@ -357,20 +306,22 @@ class DeviceSolverBackend:
         if cubes_shipped:
             stats.add_cube_dispatch(cubes_shipped, cube_refutes)
 
-        for i, (qi, num_vars, pc, dense, _extra) in enumerate(packed):
-            assignment = solved.get(i)
-            if assignment is None:
-                self.fallbacks += 1
-                continue
-            bits = self.bits_from_circuit_assignment(
-                pc, dense, num_vars, assignment)
-            if self._honors(bits, problems[qi][1]):
-                results[qi] = bits
-                self.batch_sat += 1
-                self.sat_found += 1
-            else:
-                self.fallbacks += 1
-                log.warning("ragged circuit model failed host clause check")
+        with trace_span("device.check", cat="device", queries=len(packed)):
+            for i, (qi, num_vars, pc, dense, _extra) in enumerate(packed):
+                assignment = solved.get(i)
+                if assignment is None:
+                    self.fallbacks += 1
+                    continue
+                bits = self.bits_from_circuit_assignment(
+                    pc, dense, num_vars, assignment)
+                if self._honors(bits, problems[qi][1]):
+                    results[qi] = bits
+                    self.batch_sat += 1
+                    self.sat_found += 1
+                else:
+                    self.fallbacks += 1
+                    log.warning(
+                        "ragged circuit model failed host clause check")
         self.device_seconds += time.monotonic() - call_start
         return results
 
@@ -404,6 +355,8 @@ class DeviceSolverBackend:
         if not stream.ok:
             self.ragged_seconds += time.monotonic() - ship_start
             return {}, 0, False
+        if self.on_stream is not None:
+            self.on_stream(stream, entries)
         flat = ragged_kernel.flatten_stream(stream, caps)
         if flat is None:
             raise ValueError(

@@ -13,17 +13,22 @@ check() pipeline:
      against the original constraints with the independent evaluator —
      the soundness net replacing the absent z3 oracle.
 
-This is the pipeline mythril_tpu's frontend runs with pre-analysis off
-(MYTHRIL_TPU_PREANALYSIS=0): no incremental prefix resume, no AIG rewrite,
-no CNF preprocessing and no component split, so both packages blast a
-query into the same AIG and CNF. Optimize is not ported yet.
+With pre-analysis on (the default; preanalysis.enabled()) _prepare also
+resumes a query from a sibling's memoized prefix (incremental.py),
+rewrites the blasted cone (preanalysis/aig_opt.py: constant sweep +
+session strash), records its components (preanalysis/aig_partition.py)
+and preprocesses the CNF (preanalysis/cnf_prep.py), and a host-bound
+solve settles variable-disjoint components one by one. These are
+mythril_tpu's gates, so both packages prepare a query into the same AIG,
+roots, CNF and dense map. Optimize is not ported yet.
 """
 
 import logging
 import time
 from typing import Dict, List, Optional, Tuple
 
-from mythril_tpu_torch.observe.tracer import span as trace_span
+from mythril_tpu_torch import resilience
+from mythril_tpu_torch.observe.tracer import NULL_SPAN, span as trace_span
 from mythril_tpu_torch.smt import terms
 from mythril_tpu_torch.smt.bitblast import Blaster
 from mythril_tpu_torch.smt.bitvec import Expression
@@ -263,6 +268,20 @@ class _Lowering:
         self.side_constraints = []
         return out
 
+    def clone(self) -> "_Lowering":
+        """Independent copy for the incremental prefix memo: a snapshot
+        must survive this query's drain/extend, and a resumed child must
+        not mutate the shared snapshot. Side constraints are copied
+        UNDRAINED so a resume appends the suffix's constraints to the
+        prefix's and the final drain reproduces the full pipeline's root
+        order exactly."""
+        twin = _Lowering.__new__(_Lowering)
+        twin.cache = dict(self.cache)
+        twin.side_constraints = list(self.side_constraints)
+        twin.array_reads = {k: list(v) for k, v in self.array_reads.items()}
+        twin.func_apps = {k: list(v) for k, v in self.func_apps.items()}
+        twin._fresh = self._fresh
+        return twin
 
     def _lower_node(self, term: Term) -> Term:
         op = term.op
@@ -435,21 +454,33 @@ class Solver:
 
     def _prepare(self, extra: List[Term]) -> "_Prepared":
         """Simplify, lower, and blast the assertion set. Timed into
-        prepare_wall and traced as the solver.prepare stage."""
+        prepare_wall and traced as the solver.prepare stage (its `mode`
+        attr tells a prefix resume from the full pipeline)."""
         start = time.monotonic()
         with trace_span("solver.prepare", cat="solver",
-                        constraints=len(self.constraints) + len(extra)):
+                        constraints=len(self.constraints) + len(extra)) as sp:
             try:
-                return self._prepare_impl(extra)
+                return self._prepare_impl(extra, sp)
             finally:
                 SolverStatistics().add_prepare_seconds(
                     time.monotonic() - start)
 
-    def _prepare_impl(self, extra: List[Term]) -> "_Prepared":
+    def _prepare_impl(self, extra: List[Term], sp=NULL_SPAN) -> "_Prepared":
+        from mythril_tpu_torch import preanalysis
+        from mythril_tpu_torch.smt.solver import incremental
+
         prep = _Prepared()
+        # incremental cross-query preparation (smt/solver/incremental.py):
+        # memoized simplify + prefix-snapshot resume. A fault inside it
+        # degrades THIS query to the full pipeline, and repeated faults
+        # blow the session fuse so the layer stays off
+        use_incr = (incremental.enabled()
+                    and not resilience.fuse_blown("prepare.incremental"))
+        simplify = (incremental.simplify_cached if use_incr
+                    else terms.simplify_expr)
         asserted: List[Term] = []
         for term in self.constraints + extra:
-            term = terms.simplify_expr(term)
+            term = simplify(term)
             if term.is_const:
                 if term.value is False:
                     prep.trivial = UNSAT
@@ -458,32 +489,69 @@ class Solver:
             asserted.append(term)
         prep.original = asserted
 
-        # pre-blast word-level preprocessing: substitute asserted
-        # definitions (sym == rhs) through the set before any lowering
-        asserted_residual, prep.substitutions, unsat = \
-            propagate_equalities(asserted)
-        if unsat:
+        resume = None
+        if use_incr:
+            try:
+                resume = incremental.try_resume(asserted)
+            except Exception:
+                log.warning("incremental prefix resume failed; full "
+                            "prepare pipeline for this query",
+                            exc_info=True)
+                resilience.note_stage_failure("prepare.incremental")
+                use_incr = False
+                resume = None
+        if resume is not None and resume.unsat:
             prep.trivial = UNSAT
             return prep
-        # then narrow constant-bounded symbols so their high bits become
-        # structural zeros (collapses multiplier/comparison cones)
-        taken = {name for name, _ in prep.substitutions}
-        asserted_residual, narrow_subs = narrow_bounded_symbols(
-            asserted_residual, taken
-        )
-        prep.substitutions = prep.substitutions + narrow_subs
-        if asserted_residual is None:
-            prep.trivial = UNSAT
-            return prep
+        sp.set(mode="prefix_resume" if resume is not None else "full")
+        if resume is not None:
+            # path constraints grow monotonically: this query's list is a
+            # memoized sibling's plus a suffix — the prefix's substitution
+            # map, lowering state and lowered terms are resumed and only
+            # the suffix runs the word-level pipeline below
+            asserted_residual = resume.suffix_residual
+            residual_full = resume.residual
+            prep.substitutions = resume.substitutions
+            taken_equal = resume.taken_equal
+            taken_narrow = resume.taken_narrow
+            lowering = resume.lowering
+            lowered_prefix = resume.lowered_prefix
+        else:
+            # pre-blast word-level preprocessing: substitute asserted
+            # definitions (sym == rhs) through the set before any lowering
+            asserted_residual, prep.substitutions, unsat = \
+                propagate_equalities(asserted)
+            if unsat:
+                prep.trivial = UNSAT
+                return prep
+            taken_equal = {name for name, _ in prep.substitutions}
+            # then narrow constant-bounded symbols so their high bits become
+            # structural zeros (collapses multiplier/comparison cones)
+            asserted_residual, narrow_subs = narrow_bounded_symbols(
+                asserted_residual, set(taken_equal)
+            )
+            prep.substitutions = prep.substitutions + narrow_subs
+            taken_narrow = {name for name, _ in narrow_subs}
+            if asserted_residual is None:
+                prep.trivial = UNSAT
+                return prep
+            residual_full = asserted_residual
+            lowering = _Lowering()
+            lowered_prefix = []
 
-        lowering = _Lowering()
         try:
-            lowered = [lowering.lower(t) for t in asserted_residual]
+            lowered = lowered_prefix + [
+                lowering.lower(t) for t in asserted_residual]
         except NotImplementedError:
             prep.trivial = UNKNOWN
             return prep
+        if use_incr:
+            # snapshot BEFORE draining side constraints so a resumed child
+            # reproduces the full pipeline's root ordering
+            incremental.record(asserted, residual_full, prep.substitutions,
+                               taken_equal, taken_narrow, lowering, lowered)
         lowered = lowered + lowering.drain_side_constraints()
-        lowered = [terms.simplify_expr(t) for t in lowered]
+        lowered = [simplify(t) for t in lowered]
         if any(t.is_const and t.value is False for t in lowered):
             prep.trivial = UNSAT
             return prep
@@ -494,15 +562,108 @@ class Solver:
 
         prep.lowering = lowering
         prep.blaster = get_global_blaster()
-        prep.num_vars, prep.clauses, prep.var_dense = prep.blaster.cnf(lowered)
-        prep.aig_roots = (prep.blaster.aig, list(prep.blaster.last_roots),
-                          prep.var_dense)
-        prep.symbols = set(terms.free_symbols(lowered))
+        # AIG rewrite (preanalysis/aig_opt.py): the blasted cone is swept
+        # (root-forced constants propagated, dead fanout pruned, trivially
+        # UNSAT roots detected — the verdict still settles through the
+        # CDCL) and re-strashed BEFORE the CNF is emitted, so the router
+        # and the host CDCL consume the smaller rewritten instance.
+        # prep.var_dense stays in ORIGINAL global numbering (composed
+        # through the rewrite's input map) so _reconstruct works unchanged,
+        # while prep.aig_roots carries the rewritten (aig, roots, dense).
+        aig_opted = False
+        if not resilience.fuse_blown("aig.session"):
+            from mythril_tpu_torch.preanalysis import aig_opt
+
+            if aig_opt.enabled():
+                # a fault anywhere in the rewrite degrades THIS query to
+                # the un-rewritten blaster CNF below (assert_bool/cnf are
+                # memoized, so the fallback lands on identical roots);
+                # repeated faults blow the session fuse
+                try:
+                    roots = [prep.blaster.assert_bool(t) for t in lowered]
+                    prep.blaster.last_roots = roots
+                    with trace_span("solver.aig_opt", cat="solver",
+                                    roots=len(roots)):
+                        opt = aig_opt.optimize_roots_cached(
+                            prep.blaster.aig, roots)
+                    if opt is not None:
+                        prep.num_vars, prep.clauses, opt_dense = \
+                            opt.aig.to_cnf(list(opt.roots))
+                        prep.aig_roots = (opt.aig, list(opt.roots),
+                                          opt_dense)
+                        prep.var_dense = aig_opt.ComposedDense(
+                            opt.input_map, opt_dense)
+                        stats = SolverStatistics()
+                        stats.add_aig_opt(
+                            opt.nodes_before, opt.nodes_after,
+                            opt.strash_merges, opt.const_folds,
+                            trivial_unsat=opt.trivially_unsat)
+                        stats.add_strash_xquery(opt.xquery_merges)
+                        from mythril_tpu_torch.preanalysis import (
+                            aig_partition,
+                        )
+
+                        partition = aig_partition.partition_cached(
+                            opt.aig, opt.roots)
+                        if partition is not None:
+                            stats.add_aig_components(
+                                len(partition.components))
+                        aig_opted = True
+                except Exception:
+                    log.warning("AIG session optimization failed; "
+                                "un-rewritten CNF for this query",
+                                exc_info=True)
+                    resilience.note_stage_failure("aig.session")
+                    aig_opted = False
+        if not aig_opted:
+            prep.num_vars, prep.clauses, prep.var_dense = prep.blaster.cnf(
+                lowered)
+            prep.aig_roots = (prep.blaster.aig,
+                              list(prep.blaster.last_roots),
+                              prep.var_dense)
+        if use_incr:
+            # per-root memoized scan: sibling queries share most roots
+            prep.symbols = set(incremental.free_symbols_cached(lowered))
+        else:
+            prep.symbols = set(terms.free_symbols(lowered))
+        # CNF preprocessing (preanalysis/cnf_prep.py): unit propagation +
+        # pure literals BEFORE router dispatch, numbering preserved. The
+        # pure rule is withheld when the instance may ride the device: the
+        # circuit kernel searches the ORIGINAL AIG's model space, and a
+        # model putting a pure-pinned variable at the opposite polarity
+        # would fail the clause check. An AIG-rewritten instance is always
+        # device-possible here. A propagation CONFLICT does not short-
+        # circuit: the CDCL re-derives it and applies the crosscheck policy.
+        if preanalysis.enabled():
+            from mythril_tpu_torch.preanalysis.cnf_prep import preprocess_cnf
+            from mythril_tpu_torch.support.args import args as _args
+
+            device_possible = (
+                (_args.solver_backend == "gpu" and self.allow_device)
+                or aig_opted)
+            with trace_span("solver.cnf_prep", cat="solver",
+                            clauses=len(prep.clauses)):
+                simplified = preprocess_cnf(
+                    prep.num_vars, prep.clauses,
+                    allow_pure=not device_possible)
+            if simplified is not None and simplified.changed \
+                    and not simplified.conflict:
+                SolverStatistics().add_cnf_preprocess(
+                    simplified.units, simplified.pures,
+                    simplified.removed_clauses, simplified.rounds)
+                prep.clauses = simplified.cnf
         return prep
 
     def _solve_prepared(self, prep: "_Prepared",
                         assumptions: List[int] = ()) -> str:
         aig_roots = prep.aig_roots if not assumptions else None
+        # connected-component splitting (preanalysis/cnf_prep.py): when
+        # this solve is host-CDCL-bound anyway, variable-disjoint
+        # sub-instances settle independently
+        if not assumptions and prep.session is None:
+            split_status = self._try_solve_split(prep)
+            if split_status is not None:
+                return split_status
         # per-query session: the instance loads into a persistent native
         # solver on first use; later solves reuse it under assumptions
         if prep.session is None and prep.blaster is not None:
@@ -524,6 +685,59 @@ class Solver:
             self._model = self._reconstruct(prep, bits)
         return status
 
+    def _try_solve_split(self, prep: "_Prepared") -> Optional[str]:
+        """Settle a multi-component instance component by component on the
+        host CDCL; None when splitting does not apply (single component,
+        oversize, preanalysis off, or a device dispatch is still possible
+        for the whole cone — the circuit kernel needs the full AIG)."""
+        from mythril_tpu_torch import preanalysis
+        from mythril_tpu_torch.support.args import args as _args
+
+        if not preanalysis.enabled():
+            return None
+        if (_args.solver_backend == "gpu" and self.allow_device
+                and prep.aig_roots is not None):
+            return None
+        from mythril_tpu_torch.preanalysis.cnf_prep import (
+            merge_component_bits,
+            split_components,
+        )
+
+        components = split_components(prep.num_vars, prep.clauses)
+        if components is None:
+            return None
+        SolverStatistics().add_cnf_split(len(components))
+        deadline = (time.monotonic() + self.timeout) if self.timeout else None
+        bits_list = []
+        for component in components:
+            if component.trivial_bits is not None:
+                # all-unit consistent component: its model is its literals
+                bits_list.append(component.trivial_bits)
+                continue
+            remaining = 0.0
+            if deadline is not None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return UNKNOWN
+            status, bits = sat_backend.solve_cnf(
+                component.num_vars,
+                component.cnf,
+                timeout_seconds=max(remaining, 0.0),
+                conflict_budget=self.conflict_budget,
+                allow_device=False,
+                # an UNSAT component proves the whole instance UNSAT
+                crosscheck=self.unsat_crosscheck,
+            )
+            if status == UNSAT:
+                return UNSAT
+            if status != SAT:
+                return UNKNOWN
+            bits_list.append(bits)
+        merged = merge_component_bits(prep.num_vars, components, bits_list)
+        prep.last_bits = merged
+        self._model = self._reconstruct(prep, merged)
+        return SAT
+
     def _check(self, extra: List[Term]) -> str:
         self._model = None
         prep = self._prepare(extra)
@@ -531,6 +745,7 @@ class Solver:
             if prep.trivial == SAT:
                 self._model = self._trivial_model(prep)
             return prep.trivial
+        self.last_prep = prep  # the prepared instance, for tests and tools
         return self._solve_prepared(prep)
 
     @staticmethod

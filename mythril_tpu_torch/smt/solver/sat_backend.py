@@ -193,7 +193,7 @@ def solve_cnf(
 
     With `args.solver_backend == "gpu"` a conflict-budgeted CDCL probe
     settles the easy queries first, then the device circuit-SLS solver
-    (gpu/backend.py) searches the rest. It can only return a model, which
+    (gpu/router.py) searches the rest. It can only return a model, which
     is re-checked on the host; the CDCL stays the UNSAT prover. A device
     error raises: the device is never silently skipped.
     """
@@ -213,11 +213,14 @@ def solve_cnf(
             if probe_status != UNKNOWN:
                 return probe_status, probe_model
         if aig_roots is not None and not assumptions:
-            from mythril_tpu_torch.gpu.backend import get_device_backend
+            from mythril_tpu_torch.gpu.router import get_router
 
+            # the router owns the device decision; a lone query is a
+            # window of one
             stats = SolverStatistics()
-            bits = get_device_backend(args.torch_device).solve_window(
-                [(num_vars, clauses, aig_roots)], timeout_seconds or 4.0)[0]
+            bits = get_router(args.torch_device).dispatch(
+                [(num_vars, clauses, aig_roots)], timeout_seconds,
+                stats)[0]
             stats.add_device_batch_query(hit=bits is not None)
             if bits is not None:
                 return SAT, bits

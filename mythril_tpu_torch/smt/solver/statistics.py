@@ -1,7 +1,7 @@
 """Query-count/time singleton (reference laser/smt/solver/solver_statistics.py).
 
-The counters of mythril_tpu.smt.solver.statistics that the batched device
-solve touches, under the same names; the Pallas launch counters are named
+The counters of mythril_tpu.smt.solver.statistics that the port's solve
+path touches, under the same names; the Pallas launch counters are named
 kernel_* here (one CUDA kernel launch per ragged round)."""
 
 
@@ -18,13 +18,73 @@ class SolverStatistics:
         "device_batch_queries",
         "device_batch_hits",
         "device_ineligible",
-        # cones past a kernel capacity: never sent, the CDCL settles them
+        # cones the router turned away from the device (the CDCL settles
+        # them); _floor: ones inside the level x cell floor the router
+        # promises to admit — must stay 0
         "cap_rejects",
+        "cap_rejects_floor",
+        # router decisions (gpu/router.py): cones sent straight to the
+        # host CDCL, ragged launches with the cones they carried (slots
+        # == cones: a stream pads no query axis), and the clause volume
+        # of the queries that reached the router
+        "router_host_direct",
+        "device_dispatches",
+        "device_dispatched_queries",
+        "device_slots",
+        "router_dispatched_clauses",
         "crosscheck_runs",
         "crosscheck_cap_skips",
+        # result tiers (support/model.py): the in-memory term-keyed tier
+        # and the recent-model quick-sat probe
+        "memory_hits",
+        "quick_sat_hits",
+        # coalescing scheduler windows (service/scheduler.py)
+        "window_flushes",
+        "coalesced_queries",
         # real host-CDCL solver invocations and the clauses they processed
         "cdcl_settles",
         "cdcl_clauses",
+        # pre-analysis (preanalysis/): CNF unit propagation, pure
+        # literals and clauses removed; instances the settle split into
+        # components
+        "cnf_units_propagated",
+        "cnf_pure_literals",
+        "cnf_clauses_removed",
+        "cnf_components_split",
+        # propagation rounds of the preprocessed instances (one pass over
+        # every literal each)
+        "cnf_prep_rounds",
+        # the AIG rewrite (preanalysis/aig_opt.py): cone sizes before and
+        # after, what each pass removed, the components of the rewritten
+        # cones, and the components that rode a device launch alone
+        "aig_nodes_before",
+        "aig_nodes_after",
+        "aig_strash_merges",
+        "aig_const_folds",
+        "aig_trivial_unsat",
+        "aig_components",
+        "aig_device_components",
+        # components K1 found a model for, and non-trivial components
+        # the router planned for its in-router host settle
+        "aig_device_component_hits",
+        "aig_host_components",
+        # queries the router returned a model for: every non-trivial part
+        # found by K1 (device_found), at least one component settled on
+        # the host CDCL inside the router (host_settled), or every
+        # component all-unit (trivial_settled); the three sum to
+        # device_batch_hits
+        "router_device_found",
+        "router_host_settled",
+        "router_trivial_settled",
+        # incremental preparation (smt/solver/incremental.py): simplify
+        # memo hits, prefix resumes (with their summed suffix terms),
+        # guarded fallbacks, and gates reused from sibling queries by the
+        # session strash table
+        "prepare_incremental_hits",
+        "prepare_prefix_resumes",
+        "prepare_prefix_fallbacks",
+        "prepare_suffix_terms",
+        "strash_xquery_merges",
         # ragged streams (one kernel round loop per stream), the cones
         # they carried and the assembled stream bytes
         "ragged_windows",
@@ -38,6 +98,17 @@ class SolverStatistics:
         # block-aligned gate cells they stepped
         "kernel_launches",
         "kernel_cells_stepped",
+        # the fork lane: pairs the router tried to pack as one shared cone
+        # and pairs it did, and launches that carried fork-side cones
+        "fork_pair_pack_attempts",
+        "fork_pair_pack_hits",
+        "fork_stream_dispatches",
+        # resilience events (resilience/): degraded stages, breaker trips
+        # and half-open re-probes, stale lock breaks
+        "resilience_degraded",
+        "resilience_breaker_trips",
+        "resilience_breaker_probes",
+        "resilience_stale_lock_breaks",
     )
     _TIMERS = (
         "solver_time",
@@ -47,6 +118,13 @@ class SolverStatistics:
         "settle_wall",
         "crosscheck_wall",
     )
+    # resilience event name -> the counter it rolls up into
+    _RESILIENCE_EVENT_COUNTERS = {
+        "degraded": "resilience_degraded",
+        "breaker_trip": "resilience_breaker_trips",
+        "breaker_probe": "resilience_breaker_probes",
+        "stale_break": "resilience_stale_lock_breaks",
+    }
 
     def __new__(cls):
         if cls._instance is None:
@@ -57,6 +135,10 @@ class SolverStatistics:
             for name in cls._TIMERS:
                 setattr(cls._instance, name, 0.0)
         return cls._instance
+
+    def _add(self, name: str, count=1) -> None:
+        if self.enabled:
+            setattr(self, name, getattr(self, name) + count)
 
     def add_query(self, seconds: float) -> None:
         if self.enabled:
@@ -79,30 +161,58 @@ class SolverStatistics:
 
     def add_device_ineligible(self) -> None:
         """A query that could not take the device path (empty clause)."""
-        if self.enabled:
-            self.device_ineligible += 1
+        self._add("device_ineligible")
 
-    def add_cap_reject(self, count: int = 1) -> None:
-        """A cone past a kernel capacity, settled by the CDCL instead."""
+    def add_cap_reject(self, count: int = 1,
+                       under_floor: bool = False) -> None:
+        """A cone the router turned away from the device, settled by the
+        CDCL instead; `under_floor` marks one inside the admission floor."""
         if self.enabled:
             self.cap_rejects += count
+            if under_floor:
+                self.cap_rejects_floor += count
 
-    def add_device_seconds(self, seconds: float) -> None:
+    def add_host_direct(self, count: int = 1) -> None:
+        """A cone the router sent straight to the host CDCL (too shallow
+        to be worth a device slot)."""
+        self._add("router_host_direct", count)
+
+    def add_device_dispatch(self, queries: int, slots: int,
+                            seconds: float) -> None:
+        """One device launch sequence (a ragged stream) carrying `queries`
+        cones in `slots` slots."""
         if self.enabled:
+            self.device_dispatches += 1
+            self.device_dispatched_queries += queries
+            self.device_slots += slots
             self.route_device_seconds += seconds
 
+    def add_router_clauses(self, clauses: int) -> None:
+        """CNF clause volume of a query reaching the device router."""
+        self._add("router_dispatched_clauses", clauses)
+
     def add_host_route_seconds(self, seconds: float) -> None:
-        if self.enabled:
-            self.route_host_seconds += seconds
+        self._add("route_host_seconds", seconds)
 
     def add_crosscheck(self, skipped: bool) -> None:
         """A detection-path UNSAT verdict's second opinion: ran, or was
         skipped by CROSSCHECK_CLAUSE_CAP."""
+        self._add("crosscheck_cap_skips" if skipped else "crosscheck_runs")
+
+    def add_memory_hit(self) -> None:
+        """A query settled by the in-memory term-keyed result tier."""
+        self._add("memory_hits")
+
+    def add_quick_sat_hit(self) -> None:
+        """A query settled by the recent-model quick-sat probe."""
+        self._add("quick_sat_hits")
+
+    def add_window_flush(self, queries: int) -> None:
+        """One coalescing-scheduler flush covering `queries` buffered
+        queries (service/scheduler.py)."""
         if self.enabled:
-            if skipped:
-                self.crosscheck_cap_skips += 1
-            else:
-                self.crosscheck_runs += 1
+            self.window_flushes += 1
+            self.coalesced_queries += queries
 
     def add_cdcl_settle(self, clauses: int = 0,
                         seconds: float = 0.0) -> None:
@@ -114,8 +224,82 @@ class SolverStatistics:
             self.settle_wall += seconds
 
     def add_crosscheck_seconds(self, seconds: float) -> None:
+        self._add("crosscheck_wall", seconds)
+
+    def add_cnf_preprocess(self, units: int, pures: int,
+                           removed_clauses: int, rounds: int = 0) -> None:
+        """One blasted instance simplified by the CNF preprocessor
+        (preanalysis/cnf_prep.py) in `rounds` propagation rounds."""
         if self.enabled:
-            self.crosscheck_wall += seconds
+            self.cnf_units_propagated += units
+            self.cnf_pure_literals += pures
+            self.cnf_clauses_removed += removed_clauses
+            self.cnf_prep_rounds += rounds
+
+    def add_cnf_split(self, components: int) -> None:
+        """One instance the CDCL settled as `components` variable-disjoint
+        sub-instances."""
+        self._add("cnf_components_split", components)
+
+    def add_aig_opt(self, nodes_before: int, nodes_after: int,
+                    strash_merges: int, const_folds: int,
+                    trivial_unsat: bool = False) -> None:
+        """One blasted cone rewritten by the AIG sweep + strash
+        (preanalysis/aig_opt.py)."""
+        if self.enabled:
+            self.aig_nodes_before += nodes_before
+            self.aig_nodes_after += nodes_after
+            self.aig_strash_merges += strash_merges
+            self.aig_const_folds += const_folds
+            if trivial_unsat:
+                self.aig_trivial_unsat += 1
+
+    def add_aig_components(self, components: int) -> None:
+        """One rewritten cone partitioned into `components` components."""
+        self._add("aig_components", components)
+
+    def add_aig_device_components(self, components: int) -> None:
+        """Partitioned sub-cones that rode a device launch individually."""
+        self._add("aig_device_components", components)
+
+    def add_aig_device_component_hits(self, components: int) -> None:
+        """Dispatched components K1 found a model for."""
+        self._add("aig_device_component_hits", components)
+
+    def add_aig_host_components(self, components: int) -> None:
+        """Non-trivial components planned for the router's host settle
+        (too shallow, or past a capacity)."""
+        self._add("aig_host_components", components)
+
+    def add_router_model(self, how: str) -> None:
+        """A query the router returned a model for, by how it was found:
+        "device" (K1 found every non-trivial part), "host" (at least one
+        component settled on the host CDCL inside the router) or
+        "trivial" (every component all-unit, no solve at all)."""
+        self._add("router_" + {"device": "device_found",
+                               "host": "host_settled",
+                               "trivial": "trivial_settled"}[how])
+
+    def add_prepare_simplify_hits(self, count: int = 1) -> None:
+        """Terms whose simplification the cross-query memo served."""
+        self._add("prepare_incremental_hits", count)
+
+    def add_prefix_resume(self, suffix_terms: int) -> None:
+        """One prepare resumed from a sibling query's prefix snapshot;
+        only `suffix_terms` new constraints ran the word-level pipeline."""
+        if self.enabled:
+            self.prepare_prefix_resumes += 1
+            self.prepare_suffix_terms += suffix_terms
+
+    def add_prefix_fallback(self) -> None:
+        """A prepare that found a prefix snapshot but had to re-run the
+        full pipeline (the resume guard)."""
+        self._add("prepare_prefix_fallbacks")
+
+    def add_strash_xquery(self, count: int) -> None:
+        """Gates a cone rewrite reused from sibling queries through the
+        session strash table."""
+        self._add("strash_xquery_merges", count)
 
     def add_ragged_window(self, cones: int, stream_bytes: int) -> None:
         """One ragged flat stream dispatched, with the assembled
@@ -140,11 +324,28 @@ class SolverStatistics:
             self.kernel_launches += 1
             self.kernel_cells_stepped += cells
 
+    def add_fork_pair_pack(self, hit: bool) -> None:
+        """One fork pair the router tried to pack as a shared cone; `hit`
+        = it did, and both sides ride one page set."""
+        if self.enabled:
+            self.fork_pair_pack_attempts += 1
+            if hit:
+                self.fork_pair_pack_hits += 1
+
+    def add_fork_stream_dispatch(self, count: int = 1) -> None:
+        """One ragged stream that carried fork-side feasibility cones."""
+        self._add("fork_stream_dispatches", count)
+
+    def add_resilience_event(self, event: str, count: int = 1) -> None:
+        """One fault-containment event (resilience/)."""
+        counter = self._RESILIENCE_EVENT_COUNTERS.get(event)
+        if counter is not None:
+            self._add(counter, count)
+
     def add_prepare_seconds(self, seconds: float) -> None:
         """Wall spent inside Solver._prepare (simplify + substitution +
-        lowering + blasting)."""
-        if self.enabled:
-            self.prepare_wall += seconds
+        lowering + blasting + AIG rewrite + CNF preprocessing)."""
+        self._add("prepare_wall", seconds)
 
     def reset(self) -> None:
         for name in self._COUNTERS:

@@ -4,23 +4,30 @@ get_models_batch(constraint_sets) takes N constraint lists (sibling-path
 feasibility checks) and returns N entries of ("sat", Model) /
 ("unsat", None) / ("unknown", None):
 
-  prepare each query on the host (simplify, lower, blast) -> with
-  `args.solver_backend == "gpu"`, one batched device solve of every
-  eligible query (gpu/backend.py: chunked to the kernel capacities, one
-  ragged stream per chunk) -> every device model is rebuilt and validated
-  against the original constraints -> the host CDCL settles the rest and
-  alone proves UNSAT.
+  memory result tier -> quick-sat probe over recent models -> prepare on
+  the host (simplify, lower, blast; with pre-analysis the prefix resume,
+  AIG rewrite and CNF preprocessing) -> with `args.solver_backend ==
+  "gpu"`, the adaptive router (gpu/router.py) sends the eligible queries
+  to the device -> every device model is rebuilt and validated against
+  the original constraints -> the host CDCL settles the rest and alone
+  proves UNSAT -> verdicts land in the memory tiers.
 
-The JAX package's memory/quick-sat/persistent result tiers and its
-adaptive router are not ported yet; a device error raises out of here.
+A device error raises out of here (the JAX package falls back to the
+CDCL). Its persistent disk tier (store, fingerprints) and get_model wait
+for later slices.
 """
 
 import os
 import time
+from collections import OrderedDict, deque
+from contextlib import nullcontext
 from typing import List, Optional
 
 from mythril_tpu_torch.observe.tracer import span as trace_span
+from mythril_tpu_torch.service import memory_tier_enabled
+from mythril_tpu_torch.service.interleave import blaster_scope, current_origin
 from mythril_tpu_torch.smt.bitvec import Expression
+from mythril_tpu_torch.smt.model import Model
 from mythril_tpu_torch.smt.solver.frontend import SAT, UNSAT, Solver
 from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
 from mythril_tpu_torch.support.args import args
@@ -34,24 +41,86 @@ def _crosscheck_wanted() -> bool:
                                                                      "0")
 
 
+class ModelCache:
+    """Recent models probed before any real solve
+    (reference support_utils.py:57-68)."""
+
+    def __init__(self, maxlen: int = 100):
+        self.models = deque(maxlen=maxlen)
+
+    def check_quick_sat(self, constraints) -> Optional[Model]:
+        for model in self.models:
+            if model.satisfies(constraints):
+                return model
+        return None
+
+    def put(self, model: Model) -> None:
+        self.models.appendleft(model)
+
+
+model_cache = ModelCache()
+
+_result_cache: "OrderedDict" = OrderedDict()
+# entries pin whole constraint-term DAGs (keys are Term tuples verified by
+# structural equality), so keep the cap modest to bound retention
+_RESULT_CACHE_MAX = 2 ** 12
+
+# per-origin memory tiers: each contract's analysis in an interleaved run
+# gets its OWN term-keyed result cache and quick-sat deque, so verdicts
+# and witness models do not depend on which sibling contracts shared the
+# process; get_models_batch resolves them PER QUERY
+_origin_caches: dict = {}
+
+
+def caches_for_origin(origin):
+    """(result cache, model cache) for `origin`; the module globals for
+    origin-less traffic."""
+    if origin is None:
+        return _result_cache, model_cache
+    if origin not in _origin_caches:
+        _origin_caches[origin] = (OrderedDict(), ModelCache())
+    return _origin_caches[origin]
+
+
+def _cache_key(terms_list) -> Optional[tuple]:
+    """Order- and multiplicity-insensitive key: the DEDUPLICATED constraint
+    terms sorted by hash. The stored entry is verified by structural
+    equality on lookup (Term.__eq__), so a hash collision cannot alias two
+    constraint sets' verdicts."""
+    try:
+        return tuple(sorted(dict.fromkeys(terms_list), key=hash))
+    except TypeError:
+        return None
+
+
 def get_models_batch(
     constraint_sets,
     enforce_execution_time: bool = True,
     solver_timeout: Optional[int] = None,
     crosscheck: Optional[bool] = None,
+    fork_pairs=None,
+    origins=None,
 ) -> List:
     """Batched multi-query solve — THE production device fan-out.
-    `crosscheck` requests the permuted-instance UNSAT second opinion on the
-    CDCL settling pass (None = MYTHRIL_GPU_UNSAT_CROSSCHECK)."""
+
+    `crosscheck` requests the permuted-instance UNSAT second opinion on
+    the CDCL settling pass (None = MYTHRIL_GPU_UNSAT_CROSSCHECK).
+    `fork_pairs`: (i, j) index pairs marking the taken/fall-through sides
+    of one batched JUMPI fork — a routing hint only (the router packs a
+    pair's shared cone once; verdicts are untouched). `origins`: per-query
+    contract tags (None entries for untagged traffic), which select the
+    per-origin memory tiers and blasters."""
     with trace_span("solver.batch", cat="solver",
                     queries=len(constraint_sets)):
         return _get_models_batch_impl(constraint_sets,
                                       enforce_execution_time,
-                                      solver_timeout, crosscheck)
+                                      solver_timeout, crosscheck,
+                                      fork_pairs, origins)
 
 
 def _get_models_batch_impl(constraint_sets, enforce_execution_time,
-                           solver_timeout, crosscheck) -> List:
+                           solver_timeout, crosscheck, fork_pairs,
+                           origins) -> List:
     stats = SolverStatistics()
     results: List = [None] * len(constraint_sets)
     if crosscheck is None:
@@ -64,71 +133,172 @@ def _get_models_batch_impl(constraint_sets, enforce_execution_time,
         timeout_s = min(timeout_s,
                         max(time_handler.time_remaining() - 0.5, 0.05))
 
-    pending: List[tuple] = []  # (idx, solver, prep)
+    use_memory_tier = memory_tier_enabled()
+    if origins is None:
+        origins = [current_origin()] * len(constraint_sets)
+
+    def origin_of(index):
+        return origins[index] if index < len(origins) else None
+
+    # fork-pair members prepare under the root-forcing-deferred aig_opt
+    # sweep (preanalysis/aig_opt.deferred_forcing): the per-side forced
+    # sweep would diverge the pair's shared base roots, which is exactly
+    # what the router's shared-cone pair packing keys on
+    fork_members = set()
+    if fork_pairs and args.solver_backend == "gpu":
+        for pair in fork_pairs:
+            fork_members.update(pair)
+
+    pending: List[tuple] = []  # (idx, key, solver, prep)
     start = time.monotonic()
     for idx, constraints in enumerate(constraint_sets):
         raw_constraints = [
             c.raw if isinstance(c, Expression) else c for c in constraints
         ]
+        tier, quick_cache = caches_for_origin(origin_of(idx))
+        with trace_span("cache.probe", cat="solver"):
+            key = _cache_key(raw_constraints) if use_memory_tier else None
+            cached = tier.get(key) if key is not None else None
+            quick = (quick_cache.check_quick_sat(raw_constraints)
+                     if cached is None else None)
+        if cached is not None:
+            stats.add_memory_hit()
+            results[idx] = (("sat", cached) if isinstance(cached, Model)
+                            else ("unsat", None))
+            continue
+        if quick is not None:
+            stats.add_quick_sat_hit()
+            if key is not None:
+                _store_result(key, quick, tier)
+            results[idx] = ("sat", quick)
+            continue
         solver = Solver(timeout=timeout_s)
         solver.add(raw_constraints)
-        prep = solver._prepare([])
+        if idx in fork_members:
+            from mythril_tpu_torch.preanalysis import aig_opt
+
+            prep_scope = aig_opt.deferred_forcing()
+        else:
+            prep_scope = nullcontext()
+        with blaster_scope(origin_of(idx)), prep_scope:
+            prep = solver._prepare([])
         if prep.trivial is not None:
             if prep.trivial == SAT:
                 # preprocessing may have eliminated every constraint via
                 # substitutions — the model must still carry those values
-                results[idx] = ("sat", solver._trivial_model(prep))
+                model = solver._trivial_model(prep)
+                results[idx] = ("sat", model)
+                if key is not None:
+                    _store_result(key, model, tier)
             elif prep.trivial == UNSAT:
                 results[idx] = ("unsat", None)
+                if key is not None:
+                    _store_result(key, UNSAT, tier)
             else:
                 results[idx] = ("unknown", None)
             continue
-        pending.append((idx, solver, prep))
+        pending.append((idx, key, solver, prep))
 
     if pending and args.solver_backend == "gpu":
-        from mythril_tpu_torch.gpu.backend import get_device_backend
+        from mythril_tpu_torch.gpu.router import get_router
 
         eligible = []
         ineligible = []
         for entry in pending:
-            prep = entry[2]
+            prep = entry[3]
             if prep.blaster is not None and not prep.clauses.has_empty:
                 eligible.append(entry)
             else:
                 ineligible.append(entry)
                 stats.add_device_ineligible()
-        device_start = time.monotonic()
-        # half the window's budget at most: the CDCL settle pass keeps a
-        # real window for the misses and the UNSAT proofs
-        bits_list = get_device_backend(args.torch_device).solve_window(
+        # remap fork pairs onto the eligible-problem axis: a pair survives
+        # only when BOTH sides reached the router
+        eligible_pairs = None
+        if fork_pairs:
+            position = {entry[0]: pos for pos, entry in enumerate(eligible)}
+            eligible_pairs = [
+                (position[i], position[j]) for i, j in fork_pairs
+                if i in position and j in position] or None
+        bits_list = get_router(args.torch_device).dispatch(
             [(p.num_vars, p.clauses, p.aig_roots)
-             for _, _, p in eligible], timeout_s / 2)
-        stats.add_device_seconds(time.monotonic() - device_start)
+             for _i, _k, _s, p in eligible],
+            timeout_s, stats, fork_pairs=eligible_pairs,
+            origins=[origin_of(entry[0]) for entry in eligible])
         still_pending = list(ineligible)
-        for (idx, solver, prep), bits in zip(eligible, bits_list):
+        for (idx, key, solver, prep), bits in zip(eligible, bits_list):
             stats.add_device_batch_query(hit=bits is not None)
             if bits is None:
-                still_pending.append((idx, solver, prep))
+                still_pending.append((idx, key, solver, prep))
                 continue
             # validated against the original constraints: a model that
             # passed the clause check but fails here is a solver bug
             prep.last_bits = bits
-            results[idx] = ("sat", solver._reconstruct(prep, bits))
+            with trace_span("solver.reconstruct", cat="solver"):
+                model = solver._reconstruct(prep, bits)
+            results[idx] = ("sat", model)
+            tier, quick_cache = caches_for_origin(origin_of(idx))
+            if key is not None:
+                _store_result(key, model, tier)
+                quick_cache.put(model)
         pending = still_pending
 
     # CDCL settles the rest (and proves UNSAT); no device re-entry
     settle_start = time.monotonic()
-    for idx, solver, prep in pending:
-        solver.allow_device = False
-        solver.unsat_crosscheck = crosscheck
-        solver.timeout = max(0.05, timeout_s - (time.monotonic() - start))
-        status = solver._solve_prepared(prep)
-        if status == SAT:
-            results[idx] = ("sat", solver.model())
-        elif status == UNSAT:
-            results[idx] = ("unsat", None)
-        else:
-            results[idx] = ("unknown", None)
+    with trace_span("solver.settle_pass", cat="solver",
+                    queries=len(pending)):
+        for idx, key, solver, prep in pending:
+            solver.allow_device = False
+            solver.unsat_crosscheck = crosscheck
+            solver.timeout = max(0.05,
+                                 timeout_s - (time.monotonic() - start))
+            status = solver._solve_prepared(prep)
+            tier, quick_cache = caches_for_origin(origin_of(idx))
+            if status == SAT:
+                model = solver.model()
+                results[idx] = ("sat", model)
+                if key is not None:
+                    _store_result(key, model, tier)
+                    quick_cache.put(model)
+            elif status == UNSAT:
+                results[idx] = ("unsat", None)
+                if key is not None:
+                    _store_result(key, UNSAT, tier)
+            else:
+                results[idx] = ("unknown", None)
     stats.add_host_route_seconds(time.monotonic() - settle_start)
     stats.add_batch(len(constraint_sets), time.monotonic() - start)
     return results
+
+
+def _store_result(key, value, cache=None) -> None:
+    target = cache if cache is not None else _result_cache
+    target[key] = value
+    while len(target) > _RESULT_CACHE_MAX:
+        target.popitem(last=False)
+
+
+def clear_result_tiers() -> None:
+    """Drop the memory tiers alone: the term-keyed results, the quick-sat
+    models and the per-origin pairs (every other cache stays warm)."""
+    _result_cache.clear()
+    model_cache.models.clear()
+    _origin_caches.clear()
+
+
+def clear_caches() -> None:
+    """Drop every piece of process-global solve state: the memory tiers,
+    the per-origin blasters, the scheduler's buffer, the incremental
+    memos, the aig_opt session and result cache, the partition cache, the
+    router (its calibration and breaker) and the session fuses."""
+    clear_result_tiers()
+    from mythril_tpu_torch import preanalysis, resilience
+    from mythril_tpu_torch.gpu import router
+    from mythril_tpu_torch.service import reset_service_state, tenancy
+    from mythril_tpu_torch.smt.solver import incremental
+
+    tenancy.clear_blasters()
+    reset_service_state()
+    incremental.reset()
+    preanalysis.reset_caches()
+    router.reset_router()
+    resilience.reset_session()

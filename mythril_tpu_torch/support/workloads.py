@@ -5,6 +5,8 @@ The query shapes LASER's forks send to get_models_batch: a 256-bit
 function-selector dispatch on the first calldata word, `callvalue < 2**40`,
 `caller != 0`, an adder-overflow branch `a + b < a`, a comparison branch
 `x > 0x1000`, and infeasible siblings (both sides of one comparison).
+fork_window builds the two sides of batched JUMPI forks: a shared prefix
+plus the jump condition word `!= 0` on one side and `== 0` on the other.
 `smt` is an SMT package with the mythril_tpu.smt API (this package's own,
 or the JAX package's when a test holds the two against each other), so the
 same seed builds the same constraint sets in either.
@@ -52,6 +54,44 @@ def sibling_window(smt, count: int, seed: int = 0,
             branch = branch + [smt.ULE(x, bound), smt.UGT(x, bound)]
         window.append(list(prefix) + [dispatch] + branch)
     return window
+
+
+def fork_window(smt, pairs: int, seed: int = 0, unsat_every: int = 4):
+    """(constraint lists, (taken, fall) index pairs) of `pairs` JUMPI forks.
+
+    Each pair shares its prefix — selector dispatch, `callvalue < 2**40`,
+    `caller != 0` and a comparison branch — and forks on the word
+    `If(a + b < a, 1, 0)`: the taken side asserts it `!= 0`, the fall side
+    `== 0`, so both lower to one boolean at opposite polarity. In every
+    `unsat_every`-th pair the prefix bounds a and b below 2**16, which makes
+    the taken side infeasible."""
+    sf = smt.symbol_factory
+    rng = random.Random(seed)
+    calldata = sf.BitVecSym("calldata_0", WIDTH)
+    callvalue = sf.BitVecSym("callvalue", WIDTH)
+    caller = sf.BitVecSym("caller", WIDTH)
+    one, zero = sf.BitVecVal(1, WIDTH), sf.BitVecVal(0, WIDTH)
+    sets, index_pairs = [], []
+    for i in range(pairs):
+        selector = sf.BitVecVal(rng.getrandbits(32), 32)
+        a = sf.BitVecSym(f"storage_a_{i}", WIDTH)
+        b = sf.BitVecSym(f"calldata_{i + 1}", WIDTH)
+        x = sf.BitVecSym(f"balance_{i}", WIDTH)
+        bound = sf.BitVecVal(0x1000 + rng.getrandbits(16), WIDTH)
+        prefix = [
+            smt.ULT(callvalue, sf.BitVecVal(2 ** 40, WIDTH)),
+            caller != zero,
+            smt.Extract(WIDTH - 1, WIDTH - 32, calldata) == selector,
+            smt.UGT(x, bound),
+        ]
+        if unsat_every and i % unsat_every == unsat_every - 1:
+            limit = sf.BitVecVal(2 ** 16, WIDTH)
+            prefix += [smt.ULT(a, limit), smt.ULT(b, limit)]
+        word = smt.If(smt.ULT(a + b, a), one, zero)
+        index_pairs.append((len(sets), len(sets) + 1))
+        sets.append(prefix + [word != zero])
+        sets.append(prefix + [word == zero])
+    return sets, index_pairs
 
 
 def random_cones(rng: random.Random, count: int) -> list:

@@ -96,37 +96,47 @@ def test_stats_keys_match_the_reference_backend():
 
 def test_window_is_chunked_to_capacities_and_oversize_cones_rejected(
         monkeypatch):
-    """solve_window closes a chunk where the next cone would push the
-    combined variable space past var_cap, and never sends a cone that
-    alone exceeds it (a cap reject the CDCL settles)."""
+    """The router (gpu/router.py) closes a stream where the next cone would
+    push the combined variable space past var_cap, and never sends a cone
+    that alone exceeds it (a cap reject the CDCL settles)."""
+    from mythril_tpu_torch.gpu import router as router_mod
+
+    monkeypatch.setenv("MYTHRIL_GPU_CALIBRATE", "0")
+    # these random cones are shallow (one has no gate at all): none may
+    # take the host shortcut
+    monkeypatch.setenv("MYTHRIL_GPU_HOST_DIRECT_LEVELS", "-1")
+    monkeypatch.setenv("MYTHRIL_GPU_RAGGED_WINDOW_CAP", "100")
+    monkeypatch.setenv("MYTHRIL_GPU_DEVICE_DEADLINE", "60")
     entries = [e for e in _build_entries() if e[5] and not e[4]][:12]
     cache = {}
     prepared = [_problem(entry, cache) for entry in entries]
     prepared = [item for item in prepared if item[0][0] > 0]
+    problems = [p for p, _pc, _e in prepared]
     sizes = [pc.v1 - 1 for _p, pc, _e in prepared]
     var_cap = 1 + 3 * max(sizes)  # about three cones per stream
     monkeypatch.setenv("MYTHRIL_GPU_RAGGED_VAR_CAP", str(var_cap))
     backend = DeviceSolverBackend(num_restarts=8, device="cpu")
-    chunks, rejected = backend.chunk_window(
-        [(i, pc, ()) for i, (_p, pc, _e) in enumerate(prepared)],
-        ragged_kernel.kernel_caps(), 1 << 40)
-    assert not rejected and len(chunks) > 1
-    assert [i for chunk in chunks for i, _pc, _e in chunk] == \
+    router = router_mod.QueryRouter(backend)
+    chunks = router._chunk_ragged(
+        [router_mod._Unit(i, None, pc, p)
+         for i, (p, pc, _e) in enumerate(prepared)],
+        ragged_kernel.kernel_caps())
+    assert len(chunks) > 1
+    assert [unit.qi for chunk in chunks for unit in chunk] == \
         list(range(len(prepared)))
     for chunk, following in zip(chunks, chunks[1:] + [None]):
-        used = 1 + sum(pc.v1 - 1 for _i, pc, _e in chunk)
+        used = 1 + sum(unit.pc.v1 - 1 for unit in chunk)
         assert used <= var_cap
         if following is not None:  # greedy: the next cone did not fit
-            assert used + following[0][1].v1 - 1 > var_cap
-    results = backend.solve_window([p for p, _pc, _e in prepared],
-                                   budget_seconds=60.0)
+            assert used + following[0].pc.v1 - 1 > var_cap
+    results = router.dispatch(problems, timeout_s=60.0)
     assert backend.stats()["ragged_windows"] == len(chunks)
     assert all(bits is not None for bits in results)
 
     monkeypatch.setenv("MYTHRIL_GPU_RAGGED_VAR_CAP", str(max(sizes)))
     backend = DeviceSolverBackend(num_restarts=8, device="cpu")
-    results = backend.solve_window([p for p, _pc, _e in prepared],
-                                   budget_seconds=60.0)
+    results = router_mod.QueryRouter(backend).dispatch(problems,
+                                                       timeout_s=60.0)
     too_big = [1 + size > max(sizes) for size in sizes]
     assert any(too_big)
     assert backend.stats()["cap_rejects"] == sum(too_big)

@@ -103,3 +103,42 @@ def test_cuda_kernel_global_path_cone_matches_plain_round(cuda_device,
     flat, _found = _assert_kernel_matches_plain(cuda_device, stream, caps,
                                                 6, 8, 12)
     assert flat.cones.global_cones == (0,)
+
+
+def test_router_dispatch_on_the_card_launches_the_kernel(cuda_device):
+    """get_models_batch with the gpu backend on the card, pre-analysis on:
+    the router calibrates K1, sends the window's components to it, and
+    the models it finds satisfy their queries; verdicts equal the host
+    CDCL's."""
+    import mythril_tpu_torch.smt as smt
+    from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
+    from mythril_tpu_torch.support import model
+    from mythril_tpu_torch.support.args import args
+    from mythril_tpu_torch.support.workloads import sibling_window
+
+    model.clear_caches()
+    stats = SolverStatistics()
+    stats.reset()
+    stats.enabled = True
+    try:
+        queries = sibling_window(smt, 8, seed=3)
+        host = [status for status, _m in model.get_models_batch(queries)]
+        model.clear_caches()
+        args.solver_backend = "gpu"
+        args.torch_device = "cuda"
+        before = ragged_kernel.launches
+        results = model.get_models_batch(queries)
+        assert ragged_kernel.launches > before
+        assert stats.device_batch_hits > 0
+        assert stats.aig_device_components > 0
+        # K1 itself found models, not only the router's host settle
+        assert stats.aig_device_component_hits > 0
+        assert stats.router_device_found > 0
+        assert [status for status, _m in results] == host
+        for (status, found), constraints in zip(results, queries):
+            if status == "sat":
+                assert found.satisfies(constraints)
+    finally:
+        args.reset()
+        model.clear_caches()
+        stats.reset()

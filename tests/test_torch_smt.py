@@ -1,6 +1,7 @@
 """The port's word-level frontend and bit-blaster (mythril_tpu_torch.smt)
-held against the JAX package's, run with pre-analysis off
-(MYTHRIL_TPU_PREANALYSIS=0), the pipeline the port mirrors.
+held against the JAX package's, both run with pre-analysis off
+(MYTHRIL_TPU_PREANALYSIS=0, MYTHRIL_GPU_PREANALYSIS=0); with pre-analysis
+on they are held equal in test_torch_preanalysis.py.
 
 The same constraint sets go through both Solver._prepare's, one after the
 other into freshly reset global blasters (so sibling queries share gates
@@ -45,6 +46,7 @@ def _constraint_sets(smt):
 @pytest.fixture
 def fresh_blasters(monkeypatch):
     monkeypatch.setenv("MYTHRIL_TPU_PREANALYSIS", "0")
+    monkeypatch.setenv("MYTHRIL_GPU_PREANALYSIS", "0")
     monkeypatch.setattr(ref_frontend, "_global_blaster", None)
     monkeypatch.setattr(port_frontend, "_global_blaster", None)
 

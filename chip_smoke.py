@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's batched device solve on one CUDA card.
+"""Run the PyTorch port's batched device solve and `analyze` on one CUDA card.
 
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --forms-only   # env, build and the timing phase
@@ -50,7 +50,29 @@ line):
           read around each run). It prints the calibration, the
           admission, the streams the router launched and where the time
           went, and holds K1 bit for bit against its plain version on the
-          largest stream the router launched in (a), and times it there.
+          largest stream the router launched in (a), and times it there;
+  analyze the port's MythrilAnalyzer end to end, in process, once with
+          solver_backend "cpu" (the host CDCL alone) and once with "gpu"
+          (every batched window through the scheduler and the router to K1
+          on the card), fork pruning on (--pruning-factor 1): KILLBILLY
+          (tests/test_analysis.py, rebuilt here with the port's
+          easm_to_code) at -t 2 and the four bench_inputs/corpus contracts
+          at -t 1, each with an execution timeout of 600 s that the runs
+          must not reach, then bench_inputs/stress_dispatch.hex at -t 1
+          with a fixed 120 s each (reported, its findings compared only if
+          both runs completed). Fails unless those five runs completed with
+          the same findings on both backends at issue granularity (SWC id,
+          function, address, title), K1 launched, the router returned
+          models and K1 itself solved components (counts read around the
+          five), and K1 is bit for bit equal to its plain version on the
+          largest stream the five launched and on the largest of
+          stress_dispatch, timed on each. stress_dispatch's launches are
+          counted apart ("analyze_stress"): its runs end on the clock, so
+          their count depends on the host's speed. Per contract and backend it
+          prints the wall, the solver, interpreter and prepare seconds,
+          the router's plan, landing, round loop and settles, K1's
+          launches and component finds, the device queries and hits, the
+          tracer's spans, and the findings.
 
 The kernel and timing phases build their streams with pre-analysis off,
 as this script's earlier versions did, so their timed stream stays the
@@ -60,20 +82,24 @@ and no other phase. It calls only the round's interface (flatten_stream,
 device_flat, run_round_ragged_kernel), so a copy of this script placed in
 a checkout of an earlier version of the port times that version's kernel.
 
-Then the script's total seconds, the {"kernels": [...]} line (K1's times
-on the router's largest stream, the slice stream's beside them), the
+Then the script's total seconds, the {"kernels": [...]} line (K1's
+launches over the five compared analyze contracts and its times on the
+largest stream they launched, the router's and the slice's streams beside
+them), the
 card's nvidia-smi line, and last {"ok": true, "device": {...}}. A copy of every
 JSON line goes to chiprun_out/chip_smoke.jsonl.
 """
 
 import contextlib
 import json
+import logging
 import os
 import random
 import subprocess
 import sys
 import threading
 import time
+from types import SimpleNamespace
 
 # one H100 SXM: HBM rate and the non-tensor 32-bit peak (NVIDIA's data
 # sheet); the ragged round's work is 32-bit integer logic, for which the
@@ -84,6 +110,10 @@ WINDOW = 64        # service/scheduler.py DEFAULT_COALESCE_MAX_RAGGED
 FORK_PAIRS = 16    # the fork window: 32 queries
 SEED = 20261016
 OUT_DIR = "chiprun_out"
+ANALYZE_TIMEOUT = 600   # s per analyze run; the runs must complete inside
+STRESS_TIMEOUT = 120    # s per stress_dispatch run, a measurement
+CORPUS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex", "xc_sender_a.hex",
+          "xc_sender_b.hex")
 
 _lines = []
 
@@ -848,6 +878,293 @@ def phase_router(device):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# -- the analyze phase --------------------------------------------------------
+
+# the unprotected-selfdestruct contract of tests/test_analysis.py and the
+# 15-byte creation wrapper that deploys it
+KILLBILLY_EASM = """
+    PUSH1 0x00
+    CALLDATALOAD
+    PUSH1 0xe0
+    SHR
+    DUP1
+    PUSH4 0x41c0e1b5
+    EQ
+    PUSH1 @kill
+    JUMPI
+    STOP
+:kill
+    JUMPDEST
+    CALLER
+    SELFDESTRUCT
+"""
+
+
+def _killbilly_creation() -> str:
+    from mythril_tpu_torch.disasm.asm import easm_to_code
+
+    runtime = easm_to_code(KILLBILLY_EASM)
+    init = easm_to_code(f"""
+        PUSH2 0x{len(runtime):04x}
+        PUSH1 0x0f
+        PUSH1 0x00
+        CODECOPY
+        PUSH2 0x{len(runtime):04x}
+        PUSH1 0x00
+        RETURN
+        STOP
+    """)
+    if len(init) != 15:
+        raise AssertionError("the creation wrapper must be 15 bytes")
+    return (init + runtime).hex()
+
+
+def _analyze_inputs():
+    """(name, creation code hex, transaction count, execution timeout,
+    compared?) of each analyze run."""
+    inputs = [("killbilly", _killbilly_creation(), 2, ANALYZE_TIMEOUT, True)]
+    for name in CORPUS:
+        with open(os.path.join("bench_inputs", "corpus", name)) as handle:
+            inputs.append((name, handle.read().strip(), 1, ANALYZE_TIMEOUT,
+                           True))
+    with open(os.path.join("bench_inputs", "stress_dispatch.hex")) as handle:
+        inputs.append(("stress_dispatch.hex", handle.read().strip(), 1,
+                       STRESS_TIMEOUT, False))
+    return inputs
+
+
+class _TimeoutLines(logging.Handler):
+    """The engine's "... timeout reached" lines: a run that logs one
+    explored a prefix that depends on the machine's speed."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        if "timeout reached" in record.getMessage():
+            self.lines.append(record.getMessage())
+
+
+def _issue_keys(report):
+    return sorted([issue.swc_id, issue.function, issue.address, issue.title]
+                  for issue in report.issues.values())
+
+
+def _analyze_once(device, code, tx_count, timeout, solver_backend, largest):
+    """One in-process analyze from fresh solve state, counted: (report,
+    completed, record). `largest` keeps the largest stream (by gates) the
+    backend assembles."""
+    from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
+    from mythril_tpu_torch.gpu import ragged_kernel
+    from mythril_tpu_torch.gpu.backend import get_device_backend
+    from mythril_tpu_torch.observe.tracer import get_tracer
+    from mythril_tpu_torch.smt.solver import frontend
+    from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
+    from mythril_tpu_torch.support.args import args
+    from mythril_tpu_torch.support.model import clear_caches
+
+    device_arg = None if device.type == "cuda" else device
+    args.reset()
+    clear_caches()  # a fresh router, scheduler, memos and engine state
+    frontend._global_blaster = None
+    backend = get_device_backend(device_arg)
+
+    def keep(stream, entries):
+        gates = sum(pc.num_gates for pc, _extra in entries)
+        if gates > largest.get("gates", -1):
+            largest.update(gates=gates, stream=stream, entries=entries)
+
+    backend.on_stream = keep
+    before = backend.stats()
+    stats = SolverStatistics()
+    stats.reset()
+    tracer = get_tracer()
+    tracer.reset()
+    tracer.enable(None)
+    watch = _TimeoutLines()
+    logger = logging.getLogger("mythril_tpu_torch.laser.svm")
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(watch)
+    launches_before = ragged_kernel.launches
+    cmd_args = SimpleNamespace(
+        execution_timeout=timeout, transaction_count=tx_count,
+        max_depth=128, solver_backend=solver_backend,
+        torch_device=device_arg, pruning_factor=1.0)
+    disassembler = MythrilDisassembler()
+    disassembler.load_from_bytecode(code)
+    torch_sync(device)
+    start = time.monotonic()
+    try:
+        analyzer = MythrilAnalyzer(disassembler, cmd_args=cmd_args)
+        report = analyzer.fire_lasers(transaction_count=tx_count)
+        torch_sync(device)
+        wall = time.monotonic() - start
+    finally:
+        backend.on_stream = None
+        logger.removeHandler(watch)
+        logger.setLevel(level)
+        spans = tracer.summary()
+        tracer.reset()
+        args.reset()
+    if report.exceptions:
+        raise AssertionError(f"analyze raised: {report.exceptions[0]}")
+    after = backend.stats()
+    counters = stats.as_dict()
+
+    def span_s(name):
+        return spans.get(name, [0, 0.0])[1]
+
+    record = {
+        "wall_s": wall, "completed": not watch.lines,
+        "solver_s": stats.solver_time, "interp_s": stats.interp_wall,
+        "prepare_s": stats.prepare_wall,
+        "router": {"plan_s": span_s("router.plan"),
+                   "calibration_s": span_s("router.calibrate"),
+                   "land_s": span_s("router.land"),
+                   "stream_assembly_upload_s":
+                       round(after["ragged_seconds"]
+                             - before["ragged_seconds"], 4),
+                   "round_loop_s": round(after["solve_seconds"]
+                                         - before["solve_seconds"], 4),
+                   "device_check_s": span_s("device.check"),
+                   "router_settle_s": span_s("router.settle_components"),
+                   "dispatch_s": span_s("router.dispatch")},
+        "cdcl_settle_pass_s": span_s("solver.settle_pass"),
+        "kernel_launches": ragged_kernel.launches - launches_before,
+        "batched_queries": counters["batch_query_count"],
+        "device_batch_queries": counters["device_batch_queries"],
+        "device_batch_hits": counters["device_batch_hits"],
+        "router_device_found": counters["router_device_found"],
+        "router_host_settled": counters["router_host_settled"],
+        "router_trivial_settled": counters["router_trivial_settled"],
+        "router_host_direct": counters["router_host_direct"],
+        # components K1 was sent and solved, and those the router planned
+        # for its in-router host settle (a query with one of those counts
+        # as router_host_settled even when K1 solved all the others)
+        "aig_device_components": counters["aig_device_components"],
+        "aig_device_component_hits": counters["aig_device_component_hits"],
+        "aig_host_components": counters["aig_host_components"],
+        "cap_rejects": counters["cap_rejects"],
+        "cdcl_settles": counters["cdcl_settles"],
+        "single_queries": counters["query_count"],
+        # {span: [count, seconds]}; spans nest, so they do not sum
+        "spans": spans,
+        "findings": _issue_keys(report)}
+    return report, not watch.lines, record
+
+
+def _analyze_contract(device, name, code, tx_count, timeout, compared,
+                      largest):
+    """One contract on both backends (see the module note); returns the
+    device backend's (device_batch_hits, aig_device_component_hits)."""
+    keys = {}
+    completed = {}
+    hits = k1_hits = 0
+    for solver_backend in ("cpu", "gpu"):
+        report, done, record = _analyze_once(
+            device, code, tx_count, timeout, solver_backend,
+            largest if solver_backend == "gpu" else {})
+        keys[solver_backend] = _issue_keys(report)
+        completed[solver_backend] = done
+        if solver_backend == "gpu":
+            hits = record["device_batch_hits"]
+            k1_hits = record["aig_device_component_hits"]
+        emit({"phase": "analyze", "contract": name, "tx": tx_count,
+              "backend": solver_backend, "execution_timeout": timeout,
+              **record})
+    if compared and not all(completed.values()):
+        raise AssertionError(f"analyze: {name} did not complete inside "
+                             f"{timeout} s: {completed}")
+    if (compared or all(completed.values())) and keys["gpu"] != keys["cpu"]:
+        raise AssertionError(f"analyze: {name}: the device backend's "
+                             f"findings {keys['gpu']} differ from the "
+                             f"host's {keys['cpu']}")
+    return hits, k1_hits
+
+
+def _hold_stream(device, stream, window, counts):
+    """K1 bit for bit against its plain version on `stream`, and both timed
+    there; launches made here are not counted. Emits one record."""
+    import torch
+
+    from mythril_tpu_torch.gpu import circuit, ragged_kernel
+    from mythril_tpu_torch.gpu.backend import get_device_backend
+
+    launches = ragged_kernel.launches
+    backend = get_device_backend(None if device.type == "cuda" else device)
+    caps = ragged_kernel.kernel_caps()
+    flat = ragged_kernel.device_flat(
+        ragged_kernel.flatten_stream(stream, caps), device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 11)
+    lanes = ragged_kernel.pad_lanes(backend.num_restarts, caps)
+    x = circuit.init_inputs(gen, lanes, caps.var_cap, device)
+    steps, walk_depth = backend.CIRCUIT_STEPS, _walk_depth(stream)
+    err = _compare(flat, x, 23, steps, walk_depth, caps)
+    ms = _time_ms(lambda: ragged_kernel.run_round_ragged_kernel(
+        flat, x, 23, steps, walk_depth, caps), repeats=5)
+    plain_ms = _time_ms(lambda: ragged_kernel.run_round_ragged_plain(
+        flat, x, 23, steps, walk_depth, caps), repeats=1)
+    ragged_kernel.launches = launches
+    bound_ms, bound_by, moved, ops = _bound(flat, stream.v1, lanes, steps,
+                                            caps)
+    emit({"phase": "analyze", "window": window,
+          **_stream_fields(stream, flat), "lanes": lanes, "steps": steps,
+          "walk_depth": walk_depth,
+          "global_path_cones": list(flat.cones.global_cones), **counts,
+          "bit_identical": True, "max_abs_err": err, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "bytes": moved, "ops": ops})
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_analyze(device):
+    """The port's `analyze` on both backends (see the module note).
+    Returns K1's launches over the five compared contracts, its comparison
+    and times on the largest stream they launched, and stress_dispatch's
+    launches apart: its runs are cut by the clock, so their count depends
+    on the host's speed."""
+    from mythril_tpu_torch.gpu import ragged_kernel
+
+    inputs = _analyze_inputs()
+    largest, stress_largest = {}, {}
+    hits = k1_hits = 0
+    ragged_kernel.reset_launches()  # the compared runs' count starts here
+    for name, code, tx_count, timeout, compared in inputs:
+        if compared:
+            found = _analyze_contract(device, name, code, tx_count, timeout,
+                                      True, largest)
+            hits, k1_hits = hits + found[0], k1_hits + found[1]
+    launches = ragged_kernel.launches  # ... and ends here
+    if launches <= 0:
+        raise AssertionError("analyze: K1 was never launched")
+    if hits <= 0:
+        raise AssertionError("analyze: the router returned no model")
+    if k1_hits <= 0:
+        raise AssertionError("analyze: K1 solved no component it was sent")
+    ragged_kernel.reset_launches()  # stress_dispatch's count starts here
+    for name, code, tx_count, timeout, compared in inputs:
+        if not compared:
+            _analyze_contract(device, name, code, tx_count, timeout, False,
+                              stress_largest)
+    stress_launches = ragged_kernel.launches  # ... and ends here
+
+    held = _hold_stream(device, largest["stream"], "analyze-stream",
+                        {"kernel_launches": launches,
+                         "device_batch_hits": hits,
+                         "aig_device_component_hits": k1_hits})
+    err = held["max_abs_err"]
+    if stress_largest:
+        err = max(err, _hold_stream(
+            device, stress_largest["stream"], "stress-stream",
+            {"kernel_launches": stress_launches})["max_abs_err"])
+    return {**held, "launches": launches, "stress_launches": stress_launches,
+            "max_abs_err": err}
+
+
 def _host_verdicts(device, queries):
     from mythril_tpu_torch.support.args import args
     from mythril_tpu_torch.support.model import get_models_batch
@@ -900,6 +1217,7 @@ def main() -> int:
             max_err = phase_kernel(device, queries, verdicts)
             timing = phase_timing(device, queries, verdicts)
         router = phase_router(device)
+        analyze = phase_analyze(device)
         emit({"phase": "total", "seconds": time.monotonic() - start})
     except Exception as error:
         import traceback
@@ -911,19 +1229,28 @@ def main() -> int:
         "route": "cuda",
         "source": "mythril_tpu_torch/csrc/ragged_round.cu",
         "replaces": "mythril_tpu/tpu/pallas_kernel.py:268",
-        # the default path's launches (the router phase's sibling window)
-        "launches": router["launches"],
+        # the main path's launches: the analyze phase's five compared
+        # contracts on the device backend (stress_dispatch's clock-cut
+        # runs are counted apart)
+        "launches": analyze["launches"],
         "launches_by_path": {"slice": slice_launches,
                              "router": router["launches"],
-                             "router_forks": router["fork_launches"]},
-        "max_abs_err": max(max_err, router["max_abs_err"]),
-        # times of one round on the largest stream the default path
-        # launched; the slice's stream of earlier versions beside them
-        "ms": router["ms"],
-        "plain_ms": router["plain_ms"],
-        "bound_ms": router["bound_ms"],
-        "bound_by": router["bound_by"],
+                             "router_forks": router["fork_launches"],
+                             "analyze": analyze["launches"],
+                             "analyze_stress": analyze["stress_launches"]},
+        "max_abs_err": max(max_err, router["max_abs_err"],
+                           analyze["max_abs_err"]),
+        # times of one round on the largest stream the compared analyze
+        # runs launched; the router's and the slice's streams beside them
+        "ms": analyze["ms"],
+        "plain_ms": analyze["plain_ms"],
+        "bound_ms": analyze["bound_ms"],
+        "bound_by": analyze["bound_by"],
         "library_ms": None,
+        "router_stream": {"ms": router["ms"],
+                          "plain_ms": router["plain_ms"],
+                          "bound_ms": router["bound_ms"],
+                          "bound_by": router["bound_by"]},
         "slice_stream": {"ms": timing["ms"],
                          "plain_ms": timing["plain_ms"],
                          "bound_ms": timing["bound_ms"],

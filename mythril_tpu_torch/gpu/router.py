@@ -47,9 +47,9 @@ to the ragged round (backend.try_solve_batch_ragged):
               process.
 
 Differences from the JAX package, on purpose: an exception from the
-kernel, its build or the device propagates to the caller (no host
-fallback, no deadline-runner thread; the breaker sees only zero-hit
-waste). Dispatch is always ragged: the bucketed path (its admission,
+kernel, its build or the device propagates to the caller as a recorded
+DeviceFault (no host fallback, no deadline-runner thread; the breaker
+sees only zero-hit waste). Dispatch is always ragged: the bucketed path (its admission,
 try_solve_batch_circuit and the switch between the two) waits for K3.
 """
 
@@ -70,6 +70,7 @@ from mythril_tpu_torch.gpu.backend import (
     get_device_backend,
     shape_bucket,
 )
+from mythril_tpu_torch.gpu.device import clear_fault, record_fault
 from mythril_tpu_torch.observe.tracer import span as trace_span
 from mythril_tpu_torch.preanalysis import aig_partition
 from mythril_tpu_torch.resilience import breaker as breaker_mod
@@ -378,12 +379,16 @@ class QueryRouter:
         """Route a window of blasted queries; returns per-query model bits
         or None (the caller's CDCL settles None and alone proves UNSAT).
         `fork_pairs`: (i, j) problem pairs that are the two sides of one
-        batched JUMPI fork. `origins`: per-problem contract tags."""
-        with trace_span("router.dispatch", cat="router",
-                        queries=len(problems)) as sp:
-            results = self._dispatch_impl(problems, timeout_s, stats,
-                                          fork_pairs, origins)
-            sp.set(hits=sum(1 for bits in results if bits is not None))
+        batched JUMPI fork. `origins`: per-problem contract tags. Any
+        error raises as a recorded DeviceFault (gpu/device.py)."""
+        try:
+            with trace_span("router.dispatch", cat="router",
+                            queries=len(problems)) as sp:
+                results = self._dispatch_impl(problems, timeout_s, stats,
+                                              fork_pairs, origins)
+                sp.set(hits=sum(1 for bits in results if bits is not None))
+        except Exception as error:
+            raise record_fault(error) from error
         return results
 
     def _dispatch_impl(self, problems, timeout_s, stats, fork_pairs,
@@ -785,6 +790,8 @@ def get_router(device=None) -> QueryRouter:
 
 
 def reset_router() -> None:
-    """Drop calibration, the breaker and the stream count."""
+    """Drop calibration, the breaker, the stream count and a recorded
+    device fault."""
     global _router
     _router = None
+    clear_fault()

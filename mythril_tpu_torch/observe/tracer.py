@@ -21,6 +21,7 @@ import logging
 import os
 import threading
 import time
+from functools import wraps
 from typing import Dict, List, Optional
 
 log = logging.getLogger(__name__)
@@ -183,3 +184,17 @@ def span(name: str, cat: str = "stage", **attrs):
     if not tracer.enabled:
         return NULL_SPAN
     return _Span(tracer, name, cat, attrs)
+
+
+def traced(name: str, cat: str = "stage"):
+    """Decorator form of span() for whole-function stages."""
+
+    def decorate(func):
+        @wraps(func)
+        def wrapped(*args, **kwargs):
+            with span(name, cat):
+                return func(*args, **kwargs)
+
+        return wrapped
+
+    return decorate

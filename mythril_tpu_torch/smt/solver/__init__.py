@@ -1,6 +1,7 @@
 """Solver backends: word-level frontend, CPU CDCL (C++), GPU batched solver."""
 
 from mythril_tpu_torch.smt.solver.frontend import (  # noqa: F401
+    Optimize,
     Solver,
     UnsatError,
     SolverTimeOutException,

@@ -109,6 +109,13 @@ class SolverStatistics:
         "resilience_breaker_trips",
         "resilience_breaker_probes",
         "resilience_stale_lock_breaks",
+        # the engine (laser/svm.py, analysis/module/loader.py): detection
+        # modules the static reachability gate skipped, fork-prune solves
+        # skipped on inert cones, and fork sides pruned on a drained
+        # solver verdict
+        "modules_gated",
+        "queries_avoided",
+        "frontier_fork_infeasible_pruned",
     )
     _TIMERS = (
         "solver_time",
@@ -117,6 +124,9 @@ class SolverStatistics:
         "prepare_wall",
         "settle_wall",
         "crosscheck_wall",
+        # the interpreter's share of LaserEVM.exec (solver seconds inside
+        # instruction handlers subtracted)
+        "interp_wall",
     )
     # resilience event name -> the counter it rolls up into
     _RESILIENCE_EVENT_COUNTERS = {
@@ -346,6 +356,45 @@ class SolverStatistics:
         """Wall spent inside Solver._prepare (simplify + substitution +
         lowering + blasting + AIG rewrite + CNF preprocessing)."""
         self._add("prepare_wall", seconds)
+
+    def add_module_gated(self, count: int = 1) -> None:
+        """A detection module the static reachability gate skipped."""
+        self._add("modules_gated", count)
+
+    def add_queries_avoided(self, count: int = 1) -> None:
+        """Fork-pruning feasibility solves skipped because pre-analysis
+        proved the state's remaining cone inert."""
+        self._add("queries_avoided", count)
+
+    def add_fork_pruned(self, count: int = 1) -> None:
+        """Fork sides dropped on a host-CDCL UNSAT verdict when a pending
+        bundle drained."""
+        self._add("frontier_fork_infeasible_pruned", count)
+
+    def add_interp_seconds(self, seconds: float) -> None:
+        """Wall spent stepping states in LaserEVM.exec — the interpreter
+        component of the wall split."""
+        self._add("interp_wall", seconds)
+
+    @staticmethod
+    def device_stats() -> dict:
+        """Per-stage counters of the router's device backend (pack, ship,
+        solve seconds, launches), or {} before the router first ran."""
+        from mythril_tpu_torch.gpu import router
+
+        if router._router is None:
+            return {}
+        return router._router.backend.stats()
+
+    def __repr__(self):
+        return (f"Solver statistics: query count: {self.query_count}, "
+                f"solver time: {self.solver_time:.3f}, batched queries: "
+                f"{self.batch_query_count}, device queries: "
+                f"{self.device_batch_queries} (hits: "
+                f"{self.device_batch_hits}), kernel launches: "
+                f"{self.kernel_launches}, cdcl settles: {self.cdcl_settles}"
+                f", prepare: {self.prepare_wall:.2f}s, interp: "
+                f"{self.interp_wall:.2f}s")
 
     def reset(self) -> None:
         for name in self._COUNTERS:

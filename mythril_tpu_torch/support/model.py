@@ -1,4 +1,11 @@
-"""The batched solve path (reference mythril/support/model.py:63-125).
+"""The central solve path (reference mythril/support/model.py:63-125).
+
+get_model(constraints, ...) is the choke point every single reachability
+check and exploit concretization goes through: memory result tier ->
+quick-sat probe over recent models -> full solve on the host CDCL with a
+deadline capped by the global time budget (Optimize when the caller
+minimizes or maximizes) -> the verdict lands in the memory tier. It raises
+UnsatError on unsat and SolverTimeOutException on unknown.
 
 get_models_batch(constraint_sets) takes N constraint lists (sibling-path
 feasibility checks) and returns N entries of ("sat", Model) /
@@ -13,32 +20,64 @@ feasibility checks) and returns N entries of ("sat", Model) /
   proves UNSAT -> verdicts land in the memory tiers.
 
 A device error raises out of here (the JAX package falls back to the
-CDCL). Its persistent disk tier (store, fingerprints) and get_model wait
-for later slices.
+CDCL). The persistent disk tier (store, fingerprints) waits for a later
+slice.
 """
 
 import os
+import sys
 import time
 from collections import OrderedDict, deque
-from contextlib import nullcontext
-from typing import List, Optional
+from contextlib import contextmanager, nullcontext
+from typing import Iterable, List, Optional
 
 from mythril_tpu_torch.observe.tracer import span as trace_span
 from mythril_tpu_torch.service import memory_tier_enabled
 from mythril_tpu_torch.service.interleave import blaster_scope, current_origin
 from mythril_tpu_torch.smt.bitvec import Expression
 from mythril_tpu_torch.smt.model import Model
-from mythril_tpu_torch.smt.solver.frontend import SAT, UNSAT, Solver
+from mythril_tpu_torch.smt.solver.frontend import (
+    SAT,
+    UNSAT,
+    Optimize,
+    Solver,
+    SolverTimeOutException,
+    UnsatError,
+)
 from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
 from mythril_tpu_torch.support.args import args
 from mythril_tpu_torch.support.time_handler import time_handler
 
 
+# UNSAT verdicts on the DETECTION path ("no vulnerability here") get a
+# second opinion by default: the host CDCL is the sole UNSAT authority, so
+# detection-critical UNSATs are re-solved on a permuted instance
+# (solver/sat_backend._crosscheck_unsat). MYTHRIL_GPU_UNSAT_CROSSCHECK=0
+# force-disables; any other value force-enables it on the engine path too.
+# Engine-internal pruning UNSATs stay single-opinion by default.
+_in_detection_context = False
+
+
+@contextmanager
+def detection_context():
+    """Marks module predicate evaluation / issue confirmation; get_model
+    requests the UNSAT crosscheck inside it."""
+    global _in_detection_context
+    previous = _in_detection_context
+    _in_detection_context = True
+    try:
+        yield
+    finally:
+        _in_detection_context = previous
+
+
 def _crosscheck_wanted() -> bool:
-    """UNSAT second opinion on the settle pass (MYTHRIL_GPU_UNSAT_CROSSCHECK
-    set to anything but 0)."""
-    return os.environ.get("MYTHRIL_GPU_UNSAT_CROSSCHECK", "") not in ("",
-                                                                     "0")
+    env = os.environ.get("MYTHRIL_GPU_UNSAT_CROSSCHECK")
+    if env == "0":
+        return False
+    if env not in (None, ""):
+        return True
+    return _in_detection_context
 
 
 class ModelCache:
@@ -91,6 +130,111 @@ def _cache_key(terms_list) -> Optional[tuple]:
         return tuple(sorted(dict.fromkeys(terms_list), key=hash))
     except TypeError:
         return None
+
+
+def get_model(
+    constraints,
+    minimize: Iterable = (),
+    maximize: Iterable = (),
+    enforce_execution_time: bool = True,
+    solver_timeout: Optional[int] = None,
+) -> Model:
+    """Solve `constraints` (list of Bool); returns a validated Model."""
+    with trace_span("solver.get_model", cat="solver",
+                    constraints=len(constraints)):
+        return _get_model_impl(constraints, minimize, maximize,
+                               enforce_execution_time, solver_timeout)
+
+
+def _get_model_impl(
+    constraints,
+    minimize: Iterable = (),
+    maximize: Iterable = (),
+    enforce_execution_time: bool = True,
+    solver_timeout: Optional[int] = None,
+) -> Model:
+    minimize, maximize = tuple(minimize), tuple(maximize)
+    raw_constraints: List = [
+        c.raw if isinstance(c, Expression) else c for c in constraints
+    ]
+
+    timeout_ms = (solver_timeout if solver_timeout is not None
+                  else args.solver_timeout)
+    timeout_s = timeout_ms / 1000.0
+    if enforce_execution_time:
+        timeout_s = min(timeout_s,
+                        max(time_handler.time_remaining() - 0.5, 0.05))
+
+    crosscheck = _crosscheck_wanted()
+    stats = SolverStatistics()
+    key = None
+    if not minimize and not maximize:
+        key = _cache_key(raw_constraints) if memory_tier_enabled() else None
+        if key is not None and key in _result_cache:
+            cached = _result_cache[key]
+            stats.add_memory_hit()
+            if isinstance(cached, Model):
+                return cached
+            # a cached UNSAT is final even in a detection context: it came
+            # from a completed CDCL solve in this process
+            raise UnsatError()
+        quick = model_cache.check_quick_sat(raw_constraints)
+        if quick is not None:
+            stats.add_quick_sat_hit()
+            if key is not None:
+                _store_result(key, quick)
+            return quick
+
+    if minimize or maximize:
+        solver: Solver = Optimize(timeout=timeout_s)
+        for m in minimize:
+            solver.minimize(m.raw if isinstance(m, Expression) else m)
+        for m in maximize:
+            solver.maximize(m.raw if isinstance(m, Expression) else m)
+        solver.unsat_crosscheck = crosscheck
+        solver.add(raw_constraints)
+        status = solver.check()
+        if status == SAT:
+            return solver.model()
+        if status == UNSAT:
+            raise UnsatError()
+        raise SolverTimeOutException()
+
+    solver = Solver(timeout=timeout_s)
+    solver.unsat_crosscheck = crosscheck
+    solver.add(raw_constraints)
+    start = time.monotonic()
+    try:
+        prep = solver._prepare([])
+        if prep.trivial is not None:
+            if prep.trivial == SAT:
+                model = solver._trivial_model(prep)
+                if key is not None:
+                    _store_result(key, model)
+                    # trivial models often satisfy sibling queries with
+                    # different keys: feed the quick-sat deque too
+                    model_cache.put(model)
+                return model
+            if prep.trivial == UNSAT:
+                if key is not None:
+                    _store_result(key, UNSAT)
+                raise UnsatError()
+            raise SolverTimeOutException()
+
+        status = solver._solve_prepared(prep)
+        if status == SAT:
+            model = solver.model()
+            if key is not None:
+                _store_result(key, model)
+                model_cache.put(model)
+            return model
+        if status == UNSAT:
+            if key is not None:
+                _store_result(key, UNSAT)
+            raise UnsatError()
+        raise SolverTimeOutException()
+    finally:
+        stats.add_query(time.monotonic() - start)
 
 
 def get_models_batch(
@@ -289,8 +433,12 @@ def clear_caches() -> None:
     """Drop every piece of process-global solve state: the memory tiers,
     the per-origin blasters, the scheduler's buffer, the incremental
     memos, the aig_opt session and result cache, the partition cache, the
-    router (its calibration and breaker) and the session fuses."""
+    router (its calibration and breaker) and the session fuses; and, once
+    the engine's front (core.py) is loaded, its reset_engine_state."""
     clear_result_tiers()
+    core = sys.modules.get("mythril_tpu_torch.core")
+    if core is not None:
+        core.reset_engine_state()
     from mythril_tpu_torch import preanalysis, resilience
     from mythril_tpu_torch.gpu import router
     from mythril_tpu_torch.service import reset_service_state, tenancy

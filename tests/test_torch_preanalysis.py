@@ -39,14 +39,16 @@ from tests.test_torch_smt import _constraint_sets
 
 @pytest.fixture
 def fresh(monkeypatch):
-    """Both packages at their defaults (pre-analysis on), with fresh
-    blasters, memos, sessions and partition caches."""
+    """Both packages at their defaults (pre-analysis on) on the host
+    backend (the port's default is the device), with fresh blasters,
+    memos, sessions and partition caches."""
     for name in ("MYTHRIL_TPU_PREANALYSIS", "MYTHRIL_GPU_PREANALYSIS",
                  "MYTHRIL_TPU_AIG_OPT", "MYTHRIL_GPU_AIG_OPT",
                  "MYTHRIL_TPU_INCR_PREP", "MYTHRIL_GPU_INCR_PREP"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(ref_frontend, "_global_blaster", None)
     monkeypatch.setattr(port_frontend, "_global_blaster", None)
+    port_args.solver_backend = "cpu"
     ref_model.clear_caches()
     port_model.clear_caches()
     stats = SolverStatistics()

@@ -18,6 +18,7 @@ import mythril_tpu.smt as ref_smt
 import mythril_tpu_torch.smt as port_smt
 from mythril_tpu.smt.solver import frontend as ref_frontend
 from mythril_tpu_torch.smt.solver import frontend as port_frontend
+from mythril_tpu_torch.support.args import args as port_args
 from mythril_tpu_torch.support.workloads import sibling_window
 
 W = 256
@@ -45,6 +46,8 @@ def _constraint_sets(smt):
 
 @pytest.fixture
 def fresh_blasters(monkeypatch):
+    # the host CDCL on both sides (the port's default is the device)
+    monkeypatch.setattr(port_args, "solver_backend", "cpu")
     monkeypatch.setenv("MYTHRIL_TPU_PREANALYSIS", "0")
     monkeypatch.setenv("MYTHRIL_GPU_PREANALYSIS", "0")
     monkeypatch.setattr(ref_frontend, "_global_blaster", None)

@@ -2,6 +2,11 @@
 (mythril_tpu_torch) against the JAX package (mythril_tpu): data passes
 between the two only as numpy arrays."""
 
+import importlib
+import logging
+from contextlib import contextmanager
+from types import SimpleNamespace
+
 import numpy as np
 
 from mythril_tpu_torch.gpu.circuit import PackedCircuit as PortPacked
@@ -34,3 +39,76 @@ def assert_packed_equal(ref_pc, pc):
                 "root_neg", "root_mask", "level_rows"):
         np.testing.assert_array_equal(getattr(pc, key), getattr(ref_pc, key),
                                       err_msg=key)
+
+
+# -- analyze runs of either package ------------------------------------------
+
+
+class _TimeoutWatch(logging.Handler):
+    """Collects the engine's "... timeout reached" lines: a run that logs
+    one explored a prefix that depends on the machine's speed."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.hits = []
+
+    def emit(self, record):
+        message = record.getMessage()
+        if "timeout reached" in message:
+            self.hits.append(message)
+
+
+@contextmanager
+def watch_timeouts(package: str):
+    """Yields the list of timeout lines `package`'s engine logs inside."""
+    logger = logging.getLogger(f"{package}.laser.svm")
+    handler = _TimeoutWatch()
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    try:
+        yield handler.hits
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def run_analyze(package: str, code_hex: str, tx_count: int, backend: str,
+                execution_timeout: int, device=None, pruning_factor=None,
+                modules=None, bin_runtime=False):
+    """One `analyze` of `code_hex` through `package`'s MythrilAnalyzer from
+    fresh process state (args, solve caches, the shared blaster). The JAX
+    package runs with its vmapped frontier off, as the port's engine does.
+    Returns the Report; asserts that the exploration completed."""
+    core = importlib.import_module(f"{package}.core")
+    args = importlib.import_module(f"{package}.support.args").args
+    model = importlib.import_module(f"{package}.support.model")
+    frontend = importlib.import_module(f"{package}.smt.solver.frontend")
+    args.reset()
+    model.clear_caches()
+    frontend._global_blaster = None
+    cmd_args = SimpleNamespace(
+        execution_timeout=execution_timeout, transaction_count=tx_count,
+        max_depth=128, solver_backend=backend, pruning_factor=pruning_factor)
+    if package == "mythril_tpu":
+        cmd_args.no_vmap_frontier = True
+    else:
+        cmd_args.torch_device = device
+    disassembler = core.MythrilDisassembler()
+    disassembler.load_from_bytecode(code_hex, bin_runtime=bin_runtime)
+    with watch_timeouts(package) as timeouts:
+        analyzer = core.MythrilAnalyzer(disassembler, cmd_args=cmd_args,
+                                        strategy="bfs")
+        report = analyzer.fire_lasers(modules=modules,
+                                      transaction_count=tx_count)
+    assert not timeouts, f"{package} run did not complete: {timeouts}"
+    assert not report.exceptions, report.exceptions
+    args.reset()
+    return report
+
+
+def issue_keys(report):
+    """A report's findings at issue granularity: SWC id, function, address
+    and title (the witness a device model picks may differ)."""
+    return sorted((issue.swc_id, issue.function, issue.address, issue.title)
+                  for issue in report.issues.values())

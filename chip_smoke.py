@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --forms-only   # env, build and the timing phase
+    python3 chip_smoke.py --fork-prep    # env, build and the fork-prep runs
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
 
   env     torch / CUDA versions, the card and its power limit;
   build   nvcc for the ragged round (mythril_tpu_torch/csrc/ragged_round.cu)
-          and g++ for the host CDCL (native/sat.cpp), started together,
-          into mythril_tpu_torch/_build/;
+          and for the frontier step (csrc/frontier_step.cu), and g++ for
+          the host CDCL (native/sat.cpp), all started together, into
+          mythril_tpu_torch/_build/;
   slice   get_models_batch with solver_backend="gpu" on a window of 64
           sibling-path queries at 256 bits (the coalescing window cap),
           pre-analysis and the result tiers off, through the router:
@@ -51,41 +53,70 @@ line):
           admission, the streams the router launched and where the time
           went, and holds K1 bit for bit against its plain version on the
           largest stream the router launched in (a), and times it there;
+  frontier the frontier step K6 against its plain version (the same
+          micro-op interpreter in torch ops) on the card, on 300 seeded
+          random straight-line runs (support/workloads.frontier_program,
+          a quarter of the words at the edges 0, 1, 2^255 and 2^256 - 1)
+          over 1-64 rows each, some rows starved of gas: the ok masks must
+          be equal and every output equal on the ok rows; then K6 alone
+          (back-to-back launches), its wrapper, the whole host step
+          (upload, wrapper, download) and its plain version timed on a
+          64-row batch of one fixed run and on a 1-row, 3-op run (the
+          launch floor);
   analyze the port's MythrilAnalyzer end to end, in process, once with
-          solver_backend "cpu" (the host CDCL alone) and once with "gpu"
-          (every batched window through the scheduler and the router to K1
-          on the card), fork pruning on (--pruning-factor 1): KILLBILLY
+          solver_backend "cpu" (the host CDCL alone, the frontier stepped
+          on the host) and once with "gpu" (every batched window through
+          the scheduler and the router to K1, every frontier step through
+          K6, on the card), the batched frontier on, fork pruning on
+          (--pruning-factor 1): KILLBILLY
           (tests/test_analysis.py, rebuilt here with the port's
           easm_to_code) at -t 2 and the four bench_inputs/corpus contracts
           at -t 1, each with an execution timeout of 600 s that the runs
           must not reach, then bench_inputs/stress_dispatch.hex at -t 1
-          with a fixed 120 s each (reported, its findings compared only if
-          both runs completed). Fails unless those five runs completed with
+          with a fixed 60 s each (reported, its findings compared only if
+          both runs completed; 120 s before the frontier phase came, cut
+          to keep the script inside its time limit). KILLBILLY and
+          xc_dispatch_a.hex run a third time, on the host CDCL with the
+          frontier stepped by K6 (MYTHRIL_GPU_FRONTIER_BACKEND=cuda): the
+          report must equal the host run's byte for byte, and the frontier
+          counters too. Fails unless those five runs completed with
           the same findings on both backends at issue granularity (SWC id,
-          function, address, title), K1 launched, the router returned
-          models and K1 itself solved components (counts read around the
-          five), and K1 is bit for bit equal to its plain version on the
-          largest stream the five launched and on the largest of
-          stress_dispatch, timed on each. stress_dispatch's launches are
+          function, address, title), K1 and K6 launched, the router
+          returned models and K1 itself solved components (counts read
+          around each run), K1 is bit for bit equal to its plain version
+          on the largest stream the five launched and on the largest of
+          stress_dispatch, timed on each, and K6 equals its plain version
+          on the largest frontier batch the five stepped (rows x ops),
+          timed there. stress_dispatch's launches are
           counted apart ("analyze_stress"): its runs end on the clock, so
           their count depends on the host's speed. Per contract and backend it
           prints the wall, the solver, interpreter and prepare seconds,
           the router's plan, landing, round loop and settles, K1's
           launches and component finds, the device queries and hits, the
-          tracer's spans, and the findings.
+          frontier's counters and K6's launches, the tracer's spans, and
+          the findings.
 
 The kernel and timing phases build their streams with pre-analysis off,
 as this script's earlier versions did, so their timed stream stays the
 same.
+--fork-prep runs xc_dispatch_a.hex and xc_dispatch_b.hex at -t 1 through
+the analyze phase's runner in five legs: the host backend, the device
+backend, the device backend with --no-frontier-fork, with the fork-pair
+members prepared under the normal (forced) aig_opt sweep instead of the
+deferred one, and with --no-vmap-frontier. Each leg prints its wall,
+prepare seconds and the cnf_prep and aig_opt spans split into the
+fork-pair members' and the other queries' (count, seconds, clauses,
+propagation rounds); every analyze record carries the same split. It
+checks nothing.
 --forms-only times the same three streams with the host CDCL's verdicts
 and no other phase. It calls only the round's interface (flatten_stream,
 device_flat, run_round_ragged_kernel), so a copy of this script placed in
 a checkout of an earlier version of the port times that version's kernel.
 
-Then the script's total seconds, the {"kernels": [...]} line (K1's
-launches over the five compared analyze contracts and its times on the
-largest stream they launched, the router's and the slice's streams beside
-them), the
+Then the script's total seconds, the {"kernels": [...]} line (K1's and
+K6's launches over the five compared analyze contracts and their times on
+the largest stream and frontier batch they launched; K1's router and slice
+streams and K6's 64-row batch beside them), the
 card's nvidia-smi line, and last {"ok": true, "device": {...}}. A copy of every
 JSON line goes to chiprun_out/chip_smoke.jsonl.
 """
@@ -111,7 +142,11 @@ FORK_PAIRS = 16    # the fork window: 32 queries
 SEED = 20261016
 OUT_DIR = "chiprun_out"
 ANALYZE_TIMEOUT = 600   # s per analyze run; the runs must complete inside
-STRESS_TIMEOUT = 120    # s per stress_dispatch run, a measurement
+STRESS_TIMEOUT = 60     # s per stress_dispatch run, a measurement
+FRONTIER_RUNS = 300     # random runs K6 is held against its plain version
+FRONTIER_EDGE_BIAS = 0.25
+# analyze runs repeated on the host CDCL with the frontier stepped by K6
+CUDA_HOST_RUNS = ("killbilly", "xc_dispatch_a.hex")
 CORPUS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex", "xc_sender_a.hex",
           "xc_sender_b.hex")
 
@@ -155,7 +190,7 @@ def _preanalysis(on: bool):
 
 
 def phase_build():
-    from mythril_tpu_torch.gpu import ragged_kernel
+    from mythril_tpu_torch.gpu import frontier_kernel, ragged_kernel
     from mythril_tpu_torch.smt.solver import sat_backend
 
     results, errors = {}, []
@@ -170,6 +205,7 @@ def phase_build():
 
     threads = [threading.Thread(target=run, args=(name, fn)) for name, fn in
                (("nvcc", ragged_kernel.build_kernel),
+                ("nvcc-frontier", frontier_kernel.build_kernel),
                 ("g++", sat_backend.get_native_lib))]
     for thread in threads:
         thread.start()
@@ -177,10 +213,14 @@ def phase_build():
         thread.join()
     if errors:
         raise RuntimeError("; ".join(errors))
-    ptxas = [line.strip() for line in results["nvcc"][1]["ptxas"].splitlines()
-             if "registers" in line or "smem" in line]
+    def ptxas(name):
+        return [line.strip() for line in results[name][1]["ptxas"].splitlines()
+                if "registers" in line or "smem" in line]
+
     emit({"phase": "build", "nvcc_s": round(results["nvcc"][0], 3),
-          "gxx_s": round(results["g++"][0], 3), "ptxas": ptxas})
+          "nvcc_frontier_s": round(results["nvcc-frontier"][0], 3),
+          "gxx_s": round(results["g++"][0], 3), "ptxas": ptxas("nvcc"),
+          "ptxas_frontier": ptxas("nvcc-frontier")})
 
 
 def _prepared_window(queries):
@@ -878,6 +918,187 @@ def phase_router(device):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# -- the frontier phase -------------------------------------------------------
+
+
+def _op_family(name: str) -> str:
+    for family in ("PUSH", "DUP", "SWAP"):
+        if name.startswith(family):
+            return family
+    return name
+
+
+def _hold_frontier(run, frame, device):
+    """K6 against its plain version on one frame: the ok masks must be
+    equal and every output equal on the ok rows. Returns (ok rows, largest
+    absolute difference on them); launches made here are not counted."""
+    import torch
+
+    from mythril_tpu_torch.gpu import frontier_kernel
+    from mythril_tpu_torch.laser.frontier import kernel
+
+    launches = frontier_kernel.launches
+    got = frontier_kernel.run_step_kernel(
+        run, *kernel.frame_tensors(frame, device))
+    want = kernel.step_plain(run, *kernel.frame_tensors(frame, device))
+    torch_sync(device)
+    frontier_kernel.launches = launches
+    ok = want[6]
+    if not torch.equal(got[6], ok):
+        raise AssertionError(
+            f"K6's ok mask differs from its plain version's on "
+            f"{run.op_names}: {int((got[6] != ok).sum())} rows")
+    err = 0
+    for index, (x, y) in enumerate(zip(got, want)):
+        if x.shape != y.shape or not torch.equal(x[ok], y[ok]):
+            raise AssertionError(
+                f"K6 disagrees with its plain version on output {index} "
+                f"of {run.op_names}")
+        if x[ok].numel():
+            err = max(err, int((x[ok].long() - y[ok].long()).abs().max()))
+    return int(ok.sum()), err
+
+
+def _frontier_bound(run, frame, ok_rows):
+    """Least time for one step: the bytes the step must move over the HBM
+    rate, against the 32-bit word operations over the CUDA-core rate (8
+    per word op, 72 per MUL, every restoring-division step of a
+    DIV/MOD/SDIV/SMOD counted). The bytes: every row's stack words in
+    and out, its scalars, its store log and fork words and the 32-byte
+    word each MLOAD reads; and the bytes each MSTORE (32) and MSTORE8 (1)
+    writes to the window and its mask (4 + 1 a byte), counted on the
+    rows that end ok (a row stores nothing once it is not ok). The op
+    table is read once. Untouched window bytes are not counted: the step
+    updates the window in place."""
+    from mythril_tpu_torch.gpu import frontier_kernel
+
+    rows = frame.batch
+    kinds = [op.kind for op in run.ops]
+    n_log = frontier_kernel.log_stores(run)
+    n_fork = frontier_kernel.fork_words(run)
+    ops_table, consts = frontier_kernel.encode_program(run)
+    per_row = (run.touch * 128 + run.out_len * 128
+               + kinds.count("mload") * 32 * 4
+               + n_log * (4 + 128) + n_fork * 128
+               + 4 * 4 + 1 + 3 * 4 + 1)
+    per_ok_row = ((kinds.count("mstore") * 32 + kinds.count("mstore8"))
+                  * (4 + 1))
+    moved = (rows * per_row + ok_rows * per_ok_row + ops_table.nbytes
+             + consts.nbytes)
+    cost = {"mul": 72, "div": 256 * 24, "mod": 256 * 24, "sdiv": 256 * 24,
+            "smod": 256 * 24}
+    ops = rows * sum(cost.get(op.arg, 8) if op.kind == "bin" else 8
+                     for op in run.ops)
+    byte_s, op_s = moved / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    return (max(byte_s, op_s) * 1e3,
+            "bytes" if byte_s >= op_s else "operations", moved, ops)
+
+
+def _time_frontier(run, frame, device, window, counts=None):
+    """K6 timed on `frame`, after it is held against its plain version
+    there: the kernel alone (`ms`: back-to-back launches into outputs
+    allocated once), the wrapper (`wrapper_ms`: checks, allocation and
+    the launch, per call), the whole host step (`host_step_ms`: upload,
+    wrapper, download, what the stepper pays) and the plain version.
+    Launches made here are not counted. Emits one record and returns
+    it."""
+    from mythril_tpu_torch.gpu import frontier_kernel
+    from mythril_tpu_torch.laser.frontier import kernel
+
+    ok_rows, err = _hold_frontier(run, frame, device)
+    launches = frontier_kernel.launches
+    tensors = kernel.frame_tensors(frame, device)
+    _outputs, launch = frontier_kernel.prepare_launch(run, *tensors)
+    ms = _time_ms(launch, repeats=200)
+    wrapper_ms = _time_ms(
+        lambda: frontier_kernel.run_step_kernel(run, *tensors), repeats=50)
+    plain_ms = _time_ms(lambda: kernel.step_plain(run, *tensors), repeats=2)
+    kernel.step_batch(run, frame, "cuda", device)  # warm
+    torch_sync(device)
+    start = time.monotonic()
+    for _ in range(20):
+        kernel.step_batch(run, frame, "cuda", device)
+    host_step_ms = (time.monotonic() - start) / 20 * 1e3
+    frontier_kernel.launches = launches
+    bound_ms, bound_by, moved, ops = _frontier_bound(run, frame, ok_rows)
+    record = {"phase": "frontier", "window": window,
+              "rows": frame.batch, "ops": len(run.ops),
+              "op_names": list(run.op_names), "touch": run.touch,
+              "out_len": run.out_len, "memory_window": frame.mem.shape[1],
+              **(counts or {}), "ok_rows": ok_rows,
+              "equal_on_ok_rows": True, "max_abs_err": err, "ms": ms,
+              "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+              "host_step_ms": host_step_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+              "word_ops": ops}
+    emit(record)
+    return record
+
+
+def _timed_program(rng):
+    """A fixed run for the 64-row timing: the first generated run of at
+    least 16 micro-ops with a division and a memory op in it."""
+    from mythril_tpu_torch.support.workloads import (
+        frontier_program,
+        frontier_run,
+    )
+
+    while True:
+        code, init_stack = frontier_program(rng,
+                                            edge_bias=FRONTIER_EDGE_BIAS)
+        run = frontier_run(code)
+        if (run is not None and len(run.ops) >= 16 and run.has_mem
+                and any(op.arg in ("div", "mod", "sdiv", "smod")
+                        for op in run.ops)):
+            return run, init_stack
+
+
+def phase_frontier(device):
+    """K6 on random runs and its times on a 64-row batch (see the module
+    note). Returns the 64-row timing record."""
+    from mythril_tpu_torch.support.workloads import (
+        frontier_frame,
+        frontier_program,
+        frontier_run,
+    )
+
+    rng = random.Random(SEED + 31)
+    checked = rows = ok_rows = err = 0
+    families = {}
+    start = time.monotonic()
+    while checked < FRONTIER_RUNS:
+        code, init_stack = frontier_program(rng,
+                                            edge_bias=FRONTIER_EDGE_BIAS)
+        run = frontier_run(code)
+        if run is None:
+            continue
+        frame = frontier_frame(rng, run, rng.randint(1, 64), init_stack,
+                               edge_bias=FRONTIER_EDGE_BIAS)
+        n_ok, run_err = _hold_frontier(run, frame, device)
+        checked += 1
+        rows += frame.batch
+        ok_rows += n_ok
+        err = max(err, run_err)
+        for family in {_op_family(name) for name in run.op_names}:
+            families[family] = families.get(family, 0) + 1
+    emit({"phase": "frontier", "window": "random-runs", "runs": checked,
+          "rows": rows, "ok_rows": ok_rows, "runs_by_opcode": families,
+          "equal_on_ok_rows": True, "max_abs_err": err,
+          "seconds": time.monotonic() - start})
+    run, init_stack = _timed_program(random.Random(SEED + 37))
+    frame = frontier_frame(random.Random(SEED + 41), run, 64, init_stack,
+                           edge_bias=FRONTIER_EDGE_BIAS, starved_share=0.0)
+    timed = _time_frontier(run, frame, device, "synthetic-64")
+    # the launch floor: a 1-row, 3-op run with no memory
+    floor_run = frontier_run(bytes([0x60, 0x01, 0x60, 0x02, 0x01, 0x00]))
+    floor = _time_frontier(floor_run,
+                           frontier_frame(random.Random(1), floor_run, 1,
+                                          starved_share=0.0),
+                           device, "launch-floor")
+    return {**timed, "max_abs_err": max(err, timed["max_abs_err"]),
+            "floor_ms": floor["ms"]}
+
+
 # -- the analyze phase --------------------------------------------------------
 
 # the unprotected-selfdestruct contract of tests/test_analysis.py and the
@@ -951,12 +1172,88 @@ def _issue_keys(report):
                   for issue in report.issues.values())
 
 
-def _analyze_once(device, code, tx_count, timeout, solver_backend, largest):
+FRONTIER_KEYS = (
+    "frontier_vmap_steps", "frontier_states_stepped",
+    "frontier_batch_slots", "frontier_fallback_exits",
+    "frontier_fallback_dialect", "frontier_fallback_dynamic",
+    "frontier_fallback_hook", "frontier_fallback_symbolic",
+    "frontier_batch_bails", "frontier_symlane_rows", "frontier_forks",
+    "frontier_fork_rows", "frontier_fork_cohort_rows",
+    "frontier_fork_infeasible_pruned")
+
+
+def _copy_frame(dense):
+    """The step's inputs of a frame (not the symbolic lane's handles)."""
+    from mythril_tpu_torch.laser.frontier.dense import DenseFrontier
+
+    frame = DenseFrontier(0, 0, 1)
+    for name in ("stack", "depth", "mem", "mem_written", "msize", "pc",
+                 "min_gas", "max_gas", "gas_limit", "live"):
+        setattr(frame, name, getattr(dense, name).copy())
+    return frame
+
+
+@contextlib.contextmanager
+def _frontier_backend(backend):
+    """MYTHRIL_GPU_FRONTIER_BACKEND pinned inside the block (None: auto)."""
+    saved = os.environ.pop("MYTHRIL_GPU_FRONTIER_BACKEND", None)
+    if backend is not None:
+        os.environ["MYTHRIL_GPU_FRONTIER_BACKEND"] = backend
+    try:
+        yield
+    finally:
+        os.environ.pop("MYTHRIL_GPU_FRONTIER_BACKEND", None)
+        if saved is not None:
+            os.environ["MYTHRIL_GPU_FRONTIER_BACKEND"] = saved
+
+
+@contextlib.contextmanager
+def _keep_largest_batch(batches):
+    """Keep the largest frontier batch (rows x micro-ops) the CUDA step
+    takes inside the block: batches gets "size", "run" and "frame"."""
+    from mythril_tpu_torch.laser.frontier import kernel
+
+    def keep(run, dense):
+        size = dense.batch * len(run.ops)
+        if size > batches.get("size", -1):
+            batches.update(size=size, run=run, frame=_copy_frame(dense))
+
+    kernel.on_cuda_step = keep
+    try:
+        yield
+    finally:
+        kernel.on_cuda_step = None
+
+
+def _split_by_deferred(events, name):
+    """{"deferred"|"plain": {spans, seconds, and the sums of the spans'
+    size attributes}} of one span name: the fork-pair members' prepares
+    (under the deferred-forcing sweep) apart from every other query's."""
+    split = {"deferred": {"spans": 0, "seconds": 0.0},
+             "plain": {"spans": 0, "seconds": 0.0}}
+    for event in events:
+        if event["name"] != name:
+            continue
+        attrs = event.get("args", {})
+        row = split["deferred" if attrs.get("deferred") else "plain"]
+        row["spans"] += 1
+        row["seconds"] += event["dur"] / 1e6
+        for key in ("clauses", "rounds", "units", "roots"):
+            if key in attrs:
+                row[key] = row.get(key, 0) + attrs[key]
+    return split
+
+
+def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
+                  frontier_backend=None, batches=None, engine=None):
     """One in-process analyze from fresh solve state, counted: (report,
     completed, record). `largest` keeps the largest stream (by gates) the
-    backend assembles."""
+    backend assembles, `batches` the largest frontier batch K6 steps;
+    `frontier_backend` pins the frontier's step (None: auto, which is the
+    host step for solver_backend "cpu" and K6 for "gpu"); `engine` adds
+    CLI options (e.g. {"no_frontier_fork": True})."""
     from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
-    from mythril_tpu_torch.gpu import ragged_kernel
+    from mythril_tpu_torch.gpu import frontier_kernel, ragged_kernel
     from mythril_tpu_torch.gpu.backend import get_device_backend
     from mythril_tpu_torch.observe.tracer import get_tracer
     from mythril_tpu_torch.smt.solver import frontend
@@ -988,24 +1285,29 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest):
     logger.setLevel(logging.INFO)
     logger.addHandler(watch)
     launches_before = ragged_kernel.launches
+    frontier_kernel.reset_launches()  # K6's count for this run starts here
     cmd_args = SimpleNamespace(
         execution_timeout=timeout, transaction_count=tx_count,
         max_depth=128, solver_backend=solver_backend,
-        torch_device=device_arg, pruning_factor=1.0)
+        torch_device=device_arg, pruning_factor=1.0, **(engine or {}))
     disassembler = MythrilDisassembler()
     disassembler.load_from_bytecode(code)
     torch_sync(device)
     start = time.monotonic()
     try:
-        analyzer = MythrilAnalyzer(disassembler, cmd_args=cmd_args)
-        report = analyzer.fire_lasers(transaction_count=tx_count)
+        with _frontier_backend(frontier_backend), \
+                _keep_largest_batch(batches if batches is not None else {}):
+            analyzer = MythrilAnalyzer(disassembler, cmd_args=cmd_args)
+            report = analyzer.fire_lasers(transaction_count=tx_count)
         torch_sync(device)
         wall = time.monotonic() - start
+        k6_launches = frontier_kernel.launches  # ... and ends here
     finally:
         backend.on_stream = None
         logger.removeHandler(watch)
         logger.setLevel(level)
         spans = tracer.summary()
+        events = tracer.events()
         tracer.reset()
         args.reset()
     if report.exceptions:
@@ -1033,6 +1335,10 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest):
                    "dispatch_s": span_s("router.dispatch")},
         "cdcl_settle_pass_s": span_s("solver.settle_pass"),
         "kernel_launches": ragged_kernel.launches - launches_before,
+        "k6_launches": k6_launches,
+        "frontier": {**{key: counters[key] for key in FRONTIER_KEYS},
+                     "frontier_batch_occupancy":
+                         counters["frontier_batch_occupancy"]},
         "batched_queries": counters["batch_query_count"],
         "device_batch_queries": counters["device_batch_queries"],
         "device_batch_hits": counters["device_batch_hits"],
@@ -1051,29 +1357,46 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest):
         "single_queries": counters["query_count"],
         # {span: [count, seconds]}; spans nest, so they do not sum
         "spans": spans,
+        "cnf_prep_split": _split_by_deferred(events, "solver.cnf_prep"),
+        "aig_opt_split": _split_by_deferred(events, "solver.aig_opt"),
         "findings": _issue_keys(report)}
     return report, not watch.lines, record
 
 
 def _analyze_contract(device, name, code, tx_count, timeout, compared,
-                      largest):
-    """One contract on both backends (see the module note); returns the
-    device backend's (device_batch_hits, aig_device_component_hits)."""
-    keys = {}
-    completed = {}
-    hits = k1_hits = 0
-    for solver_backend in ("cpu", "gpu"):
+                      largest, batches):
+    """One contract on both backends, and for CUDA_HOST_RUNS once more on
+    the host CDCL with K6 stepping the frontier (see the module note).
+    Returns the device backend's (device_batch_hits,
+    aig_device_component_hits, K6 launches) and the K6 launches of the
+    host-CDCL run."""
+    keys, completed, reports, frontier = {}, {}, {}, {}
+    hits = k1_hits = k6_launches = host_k6_launches = 0
+    legs = [("cpu", None), ("gpu", None)]
+    if name in CUDA_HOST_RUNS:
+        legs.append(("cpu", "cuda"))
+    for solver_backend, frontier_backend in legs:
+        leg = solver_backend + ("+cuda-frontier" if frontier_backend else "")
         report, done, record = _analyze_once(
             device, code, tx_count, timeout, solver_backend,
-            largest if solver_backend == "gpu" else {})
-        keys[solver_backend] = _issue_keys(report)
-        completed[solver_backend] = done
+            largest if solver_backend == "gpu" else {},
+            frontier_backend=frontier_backend,
+            batches=batches if solver_backend == "gpu" else None)
+        keys[leg] = _issue_keys(report)
+        completed[leg] = done
+        reports[leg] = (report.as_json(), report.as_text())
+        frontier[leg] = record["frontier"]
         if solver_backend == "gpu":
             hits = record["device_batch_hits"]
             k1_hits = record["aig_device_component_hits"]
+            k6_launches = record["k6_launches"]
+        elif frontier_backend == "cuda":
+            host_k6_launches = record["k6_launches"]
         emit({"phase": "analyze", "contract": name, "tx": tx_count,
-              "backend": solver_backend, "execution_timeout": timeout,
-              **record})
+              "backend": solver_backend,
+              "frontier_step": frontier_backend or (
+                  "cuda" if solver_backend == "gpu" else "numpy"),
+              "execution_timeout": timeout, **record})
     if compared and not all(completed.values()):
         raise AssertionError(f"analyze: {name} did not complete inside "
                              f"{timeout} s: {completed}")
@@ -1081,7 +1404,20 @@ def _analyze_contract(device, name, code, tx_count, timeout, compared,
         raise AssertionError(f"analyze: {name}: the device backend's "
                              f"findings {keys['gpu']} differ from the "
                              f"host's {keys['cpu']}")
-    return hits, k1_hits
+    if "cpu+cuda-frontier" in reports:
+        if reports["cpu+cuda-frontier"] != reports["cpu"]:
+            raise AssertionError(f"analyze: {name}: the host-CDCL report "
+                                 f"with K6 stepping the frontier differs "
+                                 f"from the host step's")
+        if frontier["cpu+cuda-frontier"] != frontier["cpu"]:
+            raise AssertionError(f"analyze: {name}: the frontier counters "
+                                 f"with K6 differ from the host step's: "
+                                 f"{frontier['cpu+cuda-frontier']} vs "
+                                 f"{frontier['cpu']}")
+        if host_k6_launches <= 0:
+            raise AssertionError(f"analyze: {name}: K6 was never launched "
+                                 f"on the host-CDCL run")
+    return hits, k1_hits, k6_launches, host_k6_launches
 
 
 def _hold_stream(device, stream, window, counts):
@@ -1126,18 +1462,21 @@ def phase_analyze(device):
     Returns K1's launches over the five compared contracts, its comparison
     and times on the largest stream they launched, and stress_dispatch's
     launches apart: its runs are cut by the clock, so their count depends
-    on the host's speed."""
+    on the host's speed; and K6's launches on the same runs, with its
+    comparison and times on the largest frontier batch."""
     from mythril_tpu_torch.gpu import ragged_kernel
 
     inputs = _analyze_inputs()
-    largest, stress_largest = {}, {}
-    hits = k1_hits = 0
+    largest, stress_largest, batches = {}, {}, {}
+    hits = k1_hits = k6_launches = host_k6_launches = 0
     ragged_kernel.reset_launches()  # the compared runs' count starts here
     for name, code, tx_count, timeout, compared in inputs:
         if compared:
             found = _analyze_contract(device, name, code, tx_count, timeout,
-                                      True, largest)
+                                      True, largest, batches)
             hits, k1_hits = hits + found[0], k1_hits + found[1]
+            k6_launches += found[2]
+            host_k6_launches += found[3]
     launches = ragged_kernel.launches  # ... and ends here
     if launches <= 0:
         raise AssertionError("analyze: K1 was never launched")
@@ -1145,11 +1484,15 @@ def phase_analyze(device):
         raise AssertionError("analyze: the router returned no model")
     if k1_hits <= 0:
         raise AssertionError("analyze: K1 solved no component it was sent")
+    if k6_launches <= 0 or not batches:
+        raise AssertionError("analyze: K6 was never launched")
     ragged_kernel.reset_launches()  # stress_dispatch's count starts here
+    stress_k6 = 0
     for name, code, tx_count, timeout, compared in inputs:
         if not compared:
-            _analyze_contract(device, name, code, tx_count, timeout, False,
-                              stress_largest)
+            stress_k6 += _analyze_contract(device, name, code, tx_count,
+                                           timeout, False, stress_largest,
+                                           {})[2]
     stress_launches = ragged_kernel.launches  # ... and ends here
 
     held = _hold_stream(device, largest["stream"], "analyze-stream",
@@ -1161,8 +1504,67 @@ def phase_analyze(device):
         err = max(err, _hold_stream(
             device, stress_largest["stream"], "stress-stream",
             {"kernel_launches": stress_launches})["max_abs_err"])
+    k6 = _time_frontier(batches["run"], batches["frame"], device,
+                        "analyze-largest-batch",
+                        {"k6_launches": k6_launches,
+                         "k6_launches_host_cdcl": host_k6_launches,
+                         "k6_launches_stress": stress_k6})
     return {**held, "launches": launches, "stress_launches": stress_launches,
-            "max_abs_err": err}
+            "max_abs_err": err, "k6": k6, "k6_launches": k6_launches,
+            "k6_host_launches": host_k6_launches, "k6_stress": stress_k6}
+
+
+FORK_PREP_CONTRACTS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex")
+
+
+@contextlib.contextmanager
+def _forcing_not_deferred(on):
+    """With `on`, fork-pair members prepare under the normal (forced)
+    aig_opt sweep, like every other query."""
+    from mythril_tpu_torch.preanalysis import aig_opt
+
+    saved = aig_opt.deferred_forcing
+    if on:
+        aig_opt.deferred_forcing = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        aig_opt.deferred_forcing = saved
+
+
+def phase_fork_prep(device):
+    """Where the device backend's prepare goes with the frontier on (run
+    with --fork-prep; see the module note): each contract once a leg, the
+    cnf_prep and aig_opt spans split into the fork-pair members' (prepared
+    under the deferred-forcing sweep) and the others'."""
+    legs = (("host", "cpu", {}, False),
+            ("device", "gpu", {}, False),
+            ("device, no frontier fork", "gpu", {"no_frontier_fork": True},
+             False),
+            ("device, forcing not deferred", "gpu", {}, True),
+            ("device, frontier off", "gpu", {"no_vmap_frontier": True},
+             False))
+    for name in FORK_PREP_CONTRACTS:
+        with open(os.path.join("bench_inputs", "corpus", name)) as handle:
+            code = handle.read().strip()
+        for leg, solver_backend, engine, not_deferred in legs:
+            with _forcing_not_deferred(not_deferred):
+                report, done, record = _analyze_once(
+                    device, code, 1, ANALYZE_TIMEOUT, solver_backend, {},
+                    engine=engine)
+            emit({"phase": "fork-prep", "contract": name, "leg": leg,
+                  "completed": done, "wall_s": record["wall_s"],
+                  "prepare_s": record["prepare_s"],
+                  "solver_s": record["solver_s"],
+                  "cnf_prep_split": record["cnf_prep_split"],
+                  "aig_opt_split": record["aig_opt_split"],
+                  "frontier_fork": record["spans"].get("frontier.fork"),
+                  "frontier_forks": record["frontier"]["frontier_forks"],
+                  "kernel_launches": record["kernel_launches"],
+                  "k6_launches": record["k6_launches"],
+                  "device_batch_queries": record["device_batch_queries"],
+                  "device_batch_hits": record["device_batch_hits"],
+                  "findings": len(report.issues)})
 
 
 def _host_verdicts(device, queries):
@@ -1211,12 +1613,18 @@ def main() -> int:
             forms_only(device)
             print(smi, flush=True)
             return 0
+        if "--fork-prep" in sys.argv[1:]:
+            phase_build()
+            phase_fork_prep(device)
+            print(smi, flush=True)
+            return 0
         phase_build()
         with _preanalysis(False):
             queries, verdicts, slice_launches = phase_slice(device)
             max_err = phase_kernel(device, queries, verdicts)
             timing = phase_timing(device, queries, verdicts)
         router = phase_router(device)
+        frontier = phase_frontier(device)
         analyze = phase_analyze(device)
         emit({"phase": "total", "seconds": time.monotonic() - start})
     except Exception as error:
@@ -1255,6 +1663,39 @@ def main() -> int:
                          "plain_ms": timing["plain_ms"],
                          "bound_ms": timing["bound_ms"],
                          "bound_by": timing["bound_by"]},
+    }, {
+        "name": "frontier_step",
+        "route": "cuda",
+        "source": "mythril_tpu_torch/csrc/frontier_step.cu",
+        # an XLA program, not a Pallas kernel: jit(vmap(_exec)), with K7
+        # (words.py _divmod_bitserial, :136) inside
+        "replaces": "mythril_tpu/laser/frontier/kernel.py:316",
+        # the main path's launches: the five compared contracts on the
+        # device backend (the host-CDCL runs with K6 and stress_dispatch
+        # counted apart)
+        "launches": analyze["k6_launches"],
+        "launches_by_path": {"analyze": analyze["k6_launches"],
+                             "analyze_host_cdcl": analyze["k6_host_launches"],
+                             "analyze_stress": analyze["k6_stress"]},
+        "max_abs_err": max(frontier["max_abs_err"],
+                           analyze["k6"]["max_abs_err"]),
+        # one launch on the largest frontier batch (rows x micro-ops) the
+        # compared runs stepped, the kernel alone; its wrapper and the
+        # stepper's whole host step beside it, and the 64-row batch
+        "ms": analyze["k6"]["ms"],
+        "plain_ms": analyze["k6"]["plain_ms"],
+        "bound_ms": analyze["k6"]["bound_ms"],
+        "bound_by": analyze["k6"]["bound_by"],
+        "library_ms": None,
+        "wrapper_ms": analyze["k6"]["wrapper_ms"],
+        "host_step_ms": analyze["k6"]["host_step_ms"],
+        "launch_floor_ms": frontier["floor_ms"],
+        "synthetic_64_rows": {"ms": frontier["ms"],
+                              "wrapper_ms": frontier["wrapper_ms"],
+                              "plain_ms": frontier["plain_ms"],
+                              "host_step_ms": frontier["host_step_ms"],
+                              "bound_ms": frontier["bound_ms"],
+                              "bound_by": frontier["bound_by"]},
     }]})
     with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w") as fd:
         fd.write("\n".join(_lines) + "\n")

@@ -100,8 +100,14 @@ class SymExecWrapper:
             self.preanalysis = preanalysis.get_code_summary(code_object)
             gating = preanalysis.gating_opcodes(contract, dynloader)
 
-        # the engine steps one state at a time: the JAX package's engine
-        # under --no-vmap-frontier (the batched frontier is a later slice)
+        # batched frontier (laser/frontier/): on for analysis runs unless
+        # gated off, but never when a full per-instruction statespace was
+        # compulsorily requested (graph dumps expect interior snapshots of
+        # straight-line runs, which batched steps elide; the default
+        # analyze statespace only feeds POST modules, which key on
+        # fork/call/return snapshots runs never contain)
+        from mythril_tpu_torch.laser import frontier
+
         self.laser = LaserEVM(
             dynamic_loader=dynloader,
             max_depth=max_depth,
@@ -113,6 +119,7 @@ class SymExecWrapper:
             beam_width=(getattr(args, "beam_width", None)
                         if strategy == "beam-search" else None),
             preanalysis=self.preanalysis,
+            vmap_frontier=frontier.enabled() and not compulsory_statespace,
         )
         self.laser.extend_strategy(BoundedLoopsStrategy, loop_bound=loop_bound)
 

@@ -66,7 +66,8 @@ class MythrilAnalyzer:
                 "solver_backend", "torch_device",
                 "solve_cache", "transaction_sequences", "beam_width",
                 "disable_coverage_strategy", "no_preanalysis",
-                "no_aig_opt", "no_incremental_prep", "trace",
+                "no_aig_opt", "no_incremental_prep", "no_vmap_frontier",
+                "no_frontier_fork", "trace",
             ):
                 if hasattr(cmd_args, field) and getattr(cmd_args, field) is not None:
                     setattr(args, field, getattr(cmd_args, field))
@@ -82,15 +83,19 @@ class MythrilAnalyzer:
 
         reset_engine_state()
         if args.solver_backend == "gpu":
-            # the device backend needs its device and K1 before the first
-            # window: with no card and none named this raises
-            # (NoDeviceError), and a kernel that does not build raises,
-            # before anything is explored; neither finishes on the host
-            from mythril_tpu_torch.gpu import ragged_kernel
+            # the device backend needs its device, K1 and (with the
+            # frontier on) K6 before the first window: with no card and
+            # none named this raises (NoDeviceError), and a kernel that
+            # does not build raises, before anything is explored; neither
+            # finishes on the host
+            from mythril_tpu_torch.gpu import frontier_kernel, ragged_kernel
             from mythril_tpu_torch.gpu.device import resolve_device
+            from mythril_tpu_torch.laser import frontier
 
             if resolve_device(args.torch_device).type == "cuda":
                 ragged_kernel.build_kernel()
+                if frontier.enabled():
+                    frontier_kernel.build_kernel()
         stats = SolverStatistics()
         stats.enabled = True
         trace_path = getattr(args, "trace", None) \

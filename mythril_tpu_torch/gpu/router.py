@@ -659,8 +659,11 @@ class QueryRouter:
         art, arf = problems[qt][2], problems[qf][2]
         if art is None or arf is None:
             return None
-        aig_t, roots_t = art[0], list(art[1])
-        aig_f, roots_f = arf[0], list(arf[1])
+        try:
+            aig_t, roots_t = art[0], list(art[1])
+            aig_f, roots_f = arf[0], list(arf[1])
+        except (TypeError, IndexError, KeyError):
+            return None  # packed-hint style problems: no raw root view
         if aig_t is not aig_f:
             return None
         set_t, set_f = set(roots_t), set(roots_f)

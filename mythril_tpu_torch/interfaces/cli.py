@@ -130,10 +130,26 @@ def add_analysis_args(parser) -> None:
                              "(prefix-memoized lowering and the session "
                              "strash table over sibling solver queries); "
                              "env override: MYTHRIL_GPU_INCR_PREP=0|1")
+    parser.add_argument("--no-vmap-frontier", action="store_true",
+                        dest="no_vmap_frontier",
+                        help="disable the batched symbolic-execution "
+                             "frontier (sibling machine states stepping "
+                             "straight-line opcode runs as one step, on "
+                             "the card by default) and step one state at "
+                             "a time; env override: "
+                             "MYTHRIL_GPU_VMAP_FRONTIER=0|1 (step backend: "
+                             "MYTHRIL_GPU_FRONTIER_BACKEND=auto|numpy|"
+                             "torch|cuda)")
+    parser.add_argument("--no-frontier-fork", action="store_true",
+                        dest="no_frontier_fork",
+                        help="disable batched forking of symbolic JUMPI "
+                             "inside the frontier (sibling feasibility as "
+                             "one fork bundle through the router); env "
+                             "override: MYTHRIL_GPU_FRONTIER_FORK=0|1")
     parser.add_argument("--trace", metavar="PATH", default=None,
                         help="write a Chrome-trace-event / Perfetto span "
                              "timeline of the whole pipeline (analyze, "
-                             "LASER exec, solver prepare, "
+                             "LASER exec, frontier, solver prepare, "
                              "router, device pack/ship/kernel, CDCL "
                              "settle, cache tiers, scheduler flushes) to "
                              "PATH; env equivalent: MYTHRIL_GPU_TRACE")

@@ -10,9 +10,10 @@ states are mutated in place under single ownership; the caller state is
 SNAPSHOTTED when an inner transaction starts, so revert restores it exactly
 (the reference gets this by copying every instruction — svm.py:459-579).
 
-States step one at a time through laser/instructions.py: this is the JAX
-package's engine with its vmapped frontier off (`--no-vmap-frontier`).
-The batched frontier comes with its device step in a later slice."""
+With `vmap_frontier` (SymExecWrapper's default for analysis runs) sibling
+states step straight-line runs as one batched step (laser/frontier/),
+K6 on the card; the rest steps one state at a time through
+laser/instructions.py."""
 
 import logging
 import random
@@ -72,6 +73,7 @@ class LaserEVM:
         use_reachability_check: bool = True,
         beam_width: Optional[int] = None,
         preanalysis=None,
+        vmap_frontier: bool = False,
     ):
         self.open_states: List[WorldState] = []
         self.work_list: List[GlobalState] = []
@@ -91,6 +93,13 @@ class LaserEVM:
         # direct engine users (concolic, vmtests) never set it, so their
         # behavior is untouched.
         self.preanalysis = preanalysis
+
+        # batched frontier (laser/frontier/): straight-line stepping over
+        # sibling states. Opt-in (SymExecWrapper sets it for analysis
+        # runs); the stepper is built lazily on first exec so every hook
+        # registration is visible to its eligibility gates
+        self.vmap_frontier = vmap_frontier
+        self._frontier = None
 
         strategy_kwargs = {}
         if beam_width is not None:
@@ -274,6 +283,10 @@ class LaserEVM:
         final_states: List[GlobalState] = []
         start = time.monotonic()
         stats = SolverStatistics()
+        if self.vmap_frontier and self._frontier is None:
+            from mythril_tpu_torch.laser.frontier import FrontierStepper
+
+            self._frontier = FrontierStepper(self)
         for global_state in self.strategy:
             if create and self.create_timeout:
                 if time.monotonic() - start > self.create_timeout:
@@ -292,7 +305,29 @@ class LaserEVM:
             step_start = time.monotonic()
             solver_before = stats.solver_time
             try:
-                new_states, op_code = self.execute_state(global_state)
+                # batched frontier step first: a straight-line run over
+                # every eligible sibling as one step. op_code None keeps
+                # manage_cfg out for straight-line runs; a batched FORK
+                # returns op_code "JUMPI" so its successors get the same
+                # conditional-edge nodes the per-state handler's states
+                # get (feasibility pruning already happened inside the
+                # stepper's fork epilogue — one coalesced bundle); a
+                # batched HALT returns "RETURN"/"STOP" so frame successors
+                # get RETURN nodes (the transaction end already ran
+                # through _end_transaction inside the halt epilogue); and
+                # a fork whose cohorts chained through their next run
+                # (cross-fork re-batching) comes back as op_code None —
+                # the stepper ran manage_cfg for the fork's own
+                # successors before chaining
+                batched = (
+                    self._frontier.try_step(global_state)
+                    if self._frontier is not None else None
+                )
+                if batched is not None:
+                    new_states = batched
+                    op_code = getattr(batched, "op_code", None)
+                else:
+                    new_states, op_code = self.execute_state(global_state)
             except NotImplementedError:
                 log.debug("encountered unimplemented instruction")
                 continue
@@ -309,7 +344,15 @@ class LaserEVM:
             # with probability pruning_factor, drop fork sides whose path
             # constraints are unsat. Auto: always prune on long-budget runs,
             # never on short ones (reference mythril_analyzer.py:78-82).
-            if op_code is not None and len(new_states) > 1:
+            # op_code None = a batched frontier step: its multiple states
+            # are SIBLINGS of one straight-line run, not fork sides — no
+            # constraint changed, so feasibility solves (or pending-list
+            # parking) here would be pure waste. A batched FORK
+            # (op_code "JUMPI" with batched set) already pruned and
+            # parked inside the stepper — re-solving here would double
+            # every fork's feasibility traffic
+            if batched is None and op_code is not None \
+                    and len(new_states) > 1:
                 pruning_factor = args.pruning_factor
                 if pruning_factor is None:
                     pruning_factor = 1.0 if self.execution_timeout > 300 else 0.0

@@ -617,7 +617,8 @@ class Solver:
                     roots = [prep.blaster.assert_bool(t) for t in lowered]
                     prep.blaster.last_roots = roots
                     with trace_span("solver.aig_opt", cat="solver",
-                                    roots=len(roots)):
+                                    roots=len(roots),
+                                    deferred=aig_opt.defer_active()):
                         opt = aig_opt.optimize_roots_cached(
                             prep.blaster.aig, roots)
                     if opt is not None:
@@ -673,17 +674,24 @@ class Solver:
         # original CNF leaves free would flip those probes' verdicts. A
         # propagation CONFLICT does not short-circuit: the CDCL re-derives it and applies the crosscheck policy.
         if preanalysis.enabled():
+            from mythril_tpu_torch.preanalysis.aig_opt import defer_active
             from mythril_tpu_torch.preanalysis.cnf_prep import preprocess_cnf
             from mythril_tpu_torch.support.args import args as _args
 
             device_possible = (
                 (_args.solver_backend == "gpu" and self.allow_device)
                 or aig_opted)
+            # `deferred`: a fork-pair member, prepared under the deferred-
+            # forcing sweep (support/model.get_models_batch)
             with trace_span("solver.cnf_prep", cat="solver",
-                            clauses=len(prep.clauses)):
+                            clauses=len(prep.clauses),
+                            deferred=defer_active()) as prep_span:
                 simplified = preprocess_cnf(
                     prep.num_vars, prep.clauses,
                     allow_pure=not objectives and not device_possible)
+                if simplified is not None:
+                    prep_span.set(rounds=simplified.rounds,
+                                  units=simplified.units)
             if simplified is not None and simplified.changed \
                     and not simplified.conflict:
                 SolverStatistics().add_cnf_preprocess(

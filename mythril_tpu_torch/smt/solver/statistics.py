@@ -115,6 +115,40 @@ class SolverStatistics:
         # solver verdict
         "modules_gated",
         "queries_avoided",
+        # the batched frontier (laser/frontier/): steps, the states they
+        # carried and the batch slots (equal on every backend: no step
+        # pads), and the states handed back to the per-state interpreter
+        # at a batch-capable site — mid-run bails (frontier_batch_bails,
+        # a subset) plus rows whose run CUT at an unforked JUMPI /
+        # unpromoted RETURN/STOP/CALLDATALOAD and handoffs at lane-capable
+        # sites the configuration left unbatched. Always the sum of the
+        # per-reason breakdown:
+        #   dialect   the batch dialect ends here (cut-at-JUMPI rows with
+        #             forking off, cut-at-RETURN/STOP rows with the
+        #             symbolic lane off, handoffs at minimal fork sites)
+        #   dynamic   mid-run bails (memory beyond the dense window, gas)
+        #             and non-symbolic refusals at minimal sites
+        #   hook      rows bailed so a conditionally-transparent hook
+        #             fires per-state
+        #   symbolic  an opaque value where a concrete one is needed,
+        #             including cut-at-CALLDATALOAD rows with the lane off
+        "frontier_vmap_steps",
+        "frontier_states_stepped",
+        "frontier_fallback_exits",
+        "frontier_fallback_dialect",
+        "frontier_fallback_dynamic",
+        "frontier_fallback_hook",
+        "frontier_fallback_symbolic",
+        "frontier_batch_bails",
+        "frontier_batch_slots",
+        # rows decoded by the symbolic lane's structural replay
+        "frontier_symlane_rows",
+        # batched symbolic-JUMPI forks: fork steps, the rows that split,
+        # materialized successors beyond one per forked row, and sides
+        # masked dead on a host-CDCL UNSAT verdict
+        "frontier_forks",
+        "frontier_fork_rows",
+        "frontier_fork_cohort_rows",
         "frontier_fork_infeasible_pruned",
     )
     _TIMERS = (
@@ -127,6 +161,9 @@ class SolverStatistics:
         # the interpreter's share of LaserEVM.exec (solver seconds inside
         # instruction handlers subtracted)
         "interp_wall",
+        # the batched fork epilogue (pending conditions, the coalesced
+        # feasibility bundle, cohort materialization)
+        "frontier_fork_wall",
     )
     # resilience event name -> the counter it rolls up into
     _RESILIENCE_EVENT_COUNTERS = {
@@ -371,6 +408,76 @@ class SolverStatistics:
         bundle drained."""
         self._add("frontier_fork_infeasible_pruned", count)
 
+    def add_frontier_step(self, states: int, slots: int,
+                          fallback_exits: int = 0,
+                          cut_exits: int = 0,
+                          hook_exits: int = 0,
+                          symbolic_exits: int = 0,
+                          symbolic_cuts: int = 0,
+                          sym_rows: int = 0) -> None:
+        """One batched frontier step: `states` sibling machine states
+        executed a straight-line run as one step over `slots` batch
+        slots. Mid-run bails back to the per-state interpreter are split
+        by reason: `fallback_exits` dynamic bails (memory-window overflow,
+        gas exhaustion), `hook_exits` rows bailed so a conditionally-
+        transparent hook fires per-state, `symbolic_exits` symbolic-operand
+        bails. `cut_exits` / `symbolic_cuts` are completed rows whose run
+        cut at an unforked JUMPI / unpromoted RETURN/STOP (dialect) or at a
+        CALLDATALOAD the symbolic lane was off for (symbolic) — they leave
+        the batch dialect but, unlike bails, also count as stepped rows.
+        `sym_rows` completed rows decoded via the symbolic lane's
+        structural replay (counted inside `states` too)."""
+        if self.enabled:
+            self.frontier_vmap_steps += 1
+            self.frontier_states_stepped += states
+            self.frontier_batch_slots += slots
+            bails = fallback_exits + hook_exits + symbolic_exits
+            self.frontier_batch_bails += bails
+            self.frontier_fallback_exits += bails + cut_exits \
+                + symbolic_cuts
+            self.frontier_fallback_dynamic += fallback_exits
+            self.frontier_fallback_hook += hook_exits
+            self.frontier_fallback_symbolic += symbolic_exits \
+                + symbolic_cuts
+            self.frontier_fallback_dialect += cut_exits
+            self.frontier_symlane_rows += sym_rows
+
+    def add_fork_site_exit(self, count: int = 1,
+                           reason: str = "dialect") -> None:
+        """A state handed to the per-state interpreter at a lane-capable
+        site the configuration left unbatched (fork or symbolic-lane
+        feature off, hook-gated, depth-capped, or unencodable at the
+        minimal run). `reason` names the breakdown bucket (dialect /
+        dynamic / symbolic)."""
+        if self.enabled:
+            self.frontier_fallback_exits += count
+            counter = f"frontier_fallback_{reason}"
+            setattr(self, counter, getattr(self, counter) + count)
+
+    def add_frontier_fork(self, rows: int, seconds: float = 0.0,
+                          cohort_rows: int = 0) -> None:
+        """One batched fork: `rows` live sibling rows reached a symbolic
+        JUMPI and split into taken/fall-through cohorts; `seconds` is the
+        fork epilogue's wall; `cohort_rows` the materialized successors
+        beyond one per forked row (credited to the batch occupancy)."""
+        if self.enabled:
+            self.frontier_forks += 1
+            self.frontier_fork_rows += rows
+            self.frontier_fork_wall += seconds
+            self.frontier_fork_cohort_rows += cohort_rows
+
+    @property
+    def frontier_batch_occupancy(self) -> float:
+        """Live dense rows per frontier batch slot: stepped rows, mid-run
+        bails and the extra fork-cohort rows over the slots (may exceed
+        1.0 on fork-dense batches). Handoffs that never took a slot are
+        not counted."""
+        if not self.frontier_batch_slots:
+            return 0.0
+        return (self.frontier_states_stepped + self.frontier_batch_bails
+                + self.frontier_fork_cohort_rows) \
+            / self.frontier_batch_slots
+
     def add_interp_seconds(self, seconds: float) -> None:
         """Wall spent stepping states in LaserEVM.exec — the interpreter
         component of the wall split."""
@@ -406,4 +513,6 @@ class SolverStatistics:
         out = {name: getattr(self, name) for name in self._COUNTERS}
         out.update(
             {name: round(getattr(self, name), 4) for name in self._TIMERS})
+        out["frontier_batch_occupancy"] = round(
+            self.frontier_batch_occupancy, 4)
         return out

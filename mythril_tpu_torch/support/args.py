@@ -31,6 +31,8 @@ class _Args:
         self.no_preanalysis = False            # pre-analysis master switch
         self.no_aig_opt = False                # the AIG rewrite alone
         self.no_incremental_prep = False       # the prefix resume alone
+        self.no_vmap_frontier = False          # --no-vmap-frontier
+        self.no_frontier_fork = False          # --no-frontier-fork
         self.beam_width = 8                    # --beam-search WIDTH
         self.transaction_sequences = None      # e.g. "[[0xa9059cbb],[-1]]"
         self.trace = None                      # --trace PATH (span tracer

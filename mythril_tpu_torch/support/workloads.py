@@ -14,6 +14,12 @@ same seed builds the same constraint sets in either.
 random_cones and big_cone build packed AIG cones directly (no SMT layer):
 small cones for kernel windows, and one cone too large for the ragged
 kernel's shared-memory path.
+
+frontier_program and frontier_frame build what the batched frontier step
+(K6) takes: seeded random straight-line programs over the fast set (the
+generator of the JAX package's tests/test_frontier.py, same draws for the
+same seed when `edge_bias` is 0), and dense frames of sibling rows for a
+compiled run.
 """
 
 import random
@@ -134,3 +140,150 @@ def big_cone(rng: random.Random, gates: int = 30000, inputs: int = 64,
                                  for lit in lits[-roots:]])
         if pc.ok:
             return pc
+
+
+# -- straight-line frontier programs -------------------------------------------
+
+FRONTIER_BIN_BYTES = {
+    "ADD": 0x01, "MUL": 0x02, "SUB": 0x03, "SIGNEXTEND": 0x0B,
+    "DIV": 0x04, "SDIV": 0x05, "MOD": 0x06, "SMOD": 0x07,
+    "LT": 0x10, "GT": 0x11, "SLT": 0x12, "SGT": 0x13, "EQ": 0x14,
+    "AND": 0x16, "OR": 0x17, "XOR": 0x18, "BYTE": 0x1A,
+    "SHL": 0x1B, "SHR": 0x1C, "SAR": 0x1D,
+}
+# the words where 256-bit arithmetic goes wrong first
+EDGE_WORDS = (0, 1, 2, (1 << 255) - 1, 1 << 255, (1 << 256) - 1)
+
+
+def push_bytes(value: int, width: int = None) -> bytes:
+    """PUSHn of `value` (the shortest width when none is given)."""
+    if width is None:
+        width = max(1, (value.bit_length() + 7) // 8)
+    return bytes([0x60 + width - 1]) + value.to_bytes(width, "big")
+
+
+def frontier_program(rng: random.Random, allow_huge_offsets: bool = False,
+                     edge_bias: float = 0.0):
+    """(code bytes, initial stack ints): straight-line, fast-set only,
+    ending in STOP. Memory offsets are pushed constants (small by default
+    so runs complete; huge to exercise the bail path). With `edge_bias`,
+    that share of the pushed and initial words are EDGE_WORDS, so DIV,
+    SDIV, MOD, SMOD, MUL and the shifts meet 0, 1, 2^255 and 2^256 - 1;
+    shift amounts and positions already lean to 0-300."""
+
+    def word(bits: int) -> int:
+        if edge_bias and rng.random() < edge_bias:
+            return rng.choice(EDGE_WORDS)
+        return rng.getrandbits(bits)
+
+    depth = rng.randrange(0, 6)
+    init_stack = [word(256) for _ in range(depth)]
+    sim_depth = depth
+    body = b""
+    n_ops = rng.randrange(3, 22)
+    emitted = 0
+    while emitted < n_ops:
+        roll = rng.random()
+        if roll < 0.28 or sim_depth == 0:
+            if rng.random() < 0.5:
+                body += push_bytes(word(rng.choice((8, 16, 64, 256))))
+            else:
+                body += push_bytes(rng.randrange(0, 512))
+            sim_depth += 1
+        elif roll < 0.40 and sim_depth >= 1:
+            n = rng.randrange(1, min(sim_depth, 16) + 1)
+            body += bytes([0x80 + n - 1])
+            sim_depth += 1
+        elif roll < 0.50 and sim_depth >= 2:
+            n = rng.randrange(1, min(sim_depth - 1, 16) + 1)
+            body += bytes([0x90 + n - 1])
+        elif roll < 0.56 and sim_depth >= 1:
+            body += bytes([0x50])  # POP
+            sim_depth -= 1
+        elif roll < 0.62 and sim_depth >= 1:
+            body += bytes([rng.choice((0x15, 0x19))])  # ISZERO / NOT
+        elif roll < 0.70:
+            body += bytes([rng.choice((0x58, 0x59, 0x5B))])  # PC/MSIZE/JD
+            if body[-1] != 0x5B:
+                sim_depth += 1
+        elif roll < 0.80 and sim_depth >= 1:
+            # MSTORE/MSTORE8 with a pushed offset over an existing value
+            offset = (rng.randrange(0, 1 << 250) if allow_huge_offsets
+                      and rng.random() < 0.5
+                      else rng.randrange(0, 1024))
+            body += push_bytes(offset) + bytes([rng.choice((0x52, 0x53))])
+            sim_depth -= 1
+            emitted += 1
+        elif roll < 0.88:
+            offset = (rng.randrange(0, 1 << 250) if allow_huge_offsets
+                      and rng.random() < 0.5
+                      else rng.randrange(0, 1024))
+            body += push_bytes(offset) + bytes([0x51])  # MLOAD
+            sim_depth += 1
+            emitted += 1
+        elif sim_depth >= 2:
+            name = rng.choice(list(FRONTIER_BIN_BYTES))
+            if name in ("SHL", "SHR", "SAR", "BYTE", "SIGNEXTEND") \
+                    and rng.random() < 0.6:
+                # bias toward meaningful small shift amounts / positions
+                body += push_bytes(rng.randrange(0, 300))
+                sim_depth += 1
+                if sim_depth < 2:
+                    continue
+            body += bytes([FRONTIER_BIN_BYTES[name]])
+            sim_depth -= 1
+        else:
+            continue
+        emitted += 1
+    return body + b"\x00", init_stack  # STOP terminator
+
+
+def frontier_run(code: bytes):
+    """The straight-line run at pc 0 of `code` with no engine hooks (the
+    JUMPI fork, halts and CALLDATALOAD left out), or None."""
+    from mythril_tpu_torch import preanalysis
+    from mythril_tpu_torch.disasm import Disassembly
+    from mythril_tpu_torch.laser.frontier import fastset
+
+    summary = preanalysis.get_code_summary(Disassembly(code))
+    if summary is None:
+        return None
+    return fastset.extract_run(summary, 0, lambda name: False,
+                               lambda name: False)
+
+
+def frontier_frame(rng: random.Random, run, rows: int, init_stack=(),
+                   edge_bias: float = 0.0, starved_share: float = 0.1):
+    """A DenseFrontier of `rows` sibling rows for `run`: row 0's window is
+    `init_stack` (padded with random words), the others random words (a
+    share of them EDGE_WORDS); memory holds random bytes below a random
+    msize; a `starved_share` of the rows gets a gas limit the run may
+    pass, so the ok mask has both values."""
+    import numpy as np
+
+    from mythril_tpu_torch.laser.frontier import dense
+
+    frame = dense.DenseFrontier(rows, run.touch, run.window)
+    for i in range(rows):
+        values = (list(init_stack)[max(len(init_stack) - run.touch, 0):]
+                  if i == 0 and run.touch else [])
+        while len(values) < run.touch:
+            values.insert(0, rng.choice(EDGE_WORDS)
+                          if edge_bias and rng.random() < edge_bias
+                          else rng.getrandbits(256))
+        for j, value in enumerate(values):
+            frame.stack[i, j] = np.frombuffer(value.to_bytes(32, "big"),
+                                              dtype=np.uint8)
+        msize = 0
+        if run.has_mem:
+            msize = 32 * rng.randrange(0, run.window // 32 + 1)
+            frame.mem[i, :msize] = np.frombuffer(
+                rng.randbytes(msize), dtype=np.uint8)
+        frame.msize[i] = msize
+        frame.min_gas[i] = rng.randrange(0, 5000)
+        frame.max_gas[i] = frame.min_gas[i] + rng.randrange(0, 5000)
+        frame.gas_limit[i] = (frame.min_gas[i] + rng.randrange(0, 400)
+                              if rng.random() < starved_share
+                              else 8_000_000)
+        frame.live[i] = True
+    return frame

@@ -4,6 +4,8 @@ between the two only as numpy arrays."""
 
 import importlib
 import logging
+import os
+import re
 from contextlib import contextmanager
 from types import SimpleNamespace
 
@@ -75,11 +77,12 @@ def watch_timeouts(package: str):
 
 def run_analyze(package: str, code_hex: str, tx_count: int, backend: str,
                 execution_timeout: int, device=None, pruning_factor=None,
-                modules=None, bin_runtime=False):
+                modules=None, bin_runtime=False, frontier=True):
     """One `analyze` of `code_hex` through `package`'s MythrilAnalyzer from
-    fresh process state (args, solve caches, the shared blaster). The JAX
-    package runs with its vmapped frontier off, as the port's engine does.
-    Returns the Report; asserts that the exploration completed."""
+    fresh process state (args, solve caches, the shared blaster).
+    `frontier` sets the batched frontier alike in both packages: on (their
+    default) or off (--no-vmap-frontier). Returns the Report; asserts that
+    the exploration completed."""
     core = importlib.import_module(f"{package}.core")
     args = importlib.import_module(f"{package}.support.args").args
     model = importlib.import_module(f"{package}.support.model")
@@ -89,10 +92,9 @@ def run_analyze(package: str, code_hex: str, tx_count: int, backend: str,
     frontend._global_blaster = None
     cmd_args = SimpleNamespace(
         execution_timeout=execution_timeout, transaction_count=tx_count,
-        max_depth=128, solver_backend=backend, pruning_factor=pruning_factor)
-    if package == "mythril_tpu":
-        cmd_args.no_vmap_frontier = True
-    else:
+        max_depth=128, solver_backend=backend, pruning_factor=pruning_factor,
+        no_vmap_frontier=not frontier)
+    if package != "mythril_tpu":
         cmd_args.torch_device = device
     disassembler = core.MythrilDisassembler()
     disassembler.load_from_bytecode(code_hex, bin_runtime=bin_runtime)
@@ -112,3 +114,49 @@ def issue_keys(report):
     and title (the witness a device model picks may differ)."""
     return sorted((issue.swc_id, issue.function, issue.address, issue.title)
                   for issue in report.issues.values())
+
+
+# -- frontier frames ----------------------------------------------------------
+
+
+def port_frame(ref_frame):
+    """The port's DenseFrontier holding a copy of the reference frame's
+    numpy arrays (the symbolic lane's tags and handles too)."""
+    from mythril_tpu_torch.laser.frontier.dense import DenseFrontier
+
+    frame = DenseFrontier(0, 0, 1)
+    for name in ("stack", "depth", "mem", "mem_written", "msize", "pc",
+                 "min_gas", "max_gas", "gas_limit", "live"):
+        setattr(frame, name, np.array(getattr(ref_frame, name), copy=True))
+    if ref_frame.sym_tags is not None:
+        frame.sym_tags = np.array(ref_frame.sym_tags, copy=True)
+    if ref_frame.handles is not None:
+        frame.handles = list(ref_frame.handles)
+    return frame
+
+
+def with_dead_rows(frame, slots: int):
+    """The port's DenseFrontier of `frame`'s rows followed by dead ones
+    (all zeros, not live) up to `slots` rows."""
+    from mythril_tpu_torch.laser.frontier.dense import DenseFrontier
+
+    padded = DenseFrontier(slots, frame.stack.shape[1], frame.mem.shape[1])
+    for name in ("stack", "depth", "mem", "mem_written", "msize", "pc",
+                 "min_gas", "max_gas", "gas_limit", "live"):
+        getattr(padded, name)[:frame.batch] = getattr(frame, name)
+    return padded
+
+
+# -- the report snapshots' contracts -------------------------------------------
+
+SNAPSHOTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "testdata", "expected_reports")
+
+
+def snapshot_input(file_name: str) -> str:
+    """The bytecode of a contract of tests/testdata/expected_reports/ (the
+    inputs are not in the repo): its text snapshot's first transaction
+    creates the contract, and that transaction's input is the code."""
+    with open(os.path.join(SNAPSHOTS, file_name + ".text")) as handle:
+        match = re.search(r'"input": "0x([0-9a-f]+)"', handle.read())
+    return match.group(1)

@@ -4,6 +4,7 @@
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --forms-only   # env, build and the timing phase
     python3 chip_smoke.py --fork-prep    # env, build and the fork-prep runs
+    python3 chip_smoke.py --frontier-only  # env, build and the frontier phase
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
@@ -57,12 +58,17 @@ line):
           micro-op interpreter in torch ops) on the card, on 300 seeded
           random straight-line runs (support/workloads.frontier_program,
           a quarter of the words at the edges 0, 1, 2^255 and 2^256 - 1)
-          over 1-64 rows each, some rows starved of gas: the ok masks must
-          be equal and every output equal on the ok rows; then K6 alone
-          (back-to-back launches), its wrapper, the whole host step
-          (upload, wrapper, download) and its plain version timed on a
-          64-row batch of one fixed run and on a 1-row, 3-op run (the
-          launch floor);
+          over 1-64 rows each, some rows starved of gas, through the
+          tensor wrapper and through the stepper's packed step: the ok
+          masks must be equal and every output equal on the ok rows; then
+          K6 alone (its device time from torch.profiler over the packed
+          steps, and back-to-back launches under CUDA events), its
+          wrapper, the whole host step
+          (the packed step: one copy up, the launch, one copy down) and
+          its plain version, each held bit for bit first, on a 64-row
+          batch of one fixed run, on a 1-row, 3-op run (the launch
+          floor) and on K7's own 64-row batch (12 DIV/MOD/SDIV/SMOD, each
+          followed by a POP, over random 1-8-word divisors);
   analyze the port's MythrilAnalyzer end to end, in process, once with
           solver_backend "cpu" (the host CDCL alone, the frontier stepped
           on the host) and once with "gpu" (every batched window through
@@ -87,10 +93,14 @@ line):
           on the largest stream the five launched and on the largest of
           stress_dispatch, timed on each, and K6 equals its plain version
           on the largest frontier batch the five stepped (rows x ops),
-          timed there. stress_dispatch's launches are
-          counted apart ("analyze_stress"): its runs end on the clock, so
-          their count depends on the host's speed. Per contract and backend it
-          prints the wall, the solver, interpreter and prepare seconds,
+          timed there. The device backend's frontier steps of
+          xc_dispatch_a.hex are kept and replayed through the packed
+          step for the device's idle share over them (the profiler's
+          device time against the steps' host wall). stress_dispatch's
+          launches are counted apart ("analyze_stress"): its runs end on
+          the clock, so their count depends on the host's speed. Per
+          contract and backend it prints the wall, the solver,
+          interpreter and prepare seconds,
           the router's plan, landing, round loop and settles, K1's
           launches and component finds, the device queries and hits, the
           frontier's counters and K6's launches, the tracer's spans, and
@@ -108,6 +118,10 @@ prepare seconds and the cnf_prep and aig_opt spans split into the
 fork-pair members' and the other queries' (count, seconds, clauses,
 propagation rounds); every analyze record carries the same split. It
 checks nothing.
+--frontier-only runs the frontier phase alone. It calls only the step's
+interface (run_step_kernel, prepare_launch, step_batch, encode_program),
+so a copy of this script placed in a checkout of an earlier version of
+the port times that version's K6 on the same batches.
 --forms-only times the same three streams with the host CDCL's verdicts
 and no other phase. It calls only the round's interface (flatten_stream,
 device_flat, run_round_ragged_kernel), so a copy of this script placed in
@@ -116,7 +130,8 @@ a checkout of an earlier version of the port times that version's kernel.
 Then the script's total seconds, the {"kernels": [...]} line (K1's and
 K6's launches over the five compared analyze contracts and their times on
 the largest stream and frontier batch they launched; K1's router and slice
-streams and K6's 64-row batch beside them), the
+streams and K6's 64-row, division and 1-row batches and its idle share
+beside them), the
 card's nvidia-smi line, and last {"ok": true, "device": {...}}. A copy of every
 JSON line goes to chiprun_out/chip_smoke.jsonl.
 """
@@ -147,6 +162,8 @@ FRONTIER_RUNS = 300     # random runs K6 is held against its plain version
 FRONTIER_EDGE_BIAS = 0.25
 # analyze runs repeated on the host CDCL with the frontier stepped by K6
 CUDA_HOST_RUNS = ("killbilly", "xc_dispatch_a.hex")
+# the contract whose frontier steps are replayed for the device's idle share
+IDLE_CONTRACT = "xc_dispatch_a.hex"
 CORPUS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex", "xc_sender_a.hex",
           "xc_sender_b.hex")
 
@@ -322,23 +339,32 @@ def phase_slice(device):
     return queries, verdicts, launches
 
 
-def _device_busy(run_once) -> dict:
-    """Device time by kernel over one warm run of the slice, from
-    torch.profiler, against that run's wall."""
+def _profile_device(run_once, kernel: str) -> tuple:
+    """(run_once's result, µs of every CUDA event, µs of the events whose
+    name holds `kernel`) over one call of run_once, from torch.profiler
+    (CUPTI)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _results, wall = run_once()
+        result = run_once()
     device_us = kernel_us = 0.0
     for event in prof.key_averages():
         if event.device_type != DeviceType.CUDA:
             continue
         us = getattr(event, "self_device_time_total", 0.0)
         device_us += us
-        if "ragged_round" in event.key:
+        if kernel in event.key:
             kernel_us += us
+    return result, device_us, kernel_us
+
+
+def _device_busy(run_once) -> dict:
+    """Device time by kernel over one warm run of the slice, from
+    torch.profiler, against that run's wall."""
+    (_results, wall), device_us, kernel_us = _profile_device(
+        run_once, "ragged_round")
     if device_us <= 0:
         return {"profiled_wall_s": wall, "device_busy_share": "not measured"}
     return {"profiled_wall_s": wall,
@@ -928,11 +954,32 @@ def _op_family(name: str) -> str:
     return name
 
 
+def _packed_outputs(nine) -> list:
+    """step_batch's nine results as the wrapper's ten numpy arrays (the
+    store log and the fork words stacked on axis 1)."""
+    import numpy as np
+
+    (stack_out, mem, written, msize, min_gas, max_gas, ok, mem_log,
+     fork_out) = nine
+    rows = ok.shape[0]
+
+    def stacked(items, shape):
+        return (np.stack(items, axis=1) if items
+                else np.zeros(shape, dtype=np.int32))
+
+    return [stack_out, mem, written, msize, min_gas, max_gas, ok,
+            stacked([off for off, _value in mem_log], (rows, 0)),
+            stacked([value for _off, value in mem_log], (rows, 0, 32)),
+            stacked(list(fork_out), (rows, 0, 32))]
+
+
 def _hold_frontier(run, frame, device):
-    """K6 against its plain version on one frame: the ok masks must be
-    equal and every output equal on the ok rows. Returns (ok rows, largest
-    absolute difference on them); launches made here are not counted."""
-    import torch
+    """K6 against its plain version on one frame, through the tensor
+    wrapper and through the packed step the stepper takes: the ok masks
+    must be equal and every output equal on the ok rows. Returns (ok rows,
+    largest absolute difference on them); launches made here are not
+    counted."""
+    import numpy as np
 
     from mythril_tpu_torch.gpu import frontier_kernel
     from mythril_tpu_torch.laser.frontier import kernel
@@ -940,30 +987,36 @@ def _hold_frontier(run, frame, device):
     launches = frontier_kernel.launches
     got = frontier_kernel.run_step_kernel(
         run, *kernel.frame_tensors(frame, device))
-    want = kernel.step_plain(run, *kernel.frame_tensors(frame, device))
-    torch_sync(device)
+    got = [tensor.cpu().numpy() for tensor in got]
+    want = [tensor.cpu().numpy() for tensor in kernel.step_plain(
+        run, *kernel.frame_tensors(frame, device))]
+    packed = _packed_outputs(kernel.step_batch(run, frame, "cuda", device))
     frontier_kernel.launches = launches
     ok = want[6]
-    if not torch.equal(got[6], ok):
-        raise AssertionError(
-            f"K6's ok mask differs from its plain version's on "
-            f"{run.op_names}: {int((got[6] != ok).sum())} rows")
     err = 0
-    for index, (x, y) in enumerate(zip(got, want)):
-        if x.shape != y.shape or not torch.equal(x[ok], y[ok]):
+    for path, outputs in (("wrapper", got), ("packed step", packed)):
+        if not np.array_equal(outputs[6], ok):
             raise AssertionError(
-                f"K6 disagrees with its plain version on output {index} "
-                f"of {run.op_names}")
-        if x[ok].numel():
-            err = max(err, int((x[ok].long() - y[ok].long()).abs().max()))
+                f"K6's ok mask ({path}) differs from its plain version's "
+                f"on {run.op_names}: {int((outputs[6] != ok).sum())} rows")
+        for index, (x, y) in enumerate(zip(outputs, want)):
+            if x.shape != y.shape or not np.array_equal(x[ok], y[ok]):
+                raise AssertionError(
+                    f"K6 ({path}) disagrees with its plain version on "
+                    f"output {index} of {run.op_names}")
+            if x[ok].size:
+                err = max(err, int(np.abs(x[ok].astype(np.int64)
+                                          - y[ok].astype(np.int64)).max()))
     return int(ok.sum()), err
 
 
 def _frontier_bound(run, frame, ok_rows):
     """Least time for one step: the bytes the step must move over the HBM
     rate, against the 32-bit word operations over the CUDA-core rate (8
-    per word op, 72 per MUL, every restoring-division step of a
-    DIV/MOD/SDIV/SMOD counted). The bytes: every row's stack words in
+    per word op, 72 per MUL: 64 digit products and a carry pass; 80 per
+    DIV/MOD/SDIV/SMOD: long division on 32-bit digits does at most 20
+    digit multiply-subtracts, (9 - n) x n for an n-digit divisor, of 4
+    word operations each). The bytes: every row's stack words in
     and out, its scalars, its store log and fork words and the 32-byte
     word each MLOAD reads; and the bytes each MSTORE (32) and MSTORE8 (1)
     writes to the window and its mask (4 + 1 a byte), counted on the
@@ -985,8 +1038,7 @@ def _frontier_bound(run, frame, ok_rows):
                   * (4 + 1))
     moved = (rows * per_row + ok_rows * per_ok_row + ops_table.nbytes
              + consts.nbytes)
-    cost = {"mul": 72, "div": 256 * 24, "mod": 256 * 24, "sdiv": 256 * 24,
-            "smod": 256 * 24}
+    cost = {"mul": 72, "div": 80, "mod": 80, "sdiv": 80, "smod": 80}
     ops = rows * sum(cost.get(op.arg, 8) if op.kind == "bin" else 8
                      for op in run.ops)
     byte_s, op_s = moved / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
@@ -994,22 +1046,46 @@ def _frontier_bound(run, frame, ok_rows):
             "bytes" if byte_s >= op_s else "operations", moved, ops)
 
 
+def _step_device_ms(run, frame, device, repeats=50):
+    """K6's device time on one packed step the stepper takes, from
+    torch.profiler over `repeats` steps after a warm-up ("not measured"
+    where the profiler shows none, and on the CPU)."""
+    from mythril_tpu_torch.laser.frontier import kernel
+
+    if device.type != "cuda":
+        return "not measured"
+
+    def steps():
+        for _ in range(repeats):
+            kernel.step_batch(run, frame, "cuda", device)
+
+    steps()
+    _result, _device_us, kernel_us = _profile_device(
+        steps, "frontier_step_kernel")
+    return kernel_us / 1e3 / repeats if kernel_us > 0 else "not measured"
+
+
 def _time_frontier(run, frame, device, window, counts=None):
     """K6 timed on `frame`, after it is held against its plain version
-    there: the kernel alone (`ms`: back-to-back launches into outputs
-    allocated once), the wrapper (`wrapper_ms`: checks, allocation and
-    the launch, per call), the whole host step (`host_step_ms`: upload,
-    wrapper, download, what the stepper pays) and the plain version.
-    Launches made here are not counted. Emits one record and returns
-    it."""
+    there: the kernel alone (`device_ms`: its device time from the
+    profiler on the stepper's packed steps; `ms`: back-to-back launches
+    into outputs allocated once,
+    under CUDA events, which the Python launch path floors), the wrapper
+    (`wrapper_ms`: checks, allocation and the launch, per call), the whole
+    host step (`host_step_ms`: the packed step the stepper takes, one
+    copy up, the launch, one copy down) and the plain version. Launches
+    made here are not counted. Emits one record and returns it."""
     from mythril_tpu_torch.gpu import frontier_kernel
     from mythril_tpu_torch.laser.frontier import kernel
 
     ok_rows, err = _hold_frontier(run, frame, device)
     launches = frontier_kernel.launches
     tensors = kernel.frame_tensors(frame, device)
-    _outputs, launch = frontier_kernel.prepare_launch(run, *tensors)
-    ms = _time_ms(launch, repeats=200)
+    ms = "not measured"  # on the CPU, which has no kernel to launch
+    if device.type == "cuda":
+        _outputs, launch = frontier_kernel.prepare_launch(run, *tensors)
+        ms = _time_ms(launch, repeats=200)
+    device_ms = _step_device_ms(run, frame, device)
     wrapper_ms = _time_ms(
         lambda: frontier_kernel.run_step_kernel(run, *tensors), repeats=50)
     plain_ms = _time_ms(lambda: kernel.step_plain(run, *tensors), repeats=2)
@@ -1025,9 +1101,12 @@ def _time_frontier(run, frame, device, window, counts=None):
               "rows": frame.batch, "ops": len(run.ops),
               "op_names": list(run.op_names), "touch": run.touch,
               "out_len": run.out_len, "memory_window": frame.mem.shape[1],
+              "block_rows": getattr(frontier_kernel, "block_rows",
+                                    lambda _capacity: None)(run.capacity),
               **(counts or {}), "ok_rows": ok_rows,
-              "equal_on_ok_rows": True, "max_abs_err": err, "ms": ms,
-              "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+              "equal_on_ok_rows": True, "max_abs_err": err,
+              "device_ms": device_ms,
+              "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
               "host_step_ms": host_step_ms,
               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
               "word_ops": ops}
@@ -1051,6 +1130,34 @@ def _timed_program(rng):
                 and any(op.arg in ("div", "mod", "sdiv", "smod")
                         for op in run.ops)):
             return run, init_stack
+
+
+# K7's own batch: DIVISION_PAIRS divisions a row, each followed by a POP
+DIVISION_PAIRS = 12
+_DIVISIONS = (0x04, 0x06, 0x05, 0x07)  # DIV, MOD, SDIV, SMOD
+
+
+def _division_batch(rng, rows):
+    """(run, frame): a run of DIV, MOD, SDIV and SMOD in turn, each
+    followed by a POP, over `rows` rows whose windows hold random
+    dividends over random divisors of 1 to 8 words."""
+    from mythril_tpu_torch.support.workloads import (
+        frontier_frame,
+        frontier_run,
+    )
+
+    code = b"".join(bytes([_DIVISIONS[k % 4], 0x50])
+                    for k in range(DIVISION_PAIRS))
+    run = frontier_run(code + b"\x00")
+    frame = frontier_frame(rng, run, rows, starved_share=0.0)
+    for i in range(rows):
+        for k in range(DIVISION_PAIRS):
+            dividend = rng.getrandbits(256)
+            divisor = rng.getrandbits(32 * rng.randint(1, 8)) | 1
+            top = run.touch - 1 - 2 * k  # this pair's dividend
+            for j, value in ((top, dividend), (top - 1, divisor)):
+                frame.stack[i, j] = list(value.to_bytes(32, "big"))
+    return run, frame
 
 
 def phase_frontier(device):
@@ -1095,8 +1202,18 @@ def phase_frontier(device):
                            frontier_frame(random.Random(1), floor_run, 1,
                                           starved_share=0.0),
                            device, "launch-floor")
-    return {**timed, "max_abs_err": max(err, timed["max_abs_err"]),
-            "floor_ms": floor["ms"]}
+    run, frame = _division_batch(random.Random(SEED + 43), 64)
+    division = _time_frontier(run, frame, device, "division-64")
+    # the same batch with ADD in place of every division: the rest of the
+    # step, so the difference is K7's
+    control_run = frontier_run(b"".join(bytes([0x01, 0x50])
+                                        for _ in range(DIVISION_PAIRS))
+                               + b"\x00")
+    control = _time_frontier(control_run, frame, device, "division-control")
+    return {**timed, "max_abs_err": max(err, timed["max_abs_err"],
+                                        division["max_abs_err"],
+                                        control["max_abs_err"]),
+            "floor": floor, "division": division, "control": control}
 
 
 # -- the analyze phase --------------------------------------------------------
@@ -1210,13 +1327,16 @@ def _frontier_backend(backend):
 @contextlib.contextmanager
 def _keep_largest_batch(batches):
     """Keep the largest frontier batch (rows x micro-ops) the CUDA step
-    takes inside the block: batches gets "size", "run" and "frame"."""
+    takes inside the block: batches gets "size", "run" and "frame". Where
+    batches holds an "every" list, every (run, frame) is added to it."""
     from mythril_tpu_torch.laser.frontier import kernel
 
     def keep(run, dense):
         size = dense.batch * len(run.ops)
         if size > batches.get("size", -1):
             batches.update(size=size, run=run, frame=_copy_frame(dense))
+        if "every" in batches:
+            batches["every"].append((run, _copy_frame(dense)))
 
     kernel.on_cuda_step = keep
     try:
@@ -1457,6 +1577,45 @@ def _hold_stream(device, stream, window, counts):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def _frontier_idle(device, steps):
+    """The device's idle share over one analyze contract's frontier steps,
+    replayed through the packed step: the steps' host wall (a warm pass,
+    perf_counter around each step) against the device time the profiler
+    saw in a second pass (K6 and the copies). Emits one record."""
+    from mythril_tpu_torch.gpu import frontier_kernel
+    from mythril_tpu_torch.laser.frontier import kernel
+
+    def replay():
+        for run, frame in steps:
+            kernel.step_batch(run, frame, "cuda", device)
+
+    launches = frontier_kernel.launches
+    replay()  # the programs onto the card
+    wall = 0.0
+    for run, frame in steps:
+        start = time.perf_counter()
+        kernel.step_batch(run, frame, "cuda", device)
+        wall += time.perf_counter() - start
+    device_us = kernel_us = 0.0
+    if device.type == "cuda":
+        _result, device_us, kernel_us = _profile_device(
+            replay, "frontier_step_kernel")
+    frontier_kernel.launches = launches
+    record = {"phase": "analyze", "window": "frontier-idle",
+              "contract": IDLE_CONTRACT, "steps": len(steps),
+              "rows": sum(frame.batch for _run, frame in steps),
+              "host_step_ms": wall / max(len(steps), 1) * 1e3,
+              "steps_wall_s": wall}
+    if device_us > 0:
+        record.update(device_busy_s=device_us / 1e6,
+                      k6_device_s=kernel_us / 1e6,
+                      device_idle_share=1 - device_us / 1e6 / wall)
+    else:
+        record.update(device_idle_share="not measured")
+    emit(record)
+    return record
+
+
 def phase_analyze(device):
     """The port's `analyze` on both backends (see the module note).
     Returns K1's launches over the five compared contracts, its comparison
@@ -1470,10 +1629,14 @@ def phase_analyze(device):
     largest, stress_largest, batches = {}, {}, {}
     hits = k1_hits = k6_launches = host_k6_launches = 0
     ragged_kernel.reset_launches()  # the compared runs' count starts here
+    steps = []
     for name, code, tx_count, timeout, compared in inputs:
         if compared:
+            if name == IDLE_CONTRACT:
+                batches["every"] = steps
             found = _analyze_contract(device, name, code, tx_count, timeout,
                                       True, largest, batches)
+            batches.pop("every", None)
             hits, k1_hits = hits + found[0], k1_hits + found[1]
             k6_launches += found[2]
             host_k6_launches += found[3]
@@ -1509,9 +1672,11 @@ def phase_analyze(device):
                         {"k6_launches": k6_launches,
                          "k6_launches_host_cdcl": host_k6_launches,
                          "k6_launches_stress": stress_k6})
+    idle = _frontier_idle(device, steps) if steps else {}
     return {**held, "launches": launches, "stress_launches": stress_launches,
             "max_abs_err": err, "k6": k6, "k6_launches": k6_launches,
-            "k6_host_launches": host_k6_launches, "k6_stress": stress_k6}
+            "k6_host_launches": host_k6_launches, "k6_stress": stress_k6,
+            "frontier_idle": idle}
 
 
 FORK_PREP_CONTRACTS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex")
@@ -1589,6 +1754,19 @@ def forms_only(device) -> int:
     return 0
 
 
+def _timing_fields(record) -> dict:
+    return {key: record[key] for key in (
+        "rows", "ops", "device_ms", "ms", "wrapper_ms", "plain_ms",
+        "host_step_ms", "bound_ms", "bound_by")}
+
+
+def frontier_only(device) -> int:
+    """Env, build and the frontier phase alone (see the module note)."""
+    phase_build()
+    phase_frontier(device)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1611,6 +1789,10 @@ def main() -> int:
               "count": torch.cuda.device_count(), "nvidia_smi": smi})
         if "--forms-only" in sys.argv[1:]:
             forms_only(device)
+            print(smi, flush=True)
+            return 0
+        if "--frontier-only" in sys.argv[1:]:
+            frontier_only(device)
             print(smi, flush=True)
             return 0
         if "--fork-prep" in sys.argv[1:]:
@@ -1680,22 +1862,25 @@ def main() -> int:
         "max_abs_err": max(frontier["max_abs_err"],
                            analyze["k6"]["max_abs_err"]),
         # one launch on the largest frontier batch (rows x micro-ops) the
-        # compared runs stepped, the kernel alone; its wrapper and the
-        # stepper's whole host step beside it, and the 64-row batch
+        # compared runs stepped, the kernel alone under CUDA events; its
+        # device time from the profiler, its wrapper and the stepper's
+        # whole host step beside it, then the 64-row, division and
+        # 1-row batches and the device's idle share over one contract's
+        # frontier steps
         "ms": analyze["k6"]["ms"],
+        "device_ms": analyze["k6"]["device_ms"],
         "plain_ms": analyze["k6"]["plain_ms"],
         "bound_ms": analyze["k6"]["bound_ms"],
         "bound_by": analyze["k6"]["bound_by"],
         "library_ms": None,
         "wrapper_ms": analyze["k6"]["wrapper_ms"],
         "host_step_ms": analyze["k6"]["host_step_ms"],
-        "launch_floor_ms": frontier["floor_ms"],
-        "synthetic_64_rows": {"ms": frontier["ms"],
-                              "wrapper_ms": frontier["wrapper_ms"],
-                              "plain_ms": frontier["plain_ms"],
-                              "host_step_ms": frontier["host_step_ms"],
-                              "bound_ms": frontier["bound_ms"],
-                              "bound_by": frontier["bound_by"]},
+        "synthetic_64_rows": _timing_fields(frontier),
+        "division_64_rows": _timing_fields(frontier["division"]),
+        "division_control_64_rows": _timing_fields(frontier["control"]),
+        "launch_floor": _timing_fields(frontier["floor"]),
+        "analyze_idle": {key: analyze["frontier_idle"].get(key) for key in (
+            "contract", "steps", "host_step_ms", "device_idle_share")},
     }]})
     with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w") as fd:
         fd.write("\n".join(_lines) + "\n")

@@ -1,8 +1,8 @@
 // The batched frontier step (K6, with K7's division inside) for Hopper
 // (sm_90a).
 //
-// Replaces mythril_tpu/laser/frontier/kernel.py `_build_jax_step` (the XLA
-// program jit(vmap(_exec)), _exec at :172-286) and, inside it,
+// Replaces mythril_tpu/laser/frontier/kernel.py `_build_jax_step` (:316,
+// the XLA program jit(vmap(_exec)), _exec at :172-286) and, inside it,
 // mythril_tpu/laser/frontier/words.py `_divmod_bitserial` (:136-158). It
 // computes what `_exec` computes for one straight-line Run over N sibling
 // EVM states, bit for bit: the stack words the run leaves, the memory
@@ -15,23 +15,42 @@
 // PUSH/PC constants, so one build of this file serves every run: nothing
 // is compiled per run or per batch shape, and batches are not padded.
 //
-// One thread per row walks the table. A word is 8 x u32 (w[0] least
-// significant) in registers while an op works on it; the stack slots live
-// in a global scratch of capacity x 8 x N u32 (slot-major, rows
-// innermost, so a warp's rows touch neighbouring addresses). The frame's
-// words are 32 big-endian byte limbs in int32 and are converted at the
-// edges. Every row computes every op, as the vectorised `_exec` does;
-// only the memory stores are masked by `ok`.
-//
-// What bounds it on this card: neither bytes nor operations. A step's
-// frame is a few KiB per row and a run is tens of ops; the launch and the
-// host's upload and download of the frame (gpu/frontier_kernel.py) are
-// the cost. K7 is a 256-step restoring division whose steps depend on
-// each other (about 10 dependent instructions a step on 8 words).
-// What the design does about it: nothing yet beyond one launch per step
-// (the XLA program was one fused launch too). A warp per row with the
-// limbs across lanes, frames kept on the device between steps, and CUDA
-// graphs across a chain of runs are later work.
+// What bounds it on this card: neither bytes nor operations. A row's frame
+// is a few KiB and a run tens of ops, each depending on the one before;
+// the step pays the chain's latency, the launch and the host's two
+// copies. The design works on all three:
+//  - a group of 8 lanes works a row, lane k holding u32 word k of every
+//    256-bit value (word 0 least significant), so a warp holds 4 rows and
+//    every row runs the same op sequence in lockstep. A block holds at
+//    most kMaxBlockRows rows, fewer when the run's stack does not fit
+//    (gpu/frontier_kernel.block_rows), so a 64-row batch spreads over
+//    several SMs;
+//  - the run's stack lives in dynamic shared memory, `pitch` slots a row
+//    (the run's capacity rounded up to odd, so the 4 rows of a warp fall
+//    on different banks) of 8 words. PUSH/DUP/SWAP/POP are one 4-byte
+//    shared access a lane; there is no global scratch;
+//  - word ops cross the group with shuffles and ballots: ADD/SUB by carry
+//    lookahead over the group's generate/propagate bits, the comparisons
+//    by the highest word that differs, MUL by columns of the 8 x 8
+//    partial products and one carry pass, the shifts by two shuffles and
+//    a funnel shift;
+//  - K7 is Knuth's Algorithm D on 32-bit digits (at most 8 digit steps,
+//    each a 64-by-32 estimate by a reciprocal multiply, a multiply-
+//    subtract and a rare add-back) with a short path for one-digit
+//    divisors, run by every lane of the group on the 8 words gathered by
+//    shuffles (no divergence inside the group, no shared-memory round
+//    trip), its digits in registers. On the card this beat sharing the
+//    multiply-subtract across the group by lookahead (PERF.md, Findings).
+//    Quotient and remainder are unique, so it gives the bit-serial
+//    reference's bits;
+//  - each op and its constant word are loaded one op ahead, so their
+//    latency hides behind the op before;
+//  - frame words arrive as 32 big-endian byte limbs in int32: lane k
+//    reads limbs 28-4k..31-4k of a slot as one 16-byte load (the group's
+//    8 lanes cover the slot's 128 bytes) and converts them, and converts
+//    back on the way out;
+//  - one launch a step with one host-to-device and one device-to-host copy
+//    of a packed frame, issued by frontier_step below in one call.
 //
 // Semantics carried over from the plain version, and easy to get wrong:
 //  - gas accrues after every op, then ok &= min_gas <= gas_limit;
@@ -51,8 +70,11 @@
 
 namespace {
 
-constexpr int kLimbs = 32;  // byte limbs of a frame word
-constexpr int kWords = 8;   // u32 words of a kernel word
+constexpr int kLimbs = 32;        // byte limbs of a frame word
+constexpr int kWords = 8;         // u32 words of a kernel word
+constexpr int kGroup = 8;         // lanes a row: one word each
+constexpr int kMaxBlockRows = 8;  // gpu/frontier_kernel.MAX_BLOCK_ROWS
+constexpr size_t kDefaultSmem = 48 * 1024;
 
 // micro-op kinds and binary ops: the order of gpu/frontier_kernel.py's
 // KINDS and BIN_OPS
@@ -66,267 +88,436 @@ enum BinOp {
   bSlt, bSgt, bEq
 };
 
-struct Word {
-  uint32_t w[kWords];
+// The kernel's argument, mirrored by gpu/frontier_kernel.py's _Frame.
+struct Frame {
+  const int* ops;           // [n_ops, 4] (kind, arg, gas_min, gas_max)
+  const uint32_t* consts;   // [n_consts, 8] words, w[0] first
+  const int* stack_in;      // [rows, touch, 32]
+  const int* msize_in;      // [rows] each
+  const int* min_gas_in;
+  const int* max_gas_in;
+  const int* gas_limit;
+  const uint8_t* live;
+  int* mem;                 // [rows, window], updated in place
+  uint8_t* written;         // [rows, window], updated in place
+  int* stack_out;           // [rows, out_len, 32]
+  int* msize_out;           // [rows] each
+  int* min_gas_out;
+  int* max_gas_out;
+  uint8_t* ok_out;
+  int* log_off;             // [rows, n_log]
+  int* log_val;             // [rows, n_log, 32]
+  int* fork_out;            // [rows, n_fork, 32]
+  int n_ops, touch, out_len, pitch, window, n_log, n_fork, rows, block_rows;
 };
 
-__device__ __forceinline__ Word zero_word() {
-  Word r;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) r.w[k] = 0u;
-  return r;
+// One step, mirrored by gpu/frontier_kernel.py's _StepArgs: the frame and
+// the packed copies around the launch (sizes 0: no copy).
+struct StepArgs {
+  Frame frame;
+  const void* upload_src;   // pinned host buffer
+  void* upload_dst;         // device buffer
+  const void* download_src;
+  void* download_dst;
+  long long upload_bytes;
+  long long download_bytes;  // > 0: copy back, then synchronise
+};
+
+// The 8 lanes of a row.
+struct Group {
+  unsigned mask;  // the lanes of the warp that exist
+  int base;       // the group's first lane in its warp
+  int k;          // this lane's word
+};
+
+// bit i: the predicate of the group's lane i
+__device__ __forceinline__ uint32_t bits(const Group& g, bool p) {
+  return (__ballot_sync(g.mask, p) >> g.base) & 0xFFu;
 }
 
-__device__ __forceinline__ Word small_word(uint32_t v) {
-  Word r = zero_word();
-  r.w[0] = v;
-  return r;
+// word `src` (taken mod 8) of the group's value
+__device__ __forceinline__ uint32_t word_of(const Group& g, uint32_t v,
+                                            int src) {
+  return __shfl_sync(g.mask, v, g.base + (src & 7));
 }
 
-__device__ __forceinline__ bool is_zero(const Word& a) {
-  uint32_t any = 0u;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) any |= a.w[k];
-  return any == 0u;
+__device__ __forceinline__ uint32_t small_word(const Group& g, uint32_t v) {
+  return g.k == 0 ? v : 0u;
 }
 
-__device__ __forceinline__ bool eq(const Word& a, const Word& b) {
-  uint32_t diff = 0u;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) diff |= a.w[k] ^ b.w[k];
-  return diff == 0u;
+// a + b and a - b: the carry (borrow) into word k is the carry into bit k
+// of x + gen, x = gen | propagate (generate and propagate are exclusive)
+__device__ __forceinline__ uint32_t add_w(const Group& g, uint32_t a,
+                                          uint32_t b) {
+  uint32_t s = a + b;
+  uint32_t gen = bits(g, s < a);
+  uint32_t x = gen | bits(g, s == 0xFFFFFFFFu);
+  uint32_t carry = (x + gen) ^ x ^ gen;
+  return s + ((carry >> g.k) & 1u);
 }
 
-__device__ __forceinline__ bool ult(const Word& a, const Word& b) {
-#pragma unroll
-  for (int k = kWords - 1; k >= 0; --k) {
-    if (a.w[k] != b.w[k]) return a.w[k] < b.w[k];
-  }
-  return false;
+__device__ __forceinline__ uint32_t sub_w(const Group& g, uint32_t a,
+                                          uint32_t b) {
+  uint32_t d = a - b;
+  uint32_t gen = bits(g, a < b);
+  uint32_t x = gen | bits(g, d == 0u);
+  uint32_t borrow = (x + gen) ^ x ^ gen;
+  return d - ((borrow >> g.k) & 1u);
 }
 
-__device__ __forceinline__ bool slt(const Word& a, const Word& b) {
-  Word fa = a, fb = b;
-  fa.w[kWords - 1] ^= 0x80000000u;
-  fb.w[kWords - 1] ^= 0x80000000u;
-  return ult(fa, fb);
+// a < b (unsigned) in every lane: decided by the highest word that differs
+__device__ __forceinline__ bool ult_w(const Group& g, uint32_t a,
+                                      uint32_t b) {
+  uint32_t diff = bits(g, a != b);
+  uint32_t less = bits(g, a < b);
+  int top = 31 - __clz(diff | 1u);
+  return diff != 0u && ((less >> top) & 1u) != 0u;
 }
 
-__device__ __forceinline__ Word add(const Word& a, const Word& b) {
-  Word r;
-  uint64_t carry = 0u;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    uint64_t t = (uint64_t)a.w[k] + b.w[k] + carry;
-    r.w[k] = (uint32_t)t;
-    carry = t >> 32;
-  }
-  return r;
+__device__ __forceinline__ bool slt_w(const Group& g, uint32_t a,
+                                      uint32_t b) {
+  uint32_t flip = g.k == kWords - 1 ? 0x80000000u : 0u;
+  return ult_w(g, a ^ flip, b ^ flip);
 }
 
-__device__ __forceinline__ Word sub(const Word& a, const Word& b) {
-  Word r;
-  uint32_t borrow = 0u;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    uint64_t t = (uint64_t)a.w[k] - b.w[k] - borrow;
-    r.w[k] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-  return r;
+__device__ __forceinline__ bool is_zero_w(const Group& g, uint32_t a) {
+  return bits(g, a != 0u) == 0u;
 }
 
-__device__ __forceinline__ Word negate(const Word& a) {
-  return sub(zero_word(), a);
-}
-
-// the truncated 256-bit product: schoolbook over u32 limbs, u64 partials
-__device__ __forceinline__ Word mul(const Word& a, const Word& b) {
-  Word r = zero_word();
+// the truncated 256-bit product: lane k sums column k of the partial
+// products (low halves) and column k - 1 (high halves), then one carry
+// pass adds each column's overflow into the next
+__device__ uint32_t mul_w(const Group& g, uint32_t a, uint32_t b) {
+  uint64_t lo = 0u, hi = 0u;
 #pragma unroll
   for (int i = 0; i < kWords; ++i) {
-    uint64_t carry = 0u;
-#pragma unroll
-    for (int j = 0; j < kWords - i; ++j) {
-      uint64_t t = (uint64_t)a.w[i] * b.w[j] + r.w[i + j] + carry;
-      r.w[i + j] = (uint32_t)t;
-      carry = t >> 32;
-    }
+    uint32_t ai = word_of(g, a, i);
+    uint32_t bj = word_of(g, b, g.k - i);
+    uint64_t p = i <= g.k ? (uint64_t)ai * bj : 0u;
+    lo += (uint32_t)p;
+    hi += p >> 32;
   }
-  return r;
+  uint64_t below = __shfl_sync(g.mask, hi, g.base + ((g.k - 1) & 7));
+  uint64_t t = lo + (g.k == 0 ? 0u : below);  // < 2^36
+  uint32_t up = word_of(g, (uint32_t)(t >> 32), g.k - 1);
+  return add_w(g, (uint32_t)t, g.k == 0 ? 0u : up);
 }
 
-__device__ __forceinline__ uint32_t bit_at(const Word& a, int i) {
-  return (a.w[i >> 5] >> (i & 31)) & 1u;
-}
+// word 0 of a value, and whether any higher word is set
+struct Small {
+  uint32_t low;
+  bool high;
+};
 
-// K7: unsigned restoring division, one dividend bit a step from the
-// highest set bit down (the steps above it leave the remainder 0). The
-// remainder stays below 2^256: before each shift it is at most the
-// dividend's prefix above the next bit. Division by zero yields (0, 0).
-__device__ void divmod_unsigned(const Word& a, const Word& b, Word& q,
-                                Word& r) {
-  q = zero_word();
-  r = zero_word();
-  if (is_zero(b)) return;
-  int top = -1;
-#pragma unroll
-  for (int k = kWords - 1; k >= 0; --k) {
-    if (top < 0 && a.w[k] != 0u) top = k * 32 + 31 - __clz(a.w[k]);
-  }
-  for (int i = top; i >= 0; --i) {
-    // r = r * 2 + bit i of a
-#pragma unroll
-    for (int k = kWords - 1; k > 0; --k) {
-      r.w[k] = (r.w[k] << 1) | (r.w[k - 1] >> 31);
-    }
-    r.w[0] = (r.w[0] << 1) | bit_at(a, i);
-    if (!ult(r, b)) {
-      r = sub(r, b);
-      q.w[i >> 5] |= 1u << (i & 31);
-    }
-  }
-}
-
-__device__ __forceinline__ bool negative(const Word& a) {
-  return (a.w[kWords - 1] >> 31) != 0u;
-}
-
-__device__ __forceinline__ Word abs_word(const Word& a) {
-  return negative(a) ? negate(a) : a;
-}
-
-__device__ Word binary(int op, const Word& a, const Word& b) {
-  Word q, r;
-  switch (op) {
-    case bAdd: return add(a, b);
-    case bSub: return sub(a, b);
-    case bMul: return mul(a, b);
-    case bDiv: divmod_unsigned(a, b, q, r); return q;
-    case bMod: divmod_unsigned(a, b, q, r); return r;
-    case bSdiv:
-      divmod_unsigned(abs_word(a), abs_word(b), q, r);
-      return (negative(a) != negative(b)) ? negate(q) : q;
-    case bSmod:
-      divmod_unsigned(abs_word(a), abs_word(b), q, r);
-      return negative(a) ? negate(r) : r;
-    case bAnd: {
-      Word t;
-#pragma unroll
-      for (int k = 0; k < kWords; ++k) t.w[k] = a.w[k] & b.w[k];
-      return t;
-    }
-    case bOr: {
-      Word t;
-#pragma unroll
-      for (int k = 0; k < kWords; ++k) t.w[k] = a.w[k] | b.w[k];
-      return t;
-    }
-    case bXor: {
-      Word t;
-#pragma unroll
-      for (int k = 0; k < kWords; ++k) t.w[k] = a.w[k] ^ b.w[k];
-      return t;
-    }
-    case bLt: return small_word(ult(a, b) ? 1u : 0u);
-    case bGt: return small_word(ult(b, a) ? 1u : 0u);
-    case bSlt: return small_word(slt(a, b) ? 1u : 0u);
-    case bSgt: return small_word(slt(b, a) ? 1u : 0u);
-    default: return small_word(eq(a, b) ? 1u : 0u);  // bEq
-  }
-}
-
-// true when the word is at least `limit` (a small bound)
-__device__ __forceinline__ bool at_least(const Word& a, uint32_t limit) {
-  uint32_t high = 0u;
-#pragma unroll
-  for (int k = 1; k < kWords; ++k) high |= a.w[k];
-  return high != 0u || a.w[0] >= limit;
+__device__ __forceinline__ Small small_of(const Group& g, uint32_t a) {
+  Small s;
+  s.low = word_of(g, a, 0);
+  s.high = bits(g, g.k != 0 && a != 0u) != 0u;
+  return s;
 }
 
 // EVM BYTE: byte `index` of `value`, 0 = most significant
-__device__ __forceinline__ Word byte_op(const Word& index, const Word& value) {
-  if (at_least(index, 32u)) return zero_word();
-  int from_low = 31 - (int)index.w[0];
-  return small_word((value.w[from_low >> 2] >> (8 * (from_low & 3))) & 0xFFu);
+__device__ uint32_t byte_w(const Group& g, uint32_t index, uint32_t value) {
+  Small i = small_of(g, index);
+  int from_low = 31 - (int)(i.low & 31u);
+  uint32_t w = word_of(g, value, from_low >> 2);
+  uint32_t byte = (w >> (8 * (from_low & 3))) & 0xFFu;
+  return (i.high || i.low >= 32u) ? 0u : small_word(g, byte);
 }
 
-__device__ Word shift_left(const Word& v, int s) {
-  Word r;
-  int ws = s >> 5, bs = s & 31;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    uint32_t hi = (k - ws >= 0) ? (v.w[k - ws] << bs) : 0u;
-    uint32_t lo = (bs != 0 && k - ws - 1 >= 0)
-                      ? (v.w[k - ws - 1] >> (32 - bs)) : 0u;
-    r.w[k] = hi | lo;
-  }
-  return r;
+// value << amount, value >> amount, amount < 256
+__device__ __forceinline__ uint32_t shl_bits(const Group& g, uint32_t value,
+                                             uint32_t amount) {
+  int src = g.k - (int)(amount >> 5);
+  uint32_t hi = word_of(g, value, src);
+  uint32_t lo = word_of(g, value, src - 1);
+  return __funnelshift_l(src >= 1 ? lo : 0u, src >= 0 ? hi : 0u,
+                         amount & 31u);
 }
 
-__device__ Word shift_right(const Word& v, int s) {
-  Word r;
-  int ws = s >> 5, bs = s & 31;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    uint32_t lo = (k + ws < kWords) ? (v.w[k + ws] >> bs) : 0u;
-    uint32_t hi = (bs != 0 && k + ws + 1 < kWords)
-                      ? (v.w[k + ws + 1] << (32 - bs)) : 0u;
-    r.w[k] = hi | lo;
-  }
-  return r;
+__device__ __forceinline__ uint32_t shr_bits(const Group& g, uint32_t value,
+                                             uint32_t amount) {
+  int src = g.k + (int)(amount >> 5);
+  uint32_t lo = word_of(g, value, src);
+  uint32_t hi = word_of(g, value, src + 1);
+  return __funnelshift_r(src < kWords ? lo : 0u,
+                         src + 1 < kWords ? hi : 0u, amount & 31u);
 }
 
-__device__ Word not_word(const Word& a) {
-  Word r;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) r.w[k] = ~a.w[k];
-  return r;
+__device__ uint32_t shl_w(const Group& g, uint32_t shift, uint32_t value) {
+  Small s = small_of(g, shift);
+  uint32_t r = shl_bits(g, value, s.low & 255u);
+  return (s.high || s.low >= 256u) ? 0u : r;
 }
 
-__device__ Word shl(const Word& shift, const Word& value) {
-  if (at_least(shift, 256u)) return zero_word();
-  return shift_left(value, (int)shift.w[0]);
-}
-
-__device__ Word shr(const Word& shift, const Word& value) {
-  if (at_least(shift, 256u)) return zero_word();
-  return shift_right(value, (int)shift.w[0]);
+__device__ uint32_t shr_w(const Group& g, uint32_t shift, uint32_t value) {
+  Small s = small_of(g, shift);
+  uint32_t r = shr_bits(g, value, s.low & 255u);
+  return (s.high || s.low >= 256u) ? 0u : r;
 }
 
 // arithmetic shift: a negative value shifts in ones, ~(~v >> s)
-__device__ Word sar(const Word& shift, const Word& value) {
-  bool neg = negative(value);
-  if (at_least(shift, 256u)) return neg ? not_word(zero_word()) : zero_word();
-  if (!neg) return shift_right(value, (int)shift.w[0]);
-  return not_word(shift_right(not_word(value), (int)shift.w[0]));
+__device__ uint32_t sar_w(const Group& g, uint32_t shift, uint32_t value) {
+  Small s = small_of(g, shift);
+  uint32_t fill = (word_of(g, value, kWords - 1) >> 31) ? 0xFFFFFFFFu : 0u;
+  uint32_t r = shr_bits(g, value ^ fill, s.low & 255u) ^ fill;
+  return (s.high || s.low >= 256u) ? fill : r;
 }
 
 // EVM SIGNEXTEND: the sign bit is bit 8 * pos + 7; pos >= 31 is the
 // identity
-__device__ Word signextend(const Word& pos, const Word& value) {
-  if (at_least(pos, 31u)) return value;
-  int bit = 8 * (int)pos.w[0] + 7;
+__device__ uint32_t signextend_w(const Group& g, uint32_t pos,
+                                 uint32_t value) {
+  Small p = small_of(g, pos);
+  int bit = 8 * (int)(p.low & 31u) + 7;
   int wi = bit >> 5, bi = bit & 31;
-  uint32_t sign = (value.w[wi] >> bi) & 1u;
-  uint32_t keep = (bi == 31) ? 0xFFFFFFFFu : ((1u << (bi + 1)) - 1u);
-  Word r = value;
-  r.w[wi] = sign ? (value.w[wi] | ~keep) : (value.w[wi] & keep);
+  uint32_t sign = (word_of(g, value, wi) >> bi) & 1u;
+  uint32_t fill = sign ? 0xFFFFFFFFu : 0u;
+  uint32_t keep = bi == 31 ? 0xFFFFFFFFu : ((2u << bi) - 1u);
+  uint32_t r = g.k < wi ? value
+               : g.k == wi ? ((value & keep) | (fill & ~keep)) : fill;
+  return (p.high || p.low >= 31u) ? value : r;
+}
+
+// -- K7: division on 32-bit digits, a thread-local copy of the words --------
+
+__device__ __forceinline__ void negate_digits(uint32_t (&x)[kWords]) {
+  uint32_t borrow = 0u;
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    if (k > wi) r.w[k] = sign ? 0xFFFFFFFFu : 0u;
+  for (int i = 0; i < kWords; ++i) {
+    uint64_t t = 0u - (uint64_t)x[i] - borrow;
+    x[i] = (uint32_t)t;
+    borrow = (uint32_t)(t >> 63);
   }
-  return r;
+}
+
+__device__ __forceinline__ bool less_digits(const uint32_t (&a)[kWords],
+                                            const uint32_t (&b)[kWords]) {
+  bool less = false, decided = false;
+#pragma unroll
+  for (int i = kWords - 1; i >= 0; --i) {
+    if (!decided && a[i] != b[i]) {
+      less = a[i] < b[i];
+      decided = true;
+    }
+  }
+  return less;
+}
+
+// x <<= T digits, x >>= T digits (zeros shifted in), when `on`
+template <int T, int N>
+__device__ __forceinline__ void shift_up(uint32_t (&x)[N], bool on) {
+#pragma unroll
+  for (int d = N - 1; d >= 0; --d) {
+    x[d] = on ? (d >= T ? x[d >= T ? d - T : 0] : 0u) : x[d];
+  }
+}
+
+template <int T, int N>
+__device__ __forceinline__ void shift_down(uint32_t (&x)[N], bool on) {
+#pragma unroll
+  for (int d = 0; d < N; ++d) {
+    x[d] = on ? (d + T < N ? x[d + T < N ? d + T : 0] : 0u) : x[d];
+  }
+}
+
+// floor(num / v) and num % v for a normalised digit v (v >= 2^31), from
+// r = floor((2^64 - 1) / v): the high half of num * r falls short of the
+// quotient by at most 2, so two corrections at most replace a 64-by-32
+// division (a long software routine on this card) by a multiply
+__device__ __forceinline__ uint64_t div_digit(uint64_t num, uint32_t v,
+                                              uint64_t r, uint64_t& rem) {
+  uint64_t q = __umul64hi(num, r);
+  uint64_t rest = num - q * v;
+  while (rest >= v) {
+    ++q;
+    rest -= v;
+  }
+  rem = rest;
+  return q;
+}
+
+// (q, r) = (a / b, a % b), unsigned; division by zero yields (0, 0).
+// Knuth's Algorithm D (TAOCP vol. 2, 4.3.1), in the form of Hacker's
+// Delight's divmnu: both operands are shifted left by S = 32 * (8 - n) + s
+// (n the divisor's digits, s its top digit's leading zeros), so the
+// divisor fills all 8 digits with its top bit set and every index below is
+// static (the digits stay in registers). The shifted dividend has 16
+// digits and quotient digit j is found from the window u[j..j+8]; S leaves
+// the quotient alone and scales the remainder, which is shifted back.
+__device__ __forceinline__ void divmod_digits(const uint32_t (&a)[kWords],
+                                              const uint32_t (&b)[kWords],
+                                              uint32_t (&q)[kWords],
+                                              uint32_t (&r)[kWords]) {
+  int n = 0;
+  uint32_t top = 0u;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    q[i] = 0u;
+    r[i] = 0u;
+    if (b[i] != 0u) {
+      n = i + 1;
+      top = b[i];
+    }
+  }
+  if (n == 0) return;
+  if (less_digits(a, b)) {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) r[i] = a[i];
+    return;
+  }
+  const int s = __clz(top);
+  if (n == 1) {  // one 64-by-32 division a digit, on a << s by b << s
+    const uint32_t v = b[0] << s;
+    const uint64_t inverse = ~0ull / v;
+    uint64_t rem = __funnelshift_l(a[kWords - 1], 0u, s);
+#pragma unroll
+    for (int i = kWords - 1; i >= 0; --i) {
+      uint32_t digit = i > 0 ? __funnelshift_l(a[i - 1], a[i], s) : a[0] << s;
+      q[i] = (uint32_t)div_digit((rem << 32) | digit, v, inverse, rem);
+    }
+    r[0] = (uint32_t)rem >> s;
+    return;
+  }
+  const int ws = kWords - n;
+  uint32_t u[2 * kWords], v[kWords];
+#pragma unroll
+  for (int i = kWords + 1; i < 2 * kWords; ++i) u[i] = 0u;
+  u[kWords] = __funnelshift_l(a[kWords - 1], 0u, s);
+#pragma unroll
+  for (int i = kWords - 1; i > 0; --i) {
+    u[i] = __funnelshift_l(a[i - 1], a[i], s);
+    v[i] = __funnelshift_l(b[i - 1], b[i], s);
+  }
+  u[0] = a[0] << s;
+  v[0] = b[0] << s;
+  shift_up<4>(u, ws & 4);  // the word shift, by ws = 0..6
+  shift_up<2>(u, ws & 2);
+  shift_up<1>(u, ws & 1);
+  shift_up<4>(v, ws & 4);
+  shift_up<2>(v, ws & 2);
+  shift_up<1>(v, ws & 1);
+  // the window w = u[j..j+8] slides down a digit a step; the digits below
+  // it wait in `low`, the next on top, and quotient digits enter q from
+  // below, so every index is static and the digits stay in registers
+  uint32_t w[kWords + 1], low[kWords];
+#pragma unroll
+  for (int i = 0; i <= kWords; ++i) w[i] = u[i + kWords - 1];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) low[i] = i > 0 ? u[i - 1] : 0u;
+  const uint64_t base = 1ull << 32;
+  const uint64_t inverse = ~0ull / v[kWords - 1];
+#pragma unroll 1
+  for (int step = 0; step < kWords; ++step) {
+    if (step > 0) {
+      shift_up<1>(w, true);
+      w[0] = low[kWords - 1];
+      shift_up<1>(low, true);
+    }
+    // D3: estimate from the window's top two digits, corrected at most
+    // twice against v[6]; then qhat is the digit or one too large
+    uint64_t num = ((uint64_t)w[kWords] << 32) | w[kWords - 1];
+    uint64_t rhat;
+    uint64_t qhat = div_digit(num, v[kWords - 1], inverse, rhat);
+    if (qhat >= base
+        || qhat * v[kWords - 2] > ((rhat << 32) | w[kWords - 2])) {
+      --qhat;
+      rhat += v[kWords - 1];
+      if (rhat < base
+          && (qhat >= base
+              || qhat * v[kWords - 2] > ((rhat << 32) | w[kWords - 2]))) {
+        --qhat;
+      }
+    }
+    // D4: w -= qhat * v
+    int64_t borrow = 0, t;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      uint64_t p = qhat * v[i];
+      t = (int64_t)w[i] - borrow - (int64_t)(p & 0xFFFFFFFFu);
+      w[i] = (uint32_t)t;
+      borrow = (int64_t)(p >> 32) - (t >> 32);
+    }
+    t = (int64_t)w[kWords] - borrow;
+    w[kWords] = (uint32_t)t;
+    shift_up<1>(q, true);
+    q[0] = (uint32_t)qhat;
+    if (t < 0) {  // D6: qhat was one too large; add v back
+      q[0] -= 1u;
+      uint64_t carry = 0u;
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) {
+        uint64_t sum = (uint64_t)w[i] + v[i] + carry;
+        w[i] = (uint32_t)sum;
+        carry = sum >> 32;
+      }
+      w[kWords] += (uint32_t)carry;
+    }
+  }
+  // D8: the remainder is w[0..7] << S (w[8] is 0); shift it back
+  shift_down<4>(w, ws & 4);
+  shift_down<2>(w, ws & 2);
+  shift_down<1>(w, ws & 1);
+#pragma unroll
+  for (int d = 0; d < kWords; ++d) r[d] = __funnelshift_r(w[d], w[d + 1], s);
+}
+
+// DIV, MOD, SDIV, SMOD: the group gathers both words into every lane,
+// every lane divides, and lane k keeps word k of the result
+__device__ uint32_t divide_w(const Group& g, int op, uint32_t a,
+                             uint32_t b) {
+  uint32_t x[kWords], y[kWords], q[kWords], r[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    x[i] = word_of(g, a, i);
+    y[i] = word_of(g, b, i);
+  }
+  const bool is_signed = op == bSdiv || op == bSmod;
+  const bool neg_a = is_signed && (x[kWords - 1] >> 31) != 0u;
+  const bool neg_b = is_signed && (y[kWords - 1] >> 31) != 0u;
+  if (neg_a) negate_digits(x);
+  if (neg_b) negate_digits(y);
+  divmod_digits(x, y, q, r);
+  const bool quotient = op == bDiv || op == bSdiv;
+  const bool negate = op == bSdiv ? neg_a != neg_b : op == bSmod && neg_a;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) x[i] = quotient ? q[i] : r[i];
+  if (negate) negate_digits(x);
+  uint32_t mine = 0u;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) mine = i == g.k ? x[i] : mine;
+  return mine;
+}
+
+__device__ uint32_t binary_w(const Group& g, int op, uint32_t a,
+                             uint32_t b) {
+  switch (op) {
+    case bAdd: return add_w(g, a, b);
+    case bSub: return sub_w(g, a, b);
+    case bMul: return mul_w(g, a, b);
+    case bDiv:
+    case bMod:
+    case bSdiv:
+    case bSmod: return divide_w(g, op, a, b);
+    case bAnd: return a & b;
+    case bOr: return a | b;
+    case bXor: return a ^ b;
+    case bLt: return small_word(g, ult_w(g, a, b) ? 1u : 0u);
+    case bGt: return small_word(g, ult_w(g, b, a) ? 1u : 0u);
+    case bSlt: return small_word(g, slt_w(g, a, b) ? 1u : 0u);
+    case bSgt: return small_word(g, slt_w(g, b, a) ? 1u : 0u);
+    default: return small_word(g, bits(g, a != b) == 0u ? 1u : 0u);  // bEq
+  }
 }
 
 // memory offset word -> small offset, or out of bounds (clamped to 0)
-__device__ __forceinline__ int mem_offset(const Word& w, int size, int window,
-                                          bool& oob) {
-  uint32_t high = w.w[0] >> 24;
-#pragma unroll
-  for (int k = 1; k < kWords; ++k) high |= w.w[k];
-  int small = (int)(w.w[0] & 0xFFFFFFu);
-  oob = high != 0u || small + size > window;
+__device__ __forceinline__ int mem_offset_w(const Group& g, uint32_t a,
+                                            int size, int window,
+                                            bool& oob) {
+  uint32_t low = word_of(g, a, 0);
+  bool high = bits(g, g.k == 0 ? (a >> 24) != 0u : a != 0u) != 0u;
+  int small = (int)(low & 0xFFFFFFu);
+  oob = high || small + size > window;
   return oob ? 0 : small;
 }
 
@@ -354,80 +545,46 @@ __device__ __forceinline__ void mem_extend(int off, int size, int& msize,
   if (extend) msize = needed;
 }
 
-// frame word (32 big-endian byte limbs in int32) <-> kernel word
-__device__ __forceinline__ Word load_limbs(const int* limbs) {
-  Word r;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    const int* p = limbs + kLimbs - 4 * (k + 1);
-    r.w[k] = ((uint32_t)(p[0] & 0xFF) << 24) | ((uint32_t)(p[1] & 0xFF) << 16)
-             | ((uint32_t)(p[2] & 0xFF) << 8) | (uint32_t)(p[3] & 0xFF);
-  }
-  return r;
+// 4 big-endian byte limbs <-> a word
+__device__ __forceinline__ uint32_t from_limbs(int4 x) {
+  return ((uint32_t)(x.x & 0xFF) << 24) | ((uint32_t)(x.y & 0xFF) << 16)
+         | ((uint32_t)(x.z & 0xFF) << 8) | (uint32_t)(x.w & 0xFF);
 }
 
-__device__ __forceinline__ void store_limbs(int* limbs, const Word& a) {
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    int* p = limbs + kLimbs - 4 * (k + 1);
-    p[0] = (int)(a.w[k] >> 24);
-    p[1] = (int)((a.w[k] >> 16) & 0xFFu);
-    p[2] = (int)((a.w[k] >> 8) & 0xFFu);
-    p[3] = (int)(a.w[k] & 0xFFu);
-  }
+__device__ __forceinline__ int4 to_limbs(uint32_t w) {
+  return make_int4((int)(w >> 24), (int)((w >> 16) & 0xFFu),
+                   (int)((w >> 8) & 0xFFu), (int)(w & 0xFFu));
 }
 
-struct Frame {
-  const int* ops;           // [n_ops, 4] (kind, arg, gas_min, gas_max)
-  const uint32_t* consts;   // [n_consts, 8] words, w[0] first
-  const int* stack_in;      // [rows, touch, 32]
-  int* stack_out;           // [rows, out_len, 32]
-  uint32_t* scratch;        // [capacity, 8, rows]
-  int* mem;                 // [rows, window], updated in place
-  uint8_t* written;         // [rows, window], updated in place
-  const int* msize_in;      // [rows] each
-  const int* min_gas_in;
-  const int* max_gas_in;
-  const int* gas_limit;
-  const uint8_t* live;
-  int* msize_out;
-  int* min_gas_out;
-  int* max_gas_out;
-  uint8_t* ok_out;
-  int* log_off;             // [rows, n_log]
-  int* log_val;             // [rows, n_log, 32]
-  int* fork_out;            // [rows, n_fork, 32]
-  int n_ops, touch, out_len, capacity, window, n_log, n_fork, rows;
-};
-
-__device__ __forceinline__ Word load_slot(const Frame& f, int slot, int row) {
-  Word r;
-  const uint32_t* base = f.scratch + (size_t)slot * kWords * f.rows + row;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) r.w[k] = base[(size_t)k * f.rows];
-  return r;
+// the constant pool entry an op pushes (entry 0, which always exists, for
+// an op that pushes none)
+__device__ __forceinline__ int const_index(int4 op) {
+  return op.x == kPush || op.x == kPc ? op.y : 0;
 }
 
-__device__ __forceinline__ void store_slot(const Frame& f, int slot, int row,
-                                           const Word& a) {
-  uint32_t* base = f.scratch + (size_t)slot * kWords * f.rows + row;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) base[(size_t)k * f.rows] = a.w[k];
-}
+__global__ void __launch_bounds__(kMaxBlockRows * kGroup)
+frontier_step_kernel(const Frame f) {
+  extern __shared__ uint32_t stack_words[];
+  const int lane = threadIdx.x & 31;
+  const int in_warp = min(32, (int)blockDim.x - (int)(threadIdx.x & ~31u));
+  Group g;
+  g.mask = in_warp == 32 ? 0xFFFFFFFFu : ((1u << in_warp) - 1u);
+  g.base = lane & ~(kGroup - 1);
+  g.k = lane & (kGroup - 1);
+  const int place = threadIdx.x / kGroup;  // the row's place in the block
+  const int row_index = blockIdx.x * (blockDim.x / kGroup) + place;
+  // a place past the last row runs the program on the last row's inputs,
+  // so the warp stays converged, and writes nothing
+  const bool valid = row_index < f.rows;
+  const size_t row = valid ? row_index : f.rows - 1;
+  // this lane's word of slot j is stack[j * kWords]
+  uint32_t* stack = stack_words + (size_t)place * f.pitch * kWords + g.k;
+  // this lane's 4 limbs of a frame word
+  const int limb = kLimbs - 4 * (g.k + 1);
 
-__device__ __forceinline__ Word const_word(const Frame& f, int index) {
-  Word r;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) r.w[k] = __ldg(f.consts + index * kWords + k);
-  return r;
-}
-
-__global__ void frontier_step_kernel(Frame f) {
-  int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= f.rows) return;
   for (int j = 0; j < f.touch; ++j) {
-    store_slot(f, j, row,
-               load_limbs(f.stack_in + ((size_t)row * f.touch + j) * kLimbs));
+    stack[j * kWords] = from_limbs(__ldg(reinterpret_cast<const int4*>(
+        f.stack_in + (row * f.touch + j) * kLimbs + limb)));
   }
   int sp = f.touch;
   int msize = f.msize_in[row];
@@ -435,175 +592,199 @@ __global__ void frontier_step_kernel(Frame f) {
   int max_gas = f.max_gas_in[row];
   const int gas_limit = f.gas_limit[row];
   bool ok = f.live[row] != 0;
-  int* mem = f.mem + (size_t)row * f.window;
-  uint8_t* written = f.written + (size_t)row * f.window;
+  int* mem = f.mem + row * f.window;
+  uint8_t* written = f.written + row * f.window;
   int log_index = 0, fork_index = 0;
+  // each op (kind, arg, gas_min, gas_max) and its constant word are
+  // loaded one op ahead, so their latency hides behind the op before
+  const int4* ops = reinterpret_cast<const int4*>(f.ops);
+  const int last = f.n_ops > 0 ? f.n_ops - 1 : 0;
+  int4 op = f.n_ops > 0 ? __ldg(ops) : make_int4(kNop, 0, 0, 0);
+  uint32_t word = __ldg(f.consts + const_index(op) * kWords + g.k);
   for (int pc = 0; pc < f.n_ops; ++pc) {
-    const int kind = __ldg(f.ops + 4 * pc);
-    const int arg = __ldg(f.ops + 4 * pc + 1);
-    switch (kind) {
+    const int4 next = __ldg(ops + min(pc + 1, last));
+    const uint32_t next_word =
+        __ldg(f.consts + const_index(next) * kWords + g.k);
+    uint32_t* top = stack + (sp - 1) * kWords;
+    switch (op.x) {
       case kPush:
       case kPc:
-        store_slot(f, sp++, row, const_word(f, arg));
+        top[kWords] = word;
+        ++sp;
         break;
       case kDup:
-        store_slot(f, sp, row, load_slot(f, sp - arg, row));
+        top[kWords] = top[(1 - op.y) * kWords];
         ++sp;
         break;
       case kSwap: {
-        Word top = load_slot(f, sp - 1, row);
-        store_slot(f, sp - 1, row, load_slot(f, sp - 1 - arg, row));
-        store_slot(f, sp - 1 - arg, row, top);
+        uint32_t t = top[0];
+        top[0] = top[-op.y * kWords];
+        top[-op.y * kWords] = t;
         break;
       }
       case kPop:
         --sp;
         break;
-      case kBin: {
-        Word a = load_slot(f, sp - 1, row);
-        Word b = load_slot(f, sp - 2, row);
-        sp -= 2;
-        store_slot(f, sp++, row, binary(arg, a, b));
+      case kBin:
+        top[-kWords] = binary_w(g, op.y, top[0], top[-kWords]);
+        --sp;
         break;
-      }
       case kNot:
-        store_slot(f, sp - 1, row, not_word(load_slot(f, sp - 1, row)));
+        top[0] = ~top[0];
         break;
       case kIszero:
-        store_slot(f, sp - 1, row,
-                   small_word(is_zero(load_slot(f, sp - 1, row)) ? 1u : 0u));
+        top[0] = small_word(g, is_zero_w(g, top[0]) ? 1u : 0u);
         break;
       case kByte:
-      case kShl:
-      case kShr:
-      case kSar:
-      case kSignextend: {
-        Word a = load_slot(f, sp - 1, row);  // index / shift / position
-        Word b = load_slot(f, sp - 2, row);  // value
-        sp -= 2;
-        Word r = kind == kByte ? byte_op(a, b)
-                 : kind == kShl ? shl(a, b)
-                 : kind == kShr ? shr(a, b)
-                 : kind == kSar ? sar(a, b)
-                 : signextend(a, b);
-        store_slot(f, sp++, row, r);
+        top[-kWords] = byte_w(g, top[0], top[-kWords]);
+        --sp;
         break;
-      }
+      case kShl:
+        top[-kWords] = shl_w(g, top[0], top[-kWords]);
+        --sp;
+        break;
+      case kShr:
+        top[-kWords] = shr_w(g, top[0], top[-kWords]);
+        --sp;
+        break;
+      case kSar:
+        top[-kWords] = sar_w(g, top[0], top[-kWords]);
+        --sp;
+        break;
+      case kSignextend:
+        top[-kWords] = signextend_w(g, top[0], top[-kWords]);
+        --sp;
+        break;
       case kMload: {
         bool oob;
-        int off = mem_offset(load_slot(f, sp - 1, row), 32, f.window, oob);
+        int off = mem_offset_w(g, top[0], 32, f.window, oob);
         ok = ok && !oob;
         mem_extend(off, 32, msize, min_gas, max_gas, gas_limit, ok);
-        int limbs[kLimbs];
-#pragma unroll
-        for (int p = 0; p < kLimbs; ++p) limbs[p] = mem[off + p];
-        store_slot(f, sp - 1, row, load_limbs(limbs));
+        const int* p = mem + off + limb;
+        top[0] = from_limbs(make_int4(p[0], p[1], p[2], p[3]));
         break;
       }
       case kMstore:
       case kMstore8: {
-        const int size = kind == kMstore ? 32 : 1;
+        const int size = op.x == kMstore ? 32 : 1;
         bool oob;
-        int off = mem_offset(load_slot(f, sp - 1, row), size, f.window, oob);
-        Word value = load_slot(f, sp - 2, row);
+        int off = mem_offset_w(g, top[0], size, f.window, oob);
+        const int4 value = to_limbs(top[-kWords]);
         sp -= 2;
         ok = ok && !oob;
         mem_extend(off, size, msize, min_gas, max_gas, gas_limit, ok);
-        int* logged = f.log_val + ((size_t)row * f.n_log + log_index) * kLimbs;
-        store_limbs(logged, value);
-        f.log_off[(size_t)row * f.n_log + log_index] = off;
-        ++log_index;
-        if (ok) {
-          for (int p = 0; p < size; ++p) {
-            mem[off + p] = logged[kLimbs - size + p];
-            written[off + p] = 1;
+        if (valid) {
+          const size_t entry = row * f.n_log + log_index;
+          *reinterpret_cast<int4*>(f.log_val + entry * kLimbs + limb) = value;
+          if (g.k == 0) f.log_off[entry] = off;
+          if (ok && size == 32) {
+            int* p = mem + off + limb;
+            p[0] = value.x;
+            p[1] = value.y;
+            p[2] = value.z;
+            p[3] = value.w;
+            uint8_t* w = written + off + limb;
+            w[0] = w[1] = w[2] = w[3] = 1;
+          } else if (ok && g.k == 0) {
+            mem[off] = value.w;
+            written[off] = 1;
           }
         }
+        ++log_index;
+        __syncwarp(g.mask);  // the group's later MLOADs see these bytes
         break;
       }
       case kJumpi:
       case kReturn:
         // destination then condition, or offset then length
         for (int k = 0; k < 2; ++k) {
-          store_limbs(
-              f.fork_out + ((size_t)row * f.n_fork + fork_index) * kLimbs,
-              load_slot(f, sp - 1, row));
+          if (valid) {
+            *reinterpret_cast<int4*>(
+                f.fork_out + (row * f.n_fork + fork_index) * kLimbs + limb) =
+                to_limbs(stack[(sp - 1) * kWords]);
+          }
           --sp;
           ++fork_index;
         }
         break;
       case kCalldataload:  // the lane's placeholder: decode builds the term
-        store_slot(f, sp - 1, row, zero_word());
+        top[0] = 0u;
         break;
       case kMsize:
-        store_slot(f, sp++, row, small_word((uint32_t)msize));
+        top[kWords] = small_word(g, (uint32_t)msize);
+        ++sp;
         break;
       default:  // kStop, kNop
         break;
     }
-    min_gas = add32(min_gas, __ldg(f.ops + 4 * pc + 2));
-    max_gas = add32(max_gas, __ldg(f.ops + 4 * pc + 3));
+    min_gas = add32(min_gas, op.z);
+    max_gas = add32(max_gas, op.w);
     ok = ok && min_gas <= gas_limit;
+    op = next;
+    word = next_word;
   }
+  if (!valid) return;
   for (int j = 0; j < f.out_len; ++j) {
-    store_limbs(f.stack_out + ((size_t)row * f.out_len + j) * kLimbs,
-                load_slot(f, j, row));
+    *reinterpret_cast<int4*>(
+        f.stack_out + (row * f.out_len + j) * kLimbs + limb) =
+        to_limbs(stack[j * kWords]);
   }
-  f.msize_out[row] = msize;
-  f.min_gas_out[row] = min_gas;
-  f.max_gas_out[row] = max_gas;
-  f.ok_out[row] = ok ? 1 : 0;
+  if (g.k == 0) {
+    f.msize_out[row] = msize;
+    f.min_gas_out[row] = min_gas;
+    f.max_gas_out[row] = max_gas;
+    f.ok_out[row] = ok ? 1 : 0;
+  }
 }
-
-constexpr int kThreads = 128;
 
 }  // namespace
 
 extern "C" {
 
-// Launches one step on `stream`; returns cudaGetLastError() of the launch
-// (0 when it was accepted). Allocates nothing.
-int frontier_step_launch(
-    const int* ops, const uint32_t* consts, const int* stack_in,
-    int* stack_out, uint32_t* scratch, int* mem, uint8_t* written,
-    const int* msize_in, const int* min_gas_in, const int* max_gas_in,
-    const int* gas_limit, const uint8_t* live, int* msize_out,
-    int* min_gas_out, int* max_gas_out, uint8_t* ok_out, int* log_off,
-    int* log_val, int* fork_out, int n_ops, int touch, int out_len,
-    int capacity, int window, int n_log, int n_fork, int rows,
-    void* stream) {
-  Frame f;
-  f.ops = ops;
-  f.consts = consts;
-  f.stack_in = stack_in;
-  f.stack_out = stack_out;
-  f.scratch = scratch;
-  f.mem = mem;
-  f.written = written;
-  f.msize_in = msize_in;
-  f.min_gas_in = min_gas_in;
-  f.max_gas_in = max_gas_in;
-  f.gas_limit = gas_limit;
-  f.live = live;
-  f.msize_out = msize_out;
-  f.min_gas_out = min_gas_out;
-  f.max_gas_out = max_gas_out;
-  f.ok_out = ok_out;
-  f.log_off = log_off;
-  f.log_val = log_val;
-  f.fork_out = fork_out;
-  f.n_ops = n_ops;
-  f.touch = touch;
-  f.out_len = out_len;
-  f.capacity = capacity;
-  f.window = window;
-  f.n_log = n_log;
-  f.n_fork = n_fork;
-  f.rows = rows;
-  if (rows <= 0) return 0;
-  int blocks = (rows + kThreads - 1) / kThreads;
-  frontier_step_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(f);
-  return (int)cudaGetLastError();
+int frontier_step_args_size() { return (int)sizeof(StepArgs); }
+
+// One step on `stream`: `step` is a StepArgs (taken as void*, for a type
+// of this file's unnamed namespace would leave the function unexported).
+// The upload, the launch and the download are each issued only when they
+// have bytes or rows. With a download it synchronises the stream, so a
+// fault of the run is reported here. Returns a cudaError_t (0: done).
+// Allocates nothing.
+int frontier_step(const void* step, void* stream_ptr) {
+  const StepArgs* args = static_cast<const StepArgs*>(step);
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const Frame& f = args->frame;
+  if (f.block_rows < 1 || f.block_rows > kMaxBlockRows || f.pitch < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t status = cudaSuccess;
+  if (args->upload_bytes > 0) {
+    status = cudaMemcpyAsync(args->upload_dst, args->upload_src,
+                             (size_t)args->upload_bytes,
+                             cudaMemcpyHostToDevice, stream);
+    if (status != cudaSuccess) return (int)status;
+  }
+  if (f.rows > 0) {
+    const int groups = f.rows < f.block_rows ? f.rows : f.block_rows;
+    const size_t smem = (size_t)groups * f.pitch * kWords * sizeof(uint32_t);
+    if (smem > kDefaultSmem) {
+      status = cudaFuncSetAttribute(
+          frontier_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (status != cudaSuccess) return (int)status;
+    }
+    const int blocks = (f.rows + groups - 1) / groups;
+    frontier_step_kernel<<<blocks, groups * kGroup, smem, stream>>>(f);
+    status = cudaGetLastError();
+    if (status != cudaSuccess) return (int)status;
+  }
+  if (args->download_bytes > 0) {
+    status = cudaMemcpyAsync(args->download_dst, args->download_src,
+                             (size_t)args->download_bytes,
+                             cudaMemcpyDeviceToHost, stream);
+    if (status != cudaSuccess) return (int)status;
+    status = cudaStreamSynchronize(stream);
+  }
+  return (int)status;
 }
 
 const char* frontier_step_error_string(int status) {

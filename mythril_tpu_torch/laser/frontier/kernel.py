@@ -16,9 +16,12 @@ backends, chosen by resolve_backend():
   cuda    K6, one hand-written CUDA kernel per step
           (gpu/frontier_kernel.py, csrc/frontier_step.cu): a micro-op
           interpreter that reads the run's encoded program from device
-          memory, one thread per row, with K7's division inside. The
-          program is data, so nothing is compiled per run or per shape,
-          and batches are not padded.
+          memory, 8 lanes a row with the run's stack in shared memory,
+          with K7's division inside. The program is data, so nothing is
+          compiled per run or per shape, and batches are not padded. A
+          step is one packed copy each way around the launch
+          (frontier_kernel.step_frame); its arrays are views of a pinned
+          buffer that the next step reuses.
 
 Because sibling states share their pc, the whole batch executes the SAME
 opcode sequence; the only per-state control flow is the `ok` mask: a
@@ -420,16 +423,21 @@ def _step_torch(run: Run, dense: DenseFrontier, device):
 
 
 def _step_cuda(run: Run, dense: DenseFrontier, device):
+    """K6 through the packed step on `device` (backend_device's, the
+    card, when None). A device the caller names as the CPU takes the
+    wrapper's rule for CPU tensors: the plain version."""
+    import torch
+
     from mythril_tpu_torch.gpu import frontier_kernel
 
-    if device is None:
-        device = backend_device("cuda")
-    if device.type != "cuda":
-        raise ValueError(f"the cuda step runs on a CUDA device, not {device}")
+    device = torch.device(device if device is not None
+                          else backend_device("cuda"))
     if on_cuda_step is not None:
         on_cuda_step(run, dense)
-    return _download(frontier_kernel.run_step_kernel(
-        run, *frame_tensors(dense, device)))
+    if device.type == "cpu":
+        return _download(frontier_kernel.run_step_kernel(
+            run, *frame_tensors(dense, device)))
+    return frontier_kernel.step_frame(run, dense, device)
 
 
 def step_batch(run: Run, dense: DenseFrontier,
@@ -442,7 +450,9 @@ def step_batch(run: Run, dense: DenseFrontier,
     a batched JUMPI fork, [offset-word, length-word] when it ends in a
     RETURN (empty otherwise). Rows with ok=False (bailed or padding)
     must be discarded by the caller. `device` is the torch device of
-    the torch and cuda backends (backend_device's when None)."""
+    the torch and cuda backends (backend_device's when None). The cuda
+    backend's arrays are views of its step buffers, valid until the
+    thread's next cuda step."""
     backend = backend or resolve_backend()
     if backend == "cuda":
         return _step_cuda(run, dense, device)

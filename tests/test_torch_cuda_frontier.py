@@ -1,6 +1,7 @@
 """The CUDA frontier step (K6, with K7's division inside) held against its
 plain PyTorch version on a card: the ok masks equal, and every output
-equal on the ok rows (integers: zero tolerance).
+equal on the ok rows (integers: zero tolerance), through the tensor
+wrapper and through the packed step the stepper takes.
 
 Marked `cuda`: these skip without a card. They import only the port (not
 even the shared test helpers), so they run where JAX is not installed:
@@ -50,6 +51,26 @@ def _assert_matches_plain(run, frame, device):
     return int(ok.sum())
 
 
+def _assert_packed_matches_plain(run, frame, device):
+    """The packed step (one copy up, the launch, one copy down) against
+    the plain version: the same ok mask, every output equal on the ok
+    rows."""
+    before = frontier_kernel.launches
+    got = kernel.step_batch(run, frame, "cuda", device)
+    assert frontier_kernel.launches == before + 1
+    want = [tensor.cpu().numpy() for tensor in kernel.step_plain(
+        run, *kernel.frame_tensors(frame, device))]
+    ok = want[6]
+    assert (got[6] == ok).all()
+    for index in range(6):
+        assert (got[index][ok] == want[index][ok]).all(), index
+    for k, (offsets, values) in enumerate(got[7]):
+        assert (offsets[ok] == want[7][:, k][ok]).all()
+        assert (values[ok] == want[8][:, k][ok]).all()
+    for k, fork_word in enumerate(got[8]):
+        assert (fork_word[ok] == want[9][:, k][ok]).all()
+
+
 def test_k6_matches_plain_on_random_runs(cuda_device):
     """40 seeded random runs over 1-64 rows, a quarter of the words at the
     edges (0, 1, 2^255, 2^256 - 1), some rows starved of gas."""
@@ -65,6 +86,115 @@ def test_k6_matches_plain_on_random_runs(cuda_device):
         ok_rows += _assert_matches_plain(run, frame, cuda_device)
         checked += 1
     assert ok_rows > 0
+
+
+@pytest.mark.parametrize("rows", (1, 3, 5, 63, 65, 257))
+def test_k6_row_counts_off_the_warp(cuda_device, rows):
+    """Row counts that are not a multiple of a warp's 4 rows or a block's
+    8: the last block's spare lanes write nothing, and through the packed
+    step (step_batch's cuda backend) as through the tensor wrapper."""
+    rng = random.Random(rows)
+    checked = 0
+    while checked < 4:
+        code, init_stack = frontier_program(rng, edge_bias=0.25)
+        run = frontier_run(code)
+        if run is None:
+            continue
+        frame = frontier_frame(rng, run, rows, init_stack, edge_bias=0.25)
+        _assert_matches_plain(run, frame, cuda_device)
+        _assert_packed_matches_plain(run, frame, cuda_device)
+        checked += 1
+
+
+def test_k6_deep_run_takes_fewer_rows_a_block(cuda_device):
+    """A run of DUP16/SWAP16 chains over a 966-word touch: 967 stack slots
+    a row leave room for 7 rows a block in shared memory, not 8, so the
+    block shape changes; the results do not."""
+    chain = bytes([0x8F, 0x9F, 0x50, 0x50]) * 950
+    run = frontier_run(chain + bytes([0x8F] * 16) + bytes([0x01] * 15)
+                       + b"\x00")
+    assert run.capacity == 967
+    assert frontier_kernel.block_rows(run.capacity) == 7
+    assert frontier_kernel.block_rows(32) == frontier_kernel.MAX_BLOCK_ROWS
+    rng = random.Random(0xDEE9)
+    for rows in (1, 7, 8, 30):
+        frame = frontier_frame(rng, run, rows, edge_bias=0.25,
+                               starved_share=0.0)
+        assert _assert_matches_plain(run, frame, cuda_device) == rows
+        _assert_packed_matches_plain(run, frame, cuda_device)
+
+
+# (dividend, divisor) pairs whose quotient digit's first estimate is one
+# too large after the D3 test, so Algorithm D adds the divisor back: built,
+# as in the test table of Hacker's Delight's divmnu, from the digits 0, 1,
+# 2^31 - 1, 2^31, 2^32 - 2 and 2^32 - 1, one pair for each divisor length
+# of 3 to 8 words (a search over those digits against the algorithm's
+# steps found them)
+ADD_BACK = (
+    (0xFFFFFFFF7FFFFFFF00000000000000000000000000000000FFFFFFFE7FFFFFFF,
+     0x7FFFFFFF00000000FFFFFFFF),
+    (0xFFFFFFFEFFFFFFFF80000000FFFFFFFE00000001FFFFFFFE00000000FFFFFFFE,
+     0x8000000080000000FFFFFFFF7FFFFFFF),
+    (0xFFFFFFFE7FFFFFFFFFFFFFFEFFFFFFFF7FFFFFFF7FFFFFFF8000000080000000,
+     0xFFFFFFFFFFFFFFFFFFFFFFFF0000000100000000),
+    (0xFFFFFFFE8000000000000001FFFFFFFFFFFFFFFE7FFFFFFFFFFFFFFE00000000,
+     0xFFFFFFFE80000000FFFFFFFE000000007FFFFFFF00000001),
+    (0x7FFFFFFF7FFFFFFF7FFFFFFF000000017FFFFFFFFFFFFFFEFFFFFFFE80000000,
+     0xFFFFFFFEFFFFFFFEFFFFFFFEFFFFFFFE7FFFFFFFFFFFFFFE00000000),
+    (0xFFFFFFFFFFFFFFFFFFFFFFFF7FFFFFFFFFFFFFFFFFFFFFFFFFFFFFFF00000000,
+     0x10000000100000001000000018000000000000001FFFFFFFFFFFFFFFE),
+)
+TOP = (1 << 256) - 1
+
+
+def _pairs_frame(rng, run, pairs):
+    """A frame whose row i holds pairs[i] = (top, second) as its window."""
+    frame = frontier_frame(rng, run, len(pairs), starved_share=0.0)
+    for i, (top, second) in enumerate(pairs):
+        for j, value in enumerate((second, top)):
+            frame.stack[i, j] = list((value & TOP).to_bytes(32, "big"))
+    return frame
+
+
+def test_k7_division_cases(cuda_device):
+    """DIV, MOD, SDIV and SMOD of one pair a row: division by zero, the
+    one-word divisors' short path, a dividend below its divisor, equal
+    operands, 2^256 - 1 over 1, -2^255 / -1, the add-back pairs, and
+    random dividends over random 1-8-word divisors."""
+    rng = random.Random(0xD17)
+    # [b, a] -> a/b, a%b, a sdiv b, a smod b
+    run = frontier_run(bytes([0x81, 0x81, 0x04, 0x82, 0x82, 0x06, 0x83,
+                              0x83, 0x05, 0x84, 0x84, 0x07, 0x00]))
+    pairs = [(a, 0) for a in (0, 1, TOP, 1 << 255, rng.getrandbits(256))]
+    pairs += [(rng.getrandbits(256), rng.getrandbits(32) | 1)
+              for _ in range(8)]
+    pairs += [(TOP, 1), (TOP, 2), (TOP, 0xFFFFFFFF), (1 << 255, TOP),
+              (TOP, TOP), (5, 1 << 200), (1 << 200, 1 << 200),
+              (rng.getrandbits(128), rng.getrandbits(256) | 1 << 255)]
+    pairs += [(a, b) for a, b in ADD_BACK]
+    pairs += [(-a, b) for a, b in ADD_BACK] + [(a, -b) for a, b in ADD_BACK]
+    pairs += [(rng.getrandbits(256), rng.getrandbits(32 * rng.randint(1, 8)))
+              for _ in range(40)]
+    frame = _pairs_frame(rng, run, pairs)
+    assert _assert_matches_plain(run, frame, cuda_device) == len(pairs)
+    _assert_packed_matches_plain(run, frame, cuda_device)
+
+
+def test_k6_mul_and_shifts_at_the_edges(cuda_device):
+    """SHL, SHR, SAR, BYTE, SIGNEXTEND and MUL by 0, 1, 31, 32, 255, 256
+    and amounts above, over the edge words and random ones."""
+    rng = random.Random(0x5A1)
+    # [value, amount] -> shl, shr, sar, byte, signextend, mul
+    run = frontier_run(bytes([0x81, 0x81, 0x1B, 0x82, 0x82, 0x1C, 0x83,
+                              0x83, 0x1D, 0x84, 0x84, 0x1A, 0x85, 0x85,
+                              0x0B, 0x86, 0x86, 0x02, 0x00]))
+    amounts = (0, 1, 7, 30, 31, 32, 33, 63, 64, 255, 256, 257, 1 << 32,
+               1 << 64, 1 << 255, TOP)
+    values = list(EDGE_WORDS) + [rng.getrandbits(256) for _ in range(3)]
+    pairs = [(amount, value) for amount in amounts for value in values]
+    frame = _pairs_frame(rng, run, pairs)
+    assert _assert_matches_plain(run, frame, cuda_device) == len(pairs)
+    _assert_packed_matches_plain(run, frame, cuda_device)
 
 
 def test_k6_division_edges(cuda_device):

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --forms-only   # env, build and the timing phase
     python3 chip_smoke.py --fork-prep    # env, build and the fork-prep runs
     python3 chip_smoke.py --frontier-only  # env, build and the frontier phase
+    python3 chip_smoke.py --telemetry-overhead  # env, build, the overhead legs twice
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
@@ -104,7 +105,36 @@ line):
           the router's plan, landing, round loop and settles, K1's
           launches and component finds, the device queries and hits, the
           frontier's counters and K6's launches, the tracer's spans, and
-          the findings.
+          the findings. Every device-backend run (the five and
+          stress_dispatch) also writes the port's run telemetry under
+          chiprun_out/telemetry/<contract>/: the stats JSON
+          (MYTHRIL_GPU_STATS_JSON), the heartbeat every 0.5 s
+          (MYTHRIL_GPU_HEARTBEAT) and the Prometheus file
+          (MYTHRIL_GPU_PROM), and a flight-recorder dump taken with
+          flightrec.dump_now after it. One "telemetry" record a run
+          prints the roofline rows, the wall decomposition and the top
+          gaps, and the run fails unless: completed is true; platform is
+          the card's name and kernel_backend "cuda"; the roofline has
+          every stage, with a calibrated ceiling on kernel, pack, ragged
+          and settle; its wall terms sum to the solver wall (to their
+          rounding) or attributed_frac is 1.0; kernel_launches equals
+          K1's launches counted around the run less the calibration's;
+          frontier_vmap_steps equals K6's launches; the heartbeat holds
+          two beats or more, seq rising, and its final beat has the stats
+          JSON's counters; the flight recorder's ring (CHECKED_RING_CAP
+          spans; full tracing was on for the span summary, --trace
+          unarmed) holds the run's last router.dispatch and
+          laser.frontier_step spans; and the dump reads back;
+  telemetry-overhead  KILLBILLY (-t 2) and xc_dispatch_a.hex (-t 1) on
+          the device backend with every telemetry artifact off
+          (MYTHRIL_GPU_FLIGHTREC=0, nothing written) and on (the ring at
+          its default 512 spans, the heartbeat every 0.5 s, the
+          Prometheus file, the stats JSON), full tracing off, in the
+          order off, on, on, off: the four walls of each, and the CPU
+          seconds spent inside the telemetry's own calls (a span
+          recorded, a beat, the stats JSON) in each leg.
+--telemetry-overhead runs the overhead legs alone, twice over (eight legs
+a contract).
 
 The kernel and timing phases build their streams with pre-analysis off,
 as this script's earlier versions did, so their timed stream stays the
@@ -141,6 +171,7 @@ import json
 import logging
 import os
 import random
+import shutil
 import subprocess
 import sys
 import threading
@@ -166,6 +197,14 @@ CUDA_HOST_RUNS = ("killbilly", "xc_dispatch_a.hex")
 IDLE_CONTRACT = "xc_dispatch_a.hex"
 CORPUS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex", "xc_sender_a.hex",
           "xc_sender_b.hex")
+# the heartbeat's cadence on every device-backend analyze run
+HEARTBEAT_INTERVAL_S = 0.5
+# the flight recorder's ring on the checked analyze runs: 512 (the
+# default) loses the last router.dispatch span on the sender contracts,
+# which make about 600 spans after it
+CHECKED_RING_CAP = 4096
+# contracts timed with every telemetry artifact off and on, in turns
+OVERHEAD_CONTRACTS = ("killbilly", "xc_dispatch_a.hex")
 
 _lines = []
 
@@ -1364,17 +1403,179 @@ def _split_by_deferred(events, name):
     return split
 
 
+@contextlib.contextmanager
+def _telemetry_env(name, ring_cap=None):
+    """Every telemetry artifact of one run on: the stats JSON, the
+    heartbeat (every HEARTBEAT_INTERVAL_S), the Prometheus file and the
+    flight-recorder dumps, under OUT_DIR/telemetry/<name>/ (emptied
+    first), and the ring at `ring_cap` spans (None: the default). Yields
+    their paths."""
+    folder = os.path.join(OUT_DIR, "telemetry", name)
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    paths = {"stats": os.path.join(folder, "stats.json"),
+             "heartbeat": os.path.join(folder, "heartbeat.jsonl"),
+             "prom": os.path.join(folder, "metrics.prom"),
+             "flightrec": os.path.join(folder, "flightrec")}
+    env = {"MYTHRIL_GPU_STATS_JSON": paths["stats"],
+           "MYTHRIL_GPU_HEARTBEAT": paths["heartbeat"],
+           "MYTHRIL_GPU_HEARTBEAT_INTERVAL": str(HEARTBEAT_INTERVAL_S),
+           "MYTHRIL_GPU_PROM": paths["prom"],
+           "MYTHRIL_GPU_FLIGHTREC_DIR": paths["flightrec"]}
+    if ring_cap is not None:
+        env["MYTHRIL_GPU_FLIGHTREC_CAP"] = str(ring_cap)
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    try:
+        yield paths
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+@contextlib.contextmanager
+def _calibration_launches(counts):
+    """Adds to counts["launches"] the K1 launches the router's calibration
+    makes inside the block (the stats JSON's kernel_launches counts the
+    solve rounds only)."""
+    from mythril_tpu_torch.gpu import ragged_kernel
+    from mythril_tpu_torch.gpu.router import QueryRouter
+
+    measure = QueryRouter._measure_kernel_rate
+
+    def counted(self, *args, **kwargs):
+        before = ragged_kernel.launches
+        try:
+            return measure(self, *args, **kwargs)
+        finally:
+            counts["launches"] = (counts.get("launches", 0)
+                                  + ragged_kernel.launches - before)
+
+    QueryRouter._measure_kernel_rate = counted
+    try:
+        yield counts
+    finally:
+        QueryRouter._measure_kernel_rate = measure
+
+
+def _last_span(events, name):
+    return next((event for event in reversed(events)
+                 if event["name"] == name), None)
+
+
+def _check_telemetry(device, name, paths, record, ring, events, dump):
+    """The run's telemetry against the card and the smoke's own counts
+    (see the module note). Emits one "telemetry" record; raises on any
+    failed check."""
+    import torch
+
+    from mythril_tpu_torch.observe import roofline
+    from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
+
+    failures = []
+    with open(paths["stats"]) as fd:
+        stats = json.load(fd)
+    with open(paths["heartbeat"]) as fd:
+        beats = [json.loads(line) for line in fd]
+    platform = (torch.cuda.get_device_name(0) if device.type == "cuda"
+                else "cpu")
+    kernel_backend = "cuda" if device.type == "cuda" else "plain"
+    if stats["completed"] is not True:
+        failures.append("completed is not true")
+    if stats["platform"] != platform:
+        failures.append(f"platform {stats['platform']!r}, not {platform!r}")
+    if stats["kernel_backend"] != kernel_backend:
+        failures.append(f"kernel_backend {stats['kernel_backend']!r}")
+    stages = stats["roofline"]["stages"]
+    if set(stages) != set(roofline.STAGES):
+        failures.append(f"roofline stages {sorted(stages)}")
+    for stage in ("kernel", "pack", "ragged", "settle"):
+        if stages.get(stage, {}).get("attainable") is None:
+            failures.append(f"no attainable rate for {stage}")
+    wall = stats["roofline"]["wall"]
+    # six values rounded to 4 decimals: the sum may miss by their rounding
+    excess = sum(wall[key] for key in ("prepare_s", "settle_s",
+                                       "crosscheck_s", "device_s",
+                                       "other_s")) - wall["solver_total_s"]
+    if abs(excess) > 6 * 0.5e-4 and wall["attributed_frac"] != 1.0:
+        failures.append(f"the wall does not reconcile: excess {excess}")
+    solve_launches = (record["kernel_launches"]
+                      - record["calibration_launches"])
+    if stats["kernel_launches"] != solve_launches:
+        failures.append(f"kernel_launches {stats['kernel_launches']} "
+                        f"against the smoke's {solve_launches}")
+    if stats["frontier_vmap_steps"] != record["k6_launches"]:
+        failures.append(f"frontier_vmap_steps "
+                        f"{stats['frontier_vmap_steps']} against K6's "
+                        f"{record['k6_launches']} launches")
+    seqs = [beat["seq"] for beat in beats]
+    if len(beats) < 2 or any(b <= a for a, b in zip(seqs, seqs[1:])):
+        failures.append(f"heartbeat seqs {seqs}")
+    final = beats[-1] if beats else {}
+    if final.get("final") is not True:
+        failures.append("the last beat is not final")
+    fields = SolverStatistics._COUNTERS + SolverStatistics._TIMERS
+    differ = [key for key in fields
+              if final.get("counters", {}).get(key) != stats[key]]
+    if differ:
+        failures.append(f"final beat differs from the stats JSON: {differ}")
+    spans_after = {}
+    for span_name in ("router.dispatch", "laser.frontier_step"):
+        last = _last_span(events, span_name)
+        if last is None:
+            failures.append(f"the run made no {span_name} span")
+            continue
+        spans_after[span_name] = len(events) - 1 - events.index(last)
+        if last not in ring:
+            failures.append(f"the ring lost the last {span_name} span")
+    try:
+        with open(dump) as fd:
+            dumped = json.load(fd)
+        if dumped["trigger"]["event"] != "smoke" or not dumped["events"]:
+            failures.append("the manual dump has no events")
+    except (TypeError, OSError, ValueError, KeyError) as error:
+        failures.append(f"the manual dump is not readable: {error!r}")
+    rows = {stage: {key: row.get(key) for key in (
+        "work", "busy_s", "attained", "attainable", "sol_gap_s",
+        "headroom")} for stage, row in stages.items()}
+    telemetry = {
+        "phase": "telemetry", "contract": name, "platform": stats["platform"],
+        "kernel_backend": stats["kernel_backend"],
+        "completed": stats["completed"], "roofline": rows, "wall": wall,
+        "wall_terms_excess_s": round(excess, 6),
+        "top_gaps": roofline.top_gaps(stats["roofline"], n=3),
+        "kernel_launches": stats["kernel_launches"],
+        "k1_launches_counted": record["kernel_launches"],
+        "k1_calibration_launches": record["calibration_launches"],
+        "frontier_vmap_steps": stats["frontier_vmap_steps"],
+        "k6_launches": record["k6_launches"], "beats": len(beats),
+        "ring_events": len(ring), "spans_after_last": spans_after,
+        "dump": dump,
+        "failed_checks": failures}
+    emit(telemetry)
+    if failures:
+        raise AssertionError(f"telemetry: {name}: {failures}")
+    return telemetry
+
+
 def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
-                  frontier_backend=None, batches=None, engine=None):
+                  frontier_backend=None, batches=None, engine=None,
+                  telemetry=None):
     """One in-process analyze from fresh solve state, counted: (report,
     completed, record). `largest` keeps the largest stream (by gates) the
     backend assembles, `batches` the largest frontier batch K6 steps;
     `frontier_backend` pins the frontier's step (None: auto, which is the
     host step for solver_backend "cpu" and K6 for "gpu"); `engine` adds
-    CLI options (e.g. {"no_frontier_fork": True})."""
+    CLI options (e.g. {"no_frontier_fork": True}); `telemetry` names the
+    run's folder of telemetry artifacts, all on and checked (None: none
+    written)."""
     from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
     from mythril_tpu_torch.gpu import frontier_kernel, ragged_kernel
     from mythril_tpu_torch.gpu.backend import get_device_backend
+    from mythril_tpu_torch.observe import flightrec
     from mythril_tpu_torch.observe.tracer import get_tracer
     from mythril_tpu_torch.smt.solver import frontend
     from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
@@ -1393,6 +1594,8 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
             largest.update(gates=gates, stream=stream, entries=entries)
 
     backend.on_stream = keep
+    # the stats JSON's device figures and roofline read this run alone
+    backend.reset_stats()
     before = backend.stats()
     stats = SolverStatistics()
     stats.reset()
@@ -1412,24 +1615,34 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
         torch_device=device_arg, pruning_factor=1.0, **(engine or {}))
     disassembler = MythrilDisassembler()
     disassembler.load_from_bytecode(code)
-    torch_sync(device)
-    start = time.monotonic()
-    try:
-        with _frontier_backend(frontier_backend), \
-                _keep_largest_batch(batches if batches is not None else {}):
-            analyzer = MythrilAnalyzer(disassembler, cmd_args=cmd_args)
-            report = analyzer.fire_lasers(transaction_count=tx_count)
+    calibration = {}
+    ring = dump = None
+    with (_telemetry_env(telemetry, CHECKED_RING_CAP) if telemetry
+          else contextlib.nullcontext()) as paths, \
+            _calibration_launches(calibration):
         torch_sync(device)
-        wall = time.monotonic() - start
-        k6_launches = frontier_kernel.launches  # ... and ends here
-    finally:
-        backend.on_stream = None
-        logger.removeHandler(watch)
-        logger.setLevel(level)
-        spans = tracer.summary()
-        events = tracer.events()
-        tracer.reset()
-        args.reset()
+        start = time.monotonic()
+        try:
+            with _frontier_backend(frontier_backend), \
+                    _keep_largest_batch(batches if batches is not None
+                                        else {}):
+                analyzer = MythrilAnalyzer(disassembler, cmd_args=cmd_args)
+                report = analyzer.fire_lasers(transaction_count=tx_count)
+            torch_sync(device)
+            wall = time.monotonic() - start
+            k6_launches = frontier_kernel.launches  # ... and ends here
+        finally:
+            backend.on_stream = None
+            logger.removeHandler(watch)
+            logger.setLevel(level)
+            spans = tracer.summary()
+            events = tracer.events()
+            if paths is not None:
+                ring = tracer.ring_events()
+                flightrec.reset()
+                dump = flightrec.dump_now("smoke")
+            tracer.reset()
+            args.reset()
     if report.exceptions:
         raise AssertionError(f"analyze raised: {report.exceptions[0]}")
     after = backend.stats()
@@ -1455,6 +1668,8 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
                    "dispatch_s": span_s("router.dispatch")},
         "cdcl_settle_pass_s": span_s("solver.settle_pass"),
         "kernel_launches": ragged_kernel.launches - launches_before,
+        # of them the router's calibration, not solve rounds
+        "calibration_launches": calibration.get("launches", 0),
         "k6_launches": k6_launches,
         "frontier": {**{key: counters[key] for key in FRONTIER_KEYS},
                      "frontier_batch_occupancy":
@@ -1480,6 +1695,9 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
         "cnf_prep_split": _split_by_deferred(events, "solver.cnf_prep"),
         "aig_opt_split": _split_by_deferred(events, "solver.aig_opt"),
         "findings": _issue_keys(report)}
+    if paths is not None:
+        _check_telemetry(device, telemetry, paths, record, ring, events,
+                         dump)
     return report, not watch.lines, record
 
 
@@ -1501,7 +1719,8 @@ def _analyze_contract(device, name, code, tx_count, timeout, compared,
             device, code, tx_count, timeout, solver_backend,
             largest if solver_backend == "gpu" else {},
             frontier_backend=frontier_backend,
-            batches=batches if solver_backend == "gpu" else None)
+            batches=batches if solver_backend == "gpu" else None,
+            telemetry=name if solver_backend == "gpu" else None)
         keys[leg] = _issue_keys(report)
         completed[leg] = done
         reports[leg] = (report.as_json(), report.as_text())
@@ -1679,6 +1898,119 @@ def phase_analyze(device):
             "frontier_idle": idle}
 
 
+@contextlib.contextmanager
+def _telemetry_seconds(spent):
+    """Adds to spent["s"] the CPU seconds of the calling thread spent
+    inside the telemetry's own calls within the block: a span recorded
+    (Tracer._record), a beat (Heartbeat.beat, on its own thread) and the
+    stats JSON (_dump_stats_json). CPU time, not wall: a beat's thread
+    also waits for the interpreter lock, which costs the run nothing."""
+    from mythril_tpu_torch.core import MythrilAnalyzer
+    from mythril_tpu_torch.observe.metrics import Heartbeat
+    from mythril_tpu_torch.observe.tracer import Tracer
+
+    patched = [(Tracer, "_record"), (Heartbeat, "beat"),
+               (MythrilAnalyzer, "_dump_stats_json")]
+    saved = [owner.__dict__[attr] for owner, attr in patched]
+
+    def timed(fn):
+        def wrapped(*args, **kwargs):
+            start = time.thread_time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent["s"] = spent.get("s", 0.0) + time.thread_time() - start
+        return wrapped
+
+    for (owner, attr), original in zip(patched, saved):
+        if isinstance(original, staticmethod):
+            setattr(owner, attr, staticmethod(timed(original.__func__)))
+        else:
+            setattr(owner, attr, timed(original))
+    try:
+        yield spent
+    finally:
+        for (owner, attr), original in zip(patched, saved):
+            setattr(owner, attr, original)
+
+
+def _overhead_leg(device, name, code, tx_count, on):
+    """One device-backend analyze from fresh solve state with every
+    telemetry artifact on (the flight recorder's ring at its default
+    size, the heartbeat every HEARTBEAT_INTERVAL_S, the Prometheus file,
+    the stats JSON) or off (MYTHRIL_GPU_FLIGHTREC=0: no ring, and nothing
+    written); full tracing off in both. Returns the wall and the CPU
+    seconds spent inside the telemetry's own calls."""
+    from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
+    from mythril_tpu_torch.observe import flightrec
+    from mythril_tpu_torch.observe.tracer import get_tracer
+    from mythril_tpu_torch.smt.solver import frontend
+    from mythril_tpu_torch.support.args import args
+    from mythril_tpu_torch.support.model import clear_caches
+
+    args.reset()
+    clear_caches()
+    frontend._global_blaster = None
+    tracer = get_tracer()
+    tracer.reset()
+    saved_env = os.environ.get(flightrec.FLIGHTREC_ENV)
+    if not on:
+        os.environ[flightrec.FLIGHTREC_ENV] = "0"
+    cmd_args = SimpleNamespace(
+        execution_timeout=ANALYZE_TIMEOUT, transaction_count=tx_count,
+        max_depth=128, solver_backend="gpu",
+        torch_device=None if device.type == "cuda" else device,
+        pruning_factor=1.0)
+    disassembler = MythrilDisassembler()
+    disassembler.load_from_bytecode(code)
+    spent = {}
+    try:
+        with (_telemetry_env(f"overhead-{name}") if on
+              else contextlib.nullcontext()), _telemetry_seconds(spent):
+            torch_sync(device)
+            start = time.monotonic()
+            report = MythrilAnalyzer(
+                disassembler, cmd_args=cmd_args).fire_lasers(
+                    transaction_count=tx_count)
+            torch_sync(device)
+            wall = time.monotonic() - start
+    finally:
+        tracer.reset()
+        if saved_env is None:
+            os.environ.pop(flightrec.FLIGHTREC_ENV, None)
+        else:
+            os.environ[flightrec.FLIGHTREC_ENV] = saved_env
+        args.reset()
+    if report.exceptions:
+        raise AssertionError(f"analyze raised: {report.exceptions[0]}")
+    return wall, spent.get("s", 0.0)
+
+
+def phase_telemetry_overhead(device, rounds=1):
+    """What the telemetry costs: each of OVERHEAD_CONTRACTS on the device
+    backend with every artifact off, on, on, off, `rounds` times. Emits
+    one record a contract: the walls of each leg and the CPU seconds
+    inside the telemetry's own calls."""
+    inputs = {name: (code, tx_count)
+              for name, code, tx_count, _timeout, _compared
+              in _analyze_inputs()}
+    order = ["off", "on", "on", "off"] * rounds
+    for name in OVERHEAD_CONTRACTS:
+        code, tx_count = inputs[name]
+        walls = {"off": [], "on": []}
+        inside = {"off": [], "on": []}
+        for leg in order:
+            wall, spent = _overhead_leg(device, name, code, tx_count,
+                                        leg == "on")
+            walls[leg].append(wall)
+            inside[leg].append(spent)
+        emit({"phase": "telemetry-overhead", "contract": name,
+              "tx": tx_count, "order": order,
+              "wall_off_s": walls["off"], "wall_on_s": walls["on"],
+              "telemetry_cpu_on_s": inside["on"],
+              "telemetry_cpu_off_s": inside["off"]})
+
+
 FORK_PREP_CONTRACTS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex")
 
 
@@ -1795,6 +2127,11 @@ def main() -> int:
             frontier_only(device)
             print(smi, flush=True)
             return 0
+        if "--telemetry-overhead" in sys.argv[1:]:
+            phase_build()
+            phase_telemetry_overhead(device, rounds=2)
+            print(smi, flush=True)
+            return 0
         if "--fork-prep" in sys.argv[1:]:
             phase_build()
             phase_fork_prep(device)
@@ -1808,6 +2145,7 @@ def main() -> int:
         router = phase_router(device)
         frontier = phase_frontier(device)
         analyze = phase_analyze(device)
+        phase_telemetry_overhead(device)
         emit({"phase": "total", "seconds": time.monotonic() - start})
     except Exception as error:
         import traceback

@@ -2,10 +2,14 @@
 (reference mythril/mythril/mythril_analyzer.py:201 +
 mythril_disassembler.py:411, merged into one module).
 
-The one-contract loop of the JAX package's core.py. Its corpus surfaces
-(--jobs, --corpus-interleave), the tuned profile, fault injection, the
-flight recorder, the heartbeat and the stats JSON, the statespace and
-graph dumps, and loading from solidity, foundry or RPC wait for later
+The one-contract loop of the JAX package's core.py, with its run
+telemetry: fire_lasers installs the flight recorder, starts the heartbeat
+(--heartbeat / MYTHRIL_GPU_HEARTBEAT) and writes the stats JSON
+(MYTHRIL_GPU_STATS_JSON) from its finally, so a run that dies (a module
+exception, a DeviceFault) still leaves its telemetry, tagged
+completed=false, and a flight-recorder dump. Its corpus surfaces (--jobs,
+--corpus-interleave), the tuned profile, fault injection, the statespace
+and graph dumps, and loading from solidity, foundry or RPC wait for later
 slices."""
 
 import logging
@@ -67,7 +71,7 @@ class MythrilAnalyzer:
                 "solve_cache", "transaction_sequences", "beam_width",
                 "disable_coverage_strategy", "no_preanalysis",
                 "no_aig_opt", "no_incremental_prep", "no_vmap_frontier",
-                "no_frontier_fork", "trace",
+                "no_frontier_fork", "trace", "heartbeat",
             ):
                 if hasattr(cmd_args, field) and getattr(cmd_args, field) is not None:
                     setattr(args, field, getattr(cmd_args, field))
@@ -80,6 +84,7 @@ class MythrilAnalyzer:
         import os
 
         from mythril_tpu_torch.observe import TRACE_ENV, get_tracer
+        from mythril_tpu_torch.observe import flightrec, metrics
 
         reset_engine_state()
         if args.solver_backend == "gpu":
@@ -98,12 +103,20 @@ class MythrilAnalyzer:
                     frontier_kernel.build_kernel()
         stats = SolverStatistics()
         stats.enabled = True
+        # the always-on flight recorder: the tracer (and its span ring)
+        # exists before the first span, with --trace unarmed too
+        flightrec.install()
         trace_path = getattr(args, "trace", None) \
             or os.environ.get(TRACE_ENV)
         if trace_path:
             get_tracer().enable(trace_path)
+        heartbeat = metrics.start_heartbeat(args.heartbeat)
         tx_count = transaction_count or args.transaction_count
 
+        # the telemetry is written from the finally: a run that dies still
+        # leaves its stats JSON (completed=false), its last beat and a
+        # flight-recorder dump; the error itself propagates
+        completed = False
         all_issues: List[Issue] = []
         exceptions: List[str] = []
         try:
@@ -112,7 +125,16 @@ class MythrilAnalyzer:
                     contract, modules, tx_count, stats=stats)
                 all_issues.extend(issues)
                 exceptions.extend(contract_exceptions)
+            completed = True
         finally:
+            if not completed:
+                # before the tracer resets below
+                flightrec.notify_run_incomplete()
+            if heartbeat is not None:
+                # the final beat: same singleton, same finally as the
+                # stats JSON, so the two agree
+                heartbeat.stop(final=True)
+            self._dump_stats_json(stats, completed=completed)
             if trace_path:
                 tracer = get_tracer()
                 tracer.write()
@@ -126,6 +148,30 @@ class MythrilAnalyzer:
         for issue in all_issues:
             report.append_issue(issue)
         return report
+
+    @staticmethod
+    def _dump_stats_json(stats, completed: bool = True) -> None:
+        """MYTHRIL_GPU_STATS_JSON=<path>: write the run's SolverStatistics
+        (counters, occupancies, the device backend's stats, the roofline,
+        the per-site resilience events) as one JSON object, stamped, with
+        `completed` telling a clean run from telemetry salvaged by the
+        finally."""
+        import json
+        import os
+
+        from mythril_tpu_torch.observe import metrics
+
+        path = os.environ.get("MYTHRIL_GPU_STATS_JSON")
+        if not path:
+            return
+        payload = stats.as_dict()
+        payload["completed"] = bool(completed)
+        payload.update(metrics.stamp())
+        try:
+            with open(path, "w") as fd:
+                json.dump(payload, fd)
+        except OSError:
+            log.warning("could not write solver stats to %s", path)
 
     def _analyze_one_contract(self, contract, modules, tx_count, stats=None):
         """Symbolic execution + modules for ONE contract (the loop body the

@@ -120,6 +120,15 @@ class DeviceSolverBackend:
         circuit_steps = env_int("MYTHRIL_GPU_CIRCUIT_STEPS", 0)
         if circuit_steps > 0:
             self.CIRCUIT_STEPS = circuit_steps
+        self.reset_stats()
+        self._seed = 0
+        self._pack_cache = _LRU(512)  # struct key -> PackedCircuit
+        # test hook: on_stream(stream, entries) before each upload
+        self.on_stream = None
+
+    def reset_stats(self) -> None:
+        """Zero the counters stats() reports (the backend lives as long as
+        the process; the pack cache and the seed stay)."""
         # queries that reached the device and those it left to the CDCL
         self.queries = 0
         self.fallbacks = 0
@@ -154,10 +163,6 @@ class DeviceSolverBackend:
         # ragged-round launches and the block-aligned cells they stepped
         self.kernel_launches = 0
         self.kernel_cells_stepped = 0
-        self._seed = 0
-        self._pack_cache = _LRU(512)  # struct key -> PackedCircuit
-        # test hook: on_stream(stream, entries) before each upload
-        self.on_stream = None
 
     def count_cap_reject(self, count: int = 1,
                          under_floor: bool = False) -> None:

@@ -211,6 +211,7 @@ class QueryRouter:
         if os.environ.get("MYTHRIL_GPU_CALIBRATE", "") == "0":
             return
         from mythril_tpu_torch.service.calibration import (
+            STAGE_RATE_KEYS,
             load_profile,
             save_profile,
         )
@@ -220,6 +221,15 @@ class QueryRouter:
         cached = load_profile(platform, restarts, steps)
         if cached is not None:
             self._rates = cached
+            if any(key not in cached for key in STAGE_RATE_KEYS):
+                # an entry with K1's rate but not every stage ceiling
+                # would leave those stages without a ceiling for good
+                # (entries never expire): measure the stage rates alone,
+                # without a kernel round, and re-save
+                with trace_span("router.calibrate", cat="router"):
+                    rates, _flat = self._measure_stage_rates()
+                self._rates = {**cached, **rates}
+                save_profile(platform, restarts, steps, self._rates)
             return
         start = time.monotonic()
         with trace_span("router.calibrate", cat="router"):
@@ -230,11 +240,20 @@ class QueryRouter:
         save_profile(platform, restarts, steps, self._rates)
 
     def _measure_rates(self) -> dict:
-        """K1's rate on a two-cone stream of a small blasted comparison
-        cone (the production query shape at 1/4 width, two entries paged
-        onto disjoint variable ranges like a window), plus pack bytes/s
-        (the timed levelization), ragged bytes/s (assembly + upload) and
-        settle clauses/s (repeated cold CDCL solves of the same CNF)."""
+        """The stage rates and K1's rate on their calibration stream."""
+        rates, flat = self._measure_stage_rates()
+        if flat is not None:
+            rates["kernel_cells_s"] = self._measure_kernel_rate(*flat)
+        return rates
+
+    def _measure_stage_rates(self):
+        """(rates, calibration stream) on a small blasted comparison cone
+        (the production query shape at 1/4 width, two entries paged onto
+        disjoint variable ranges like a window): pack bytes/s (the timed
+        levelization), ragged bytes/s (assembly + upload) and settle
+        clauses/s (repeated cold CDCL solves of the same CNF). The stream
+        is (flat on the device, stream), or None when it exceeds the
+        kernel's capacities."""
         from mythril_tpu_torch.smt import symbol_factory
         from mythril_tpu_torch.smt.solver.frontend import Solver
 
@@ -252,6 +271,7 @@ class QueryRouter:
         rates = {}
         if pack_elapsed > 0 and pc.nbytes:
             rates["pack_bytes_s"] = pc.nbytes / pack_elapsed
+        rates.update(self._settle_rate(prep))
 
         caps = ragged_kernel.kernel_caps()
         ragged_start = time.perf_counter()
@@ -262,14 +282,21 @@ class QueryRouter:
             # keeps its constant
             log.warning("calibration stream exceeds the kernel capacities "
                         "%s; kernel rate not measured", caps)
-            return rates
+            return rates, None
         flat = ragged_kernel.device_flat(flat, device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         ragged_elapsed = time.perf_counter() - ragged_start
         if ragged_elapsed > 0 and stream.nbytes:
             rates["ragged_bytes_s"] = stream.nbytes / ragged_elapsed
+        return rates, (flat, stream)
 
+    def _measure_kernel_rate(self, flat, stream) -> float:
+        """K1's cells per second on the calibration stream, timed with
+        CUDA events over CAL_STEPS after one warm-up launch (perf_counter
+        for the plain round on the CPU)."""
+        device = self.backend.device
+        caps = ragged_kernel.kernel_caps()
         lanes = ragged_kernel.pad_lanes(self._profile_restarts(), caps)
         generator = torch.Generator(device=device)
         generator.manual_seed(2)
@@ -296,10 +323,7 @@ class QueryRouter:
             launch(2)
             kernel_s = time.perf_counter() - kernel_start
         # the kernel's cell unit: block-aligned real gates, sim + walk
-        rates["kernel_cells_s"] = (CAL_STEPS * 2 * flat.padded_cells
-                                   / max(kernel_s, 1e-9))
-        rates.update(self._settle_rate(prep))
-        return rates
+        return CAL_STEPS * 2 * flat.padded_cells / max(kernel_s, 1e-9)
 
     @staticmethod
     def _settle_rate(prep) -> dict:
@@ -324,7 +348,11 @@ class QueryRouter:
         return {}
 
     def attainable_rates(self) -> dict:
-        """The measured rates (never triggers a measurement)."""
+        """The roofline's ceilings (observe/roofline.py): the calibrated
+        kernel_cells_s, pack_bytes_s, ragged_bytes_s and settle_clauses_s,
+        measured this process or loaded from the persisted entry; a rate
+        never measured is absent. A pure read: it never measures, launches
+        or synchronizes."""
         return dict(self._rates)
 
     # -- cost model -------------------------------------------------------------

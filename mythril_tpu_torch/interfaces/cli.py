@@ -153,6 +153,16 @@ def add_analysis_args(parser) -> None:
                              "router, device pack/ship/kernel, CDCL "
                              "settle, cache tiers, scheduler flushes) to "
                              "PATH; env equivalent: MYTHRIL_GPU_TRACE")
+    parser.add_argument("--heartbeat", metavar="PATH", default=None,
+                        help="append periodic live-metrics snapshots "
+                             "(counters, occupancies, roofline, "
+                             "resilience events; schema_version + git "
+                             "rev + platform stamped) as JSON lines to "
+                             "PATH while the run is in flight; cadence "
+                             "via MYTHRIL_GPU_HEARTBEAT_INTERVAL "
+                             "(default 10 s), Prometheus text file via "
+                             "MYTHRIL_GPU_PROM; env equivalent: "
+                             "MYTHRIL_GPU_HEARTBEAT")
     parser.add_argument("--disable-mutation-pruner", action="store_true")
     parser.add_argument("--disable-coverage-strategy", action="store_true")
     parser.add_argument("--disable-dependency-pruning", action="store_true")

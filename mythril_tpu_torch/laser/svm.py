@@ -473,22 +473,41 @@ class LaserEVM:
             # a pruner (e.g. dependency_pruner) vetoed this state
             return [], None
 
+        # per-opcode wall histogram of the per-state path (stats JSON
+        # interp_opcode_wall): the handler only, hooks and snapshots are
+        # engine overhead, not opcode cost
+        from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
+
+        stats = SolverStatistics()
+        op_start = time.monotonic() if stats.enabled else 0.0
+        op_solver_before = stats.solver_time
         try:
-            new_states = instructions.execute(global_state, instr)
-        except VmException as error:
-            # exceptional halt: the frame reverts
-            transaction, return_snapshot = global_state.transaction_stack[-1]
-            self._fire_transaction_end_hooks(
-                global_state, transaction, return_snapshot, True
-            )
-            new_states = self.handle_vm_exception(
-                global_state, op_name, str(error)
-            )[0]
-        except TransactionStartSignal as signal:
-            new_states = self._start_inner_transaction(global_state, signal)
-            return new_states, op_name
-        except TransactionEndSignal as signal:
-            new_states = self._end_transaction(global_state, signal, op_name)
+            try:
+                new_states = instructions.execute(global_state, instr)
+            except VmException as error:
+                # exceptional halt: the frame reverts
+                transaction, return_snapshot = \
+                    global_state.transaction_stack[-1]
+                self._fire_transaction_end_hooks(
+                    global_state, transaction, return_snapshot, True
+                )
+                new_states = self.handle_vm_exception(
+                    global_state, op_name, str(error)
+                )[0]
+            except TransactionStartSignal as signal:
+                new_states = self._start_inner_transaction(
+                    global_state, signal)
+                return new_states, op_name
+            except TransactionEndSignal as signal:
+                new_states = self._end_transaction(
+                    global_state, signal, op_name)
+        finally:
+            if stats.enabled:
+                # solver seconds inside the handler (concretization,
+                # tx-end confirmations) are solver cost, not opcode cost
+                stats.add_interp_opcode_wall(
+                    op_name, max(0.0, (time.monotonic() - op_start)
+                                 - (stats.solver_time - op_solver_before)))
 
         kept = []
         for state in new_states:

@@ -8,12 +8,16 @@ Usage (the instrumented seams of the port):
         ...
         sp.set(rounds=rounds)      # attach attributes discovered mid-span
 
-Tracing is OFF unless MYTHRIL_GPU_TRACE names a path (or enable() is
-called); span() then returns ONE shared no-op object, so a disabled seam
-costs a global load, a truthiness check and an empty context manager.
-Completed spans append to a lock-protected list; Perfetto nests complete
-("X") events by containment per (pid, tid) lane, so no parent tracking is
-needed. Export is the Chrome trace event format (`traceEvents` array).
+Full tracing is OFF unless MYTHRIL_GPU_TRACE names a path (or enable()
+is called). The flight recorder's ring (observe/flightrec.py) is on
+unless MYTHRIL_GPU_FLIGHTREC=0: every completed span also lands in a
+bounded deque, so a post-mortem dump has the recent timeline even when
+nothing was armed. With both off, span() returns ONE shared no-op
+object, so a disabled seam costs a global load, a truthiness check and
+an empty context manager. Completed spans append under one lock;
+Perfetto nests complete ("X") events by containment per (pid, tid) lane,
+so no parent tracking is needed. Export is the Chrome trace event format
+(`traceEvents` array).
 """
 
 import json
@@ -21,6 +25,7 @@ import logging
 import os
 import threading
 import time
+from collections import deque
 from functools import wraps
 from typing import Dict, List, Optional
 
@@ -88,8 +93,16 @@ class Tracer:
             inst._events = []
             inst._lock = threading.Lock()
             inst._pid = os.getpid()
+            # the flight recorder's bounded ring (0 capacity: no ring)
+            from mythril_tpu_torch.observe import flightrec
+
+            cap = flightrec.ring_capacity()
+            inst._ring = deque(maxlen=cap) if cap > 0 else None
             inst._anchor_perf = time.perf_counter()
             inst._anchor_wall_us = time.time() * 1e6
+            # THE hot-path flag span() reads: full tracing or the ring
+            # wants events
+            inst._active = inst._ring is not None
             cls._instance = inst
             path = os.environ.get(TRACE_ENV)
             if path:
@@ -103,13 +116,30 @@ class Tracer:
         self._anchor_perf = time.perf_counter()
         self._anchor_wall_us = time.time() * 1e6
         self.enabled = True
+        self._active = True
 
     def reset(self) -> None:
-        """Testing hook: drop collected events and disable tracing."""
+        """Drop collected events and the ring's, and disable full
+        tracing; the ring stays installed."""
         with self._lock:
             self._events = []
+            if self._ring is not None:
+                self._ring.clear()
         self.enabled = False
+        self._active = self._ring is not None
         self.path = None
+
+    def attach_ring(self, ring) -> None:
+        """Install (or replace) the flight recorder's span ring; None
+        detaches it and restores the pure no-op disabled path."""
+        with self._lock:
+            self._ring = ring
+        self._active = self.enabled or self._ring is not None
+
+    def ring_events(self) -> List[dict]:
+        """The ring's spans in completion order (oldest first)."""
+        with self._lock:
+            return list(self._ring) if self._ring is not None else []
 
     def _record(self, name, cat, ts_us, dur_us, attrs) -> None:
         event = {
@@ -124,6 +154,8 @@ class Tracer:
         if attrs:
             event["args"] = {k: _jsonable(v) for k, v in attrs.items()}
         with self._lock:
+            if self._ring is not None:
+                self._ring.append(event)
             if self.enabled:
                 self._events.append(event)
 
@@ -176,12 +208,13 @@ def get_tracer() -> Tracer:
 
 
 def span(name: str, cat: str = "stage", **attrs):
-    """A span context manager, or the shared no-op when tracing is off.
-    THE hot-path entry point: keep the inactive branch allocation-free."""
+    """A span context manager, or the shared no-op when neither full
+    tracing nor the flight recorder's ring wants events. THE hot-path
+    entry point: keep the inactive branch allocation-free."""
     tracer = Tracer._instance
     if tracer is None:
         tracer = Tracer()
-    if not tracer.enabled:
+    if not tracer._active:
         return NULL_SPAN
     return _Span(tracer, name, cat, attrs)
 

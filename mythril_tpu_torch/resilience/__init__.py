@@ -4,8 +4,9 @@ The part of mythril_tpu.resilience the port's solve path calls:
 
   breaker.py    the per-stage circuit breaker the router feeds with
                 zero-hit device time
-  here          resilience events (counted into SolverStatistics and
-                marked on the span timeline) and the session FUSES of the
+  here          resilience events (counted into SolverStatistics per site,
+                marked on the span timeline, handed to the flight
+                recorder) and the session FUSES of the
                 disable-for-session action: the incremental prefix resume
                 and the AIG session rewrite degrade ONE query to the full
                 pipeline on a fault, and repeated faults turn the stage
@@ -34,14 +35,19 @@ _fuses_blown: Dict[str, bool] = {}
 
 
 def record_event(site: str, event: str, count: int = 1) -> None:
-    """Count one resilience event (SolverStatistics) and mark it on the
-    span timeline as a zero-width tagged event."""
+    """Count one resilience event (SolverStatistics and the stats JSON
+    `resilience` section, per site) and mark it on the span timeline as a
+    zero-width tagged event. A flight-recorder trigger (breaker_trip)
+    then dumps the ring of recent spans, after the event itself entered
+    it, so the dump holds its own trigger."""
+    from mythril_tpu_torch.observe import flightrec
     from mythril_tpu_torch.observe.tracer import span as trace_span
     from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
 
-    SolverStatistics().add_resilience_event(event, count)
+    SolverStatistics().add_resilience_event(site, event, count)
     with trace_span("resilience." + event, cat="resilience", site=site):
         pass
+    flightrec.notify(site, event)
 
 
 def note_stage_failure(site: str, hard: bool = False) -> bool:

@@ -2,7 +2,10 @@
 
 The counters of mythril_tpu.smt.solver.statistics that the port's solve
 path touches, under the same names; the Pallas launch counters are named
-kernel_* here (one CUDA kernel launch per ragged round)."""
+kernel_* here (one CUDA kernel launch per ragged round). as_dict() is the
+stats JSON of core.MythrilAnalyzer (MYTHRIL_GPU_STATS_JSON), with the
+JAX package's sections: device, roofline, resilience, kernel_backend,
+trace_spans and the per-opcode interpreter wall."""
 
 
 class SolverStatistics:
@@ -181,6 +184,13 @@ class SolverStatistics:
                 setattr(cls._instance, name, 0)
             for name in cls._TIMERS:
                 setattr(cls._instance, name, 0.0)
+            # suffix-length histogram of prefix resumes, opcode ->
+            # [count, seconds] over the per-state interpreter, and fault
+            # site -> {event: count}: not scalars, so reset and as_dict
+            # handle them apart
+            cls._instance.prepare_suffix_hist = {}
+            cls._instance.interp_opcode_wall = {}
+            cls._instance.resilience_events = {}
         return cls._instance
 
     def _add(self, name: str, count=1) -> None:
@@ -331,12 +341,26 @@ class SolverStatistics:
         """Terms whose simplification the cross-query memo served."""
         self._add("prepare_incremental_hits", count)
 
+    @staticmethod
+    def _suffix_bucket(suffix_terms: int) -> str:
+        if suffix_terms <= 1:
+            return str(suffix_terms)
+        if suffix_terms <= 4:
+            return "2-4"
+        if suffix_terms <= 16:
+            return "5-16"
+        return "17+"
+
     def add_prefix_resume(self, suffix_terms: int) -> None:
         """One prepare resumed from a sibling query's prefix snapshot;
-        only `suffix_terms` new constraints ran the word-level pipeline."""
+        only `suffix_terms` new constraints ran the word-level pipeline
+        (bucketed in prepare_suffix_hist)."""
         if self.enabled:
             self.prepare_prefix_resumes += 1
             self.prepare_suffix_terms += suffix_terms
+            bucket = self._suffix_bucket(suffix_terms)
+            self.prepare_suffix_hist[bucket] = (
+                self.prepare_suffix_hist.get(bucket, 0) + 1)
 
     def add_prefix_fallback(self) -> None:
         """A prepare that found a prefix snapshot but had to re-run the
@@ -383,11 +407,17 @@ class SolverStatistics:
         """One ragged stream that carried fork-side feasibility cones."""
         self._add("fork_stream_dispatches", count)
 
-    def add_resilience_event(self, event: str, count: int = 1) -> None:
-        """One fault-containment event (resilience/)."""
-        counter = self._RESILIENCE_EVENT_COUNTERS.get(event)
-        if counter is not None:
-            self._add(counter, count)
+    def add_resilience_event(self, site: str, event: str,
+                             count: int = 1) -> None:
+        """One fault-containment event at `site` (resilience/): bumps the
+        matching resilience_* counter and the per-site breakdown behind
+        the stats JSON "resilience" section."""
+        if self.enabled:
+            counter = self._RESILIENCE_EVENT_COUNTERS.get(event)
+            if counter is not None:
+                setattr(self, counter, getattr(self, counter) + count)
+            per_site = self.resilience_events.setdefault(site, {})
+            per_site[event] = per_site.get(event, 0) + count
 
     def add_prepare_seconds(self, seconds: float) -> None:
         """Wall spent inside Solver._prepare (simplify + substitution +
@@ -483,6 +513,40 @@ class SolverStatistics:
         component of the wall split."""
         self._add("interp_wall", seconds)
 
+    def add_interp_opcode_wall(self, opcode: str, seconds: float) -> None:
+        """One per-state instruction execution (its handler's wall, solver
+        seconds inside it subtracted): the per-opcode histogram."""
+        if self.enabled:
+            record = self.interp_opcode_wall.get(opcode)
+            if record is None:
+                self.interp_opcode_wall[opcode] = [1, seconds]
+            else:
+                record[0] += 1
+                record[1] += seconds
+
+    def interp_opcode_wall_top(self, n: int = 10) -> dict:
+        """Top-`n` per-state opcodes by cumulative wall:
+        {opcode: [count, seconds]} (the frontier promotion shortlist)."""
+        ranked = sorted(self.interp_opcode_wall.items(),
+                        key=lambda item: item[1][1], reverse=True)
+        return {op: [count, round(seconds, 4)]
+                for op, (count, seconds) in ranked[:n]}
+
+    @property
+    def coalesce_occupancy(self) -> float:
+        """Mean queries per coalescing-window flush."""
+        if not self.window_flushes:
+            return 0.0
+        return self.coalesced_queries / self.window_flushes
+
+    @property
+    def device_occupancy(self) -> float:
+        """Mean fraction of device slots holding live queries (1.0 on the
+        ragged path: a stream pads no query axis)."""
+        if not self.device_slots:
+            return 0.0
+        return self.device_dispatched_queries / self.device_slots
+
     @staticmethod
     def device_stats() -> dict:
         """Per-stage counters of the router's device backend (pack, ship,
@@ -493,26 +557,135 @@ class SolverStatistics:
             return {}
         return router._router.backend.stats()
 
-    def __repr__(self):
-        return (f"Solver statistics: query count: {self.query_count}, "
-                f"solver time: {self.solver_time:.3f}, batched queries: "
-                f"{self.batch_query_count}, device queries: "
-                f"{self.device_batch_queries} (hits: "
-                f"{self.device_batch_hits}), kernel launches: "
-                f"{self.kernel_launches}, cdcl settles: {self.cdcl_settles}"
-                f", prepare: {self.prepare_wall:.2f}s, interp: "
-                f"{self.interp_wall:.2f}s")
-
     def reset(self) -> None:
         for name in self._COUNTERS:
             setattr(self, name, 0)
         for name in self._TIMERS:
             setattr(self, name, 0.0)
+        self.prepare_suffix_hist = {}
+        self.interp_opcode_wall = {}
+        self.resilience_events = {}
 
     def as_dict(self) -> dict:
+        """Plain-data snapshot: the MYTHRIL_GPU_STATS_JSON artifact."""
         out = {name: getattr(self, name) for name in self._COUNTERS}
         out.update(
             {name: round(getattr(self, name), 4) for name in self._TIMERS})
+        out["device_occupancy"] = round(self.device_occupancy, 4)
+        out["coalesce_occupancy"] = round(self.coalesce_occupancy, 4)
         out["frontier_batch_occupancy"] = round(
             self.frontier_batch_occupancy, 4)
+        out["prepare_suffix_hist"] = dict(self.prepare_suffix_hist)
+        out["interp_opcode_wall"] = {
+            op: [count, round(seconds, 4)]
+            for op, (count, seconds) in self.interp_opcode_wall.items()}
+        out["interp_opcode_wall_top"] = self.interp_opcode_wall_top()
+        device = self.device_stats()
+        out["device"] = device
+        # per-stage attained vs attainable and the reconciled solver-wall
+        # decomposition (observe/roofline.py)
+        from mythril_tpu_torch.observe import roofline
+
+        out["roofline"] = roofline.build(self)
+        # the sites that recorded an event this run; no fault harness is
+        # ported, so nothing is ever armed
+        out["resilience"] = {
+            "sites": {site: dict(events) for site, events
+                      in self.resilience_events.items()},
+            "faults_active": None,
+        }
+        # which K1 produced the device figures: "cuda" for the kernel,
+        # "plain" for its plain version on a CPU device, "none" when no
+        # router ran in this process
+        out["kernel_backend"] = device.get("kernel_backend", "none")
+        from mythril_tpu_torch.observe.tracer import Tracer
+
+        tracer = Tracer._instance
+        out["trace_spans"] = (
+            tracer.summary() if tracer is not None and tracer.enabled
+            else {})
+        return out
+
+    def __repr__(self):
+        out = (f"Solver statistics: query count: {self.query_count}, "
+               f"solver time: {self.solver_time:.3f}")
+        if self.batch_query_count:
+            out += (f", batched queries: {self.batch_query_count}"
+                    f", device-eligible: {self.device_batch_queries}"
+                    f" (hits: {self.device_batch_hits})"
+                    f", device-ineligible: {self.device_ineligible}")
+        if self.device_dispatches:
+            out += (f", device dispatches: {self.device_dispatches}"
+                    f" (occupancy {self.device_occupancy:.2f},"
+                    f" {self.route_device_seconds:.2f}s device"
+                    f"/{self.route_host_seconds:.2f}s host settle)")
+        if self.router_host_direct or self.cap_rejects:
+            out += (f", routed host-direct: {self.router_host_direct}"
+                    f", cap-rejects: {self.cap_rejects}")
+        if self.memory_hits or self.quick_sat_hits:
+            out += (f", cache tiers: memory {self.memory_hits}"
+                    f"/quick-sat {self.quick_sat_hits}")
+        if self.window_flushes:
+            out += (f", coalesce windows: {self.window_flushes}"
+                    f" flushes ({self.coalesced_queries} queries,"
+                    f" occupancy {self.coalesce_occupancy:.2f})")
+        if self.cdcl_settles:
+            out += (f", cdcl settles: {self.cdcl_settles}"
+                    f" ({self.cdcl_clauses} clauses,"
+                    f" {self.settle_wall:.2f}s wall)")
+        if self.modules_gated or self.queries_avoided \
+                or self.cnf_units_propagated or self.cnf_pure_literals \
+                or self.cnf_components_split:
+            out += (f", preanalysis: {self.modules_gated} modules gated"
+                    f"/{self.queries_avoided} queries avoided"
+                    f"/{self.cnf_units_propagated} units"
+                    f"+{self.cnf_pure_literals} pures propagated"
+                    f" ({self.cnf_clauses_removed} clauses removed,"
+                    f" {self.cnf_components_split} components split)")
+        if self.prepare_wall or self.prepare_prefix_resumes \
+                or self.prepare_incremental_hits:
+            out += (f", prepare: {self.prepare_wall:.2f}s wall"
+                    f" ({self.prepare_incremental_hits} simplify hits,"
+                    f" {self.prepare_prefix_resumes} prefix resumes"
+                    f"/{self.prepare_prefix_fallbacks} fallbacks,"
+                    f" {self.prepare_suffix_terms} suffix terms,"
+                    f" {self.strash_xquery_merges} cross-query strash)")
+        if self.frontier_vmap_steps or self.interp_wall:
+            out += (f", frontier: {self.frontier_vmap_steps} vmap steps"
+                    f" ({self.frontier_states_stepped} states,"
+                    f" {self.frontier_symlane_rows} symlane rows,"
+                    f" {self.frontier_fallback_exits} fallback exits,"
+                    f" occupancy {self.frontier_batch_occupancy:.2f}),"
+                    f" interp {self.interp_wall:.2f}s wall")
+        if self.aig_nodes_before:
+            out += (f", aig opt: {self.aig_nodes_before}"
+                    f"->{self.aig_nodes_after} nodes"
+                    f" ({self.aig_strash_merges} strash merges,"
+                    f" {self.aig_const_folds} const folds,"
+                    f" {self.aig_trivial_unsat} trivially unsat,"
+                    f" {self.aig_components} components"
+                    f"/{self.aig_device_components} on device)")
+        if self.ragged_windows:
+            out += (f", ragged: {self.ragged_windows} windows"
+                    f" ({self.ragged_cones_packed} cones,"
+                    f" {self.paged_stream_bytes} stream bytes,"
+                    f" {self.cubes_dispatched} cubes"
+                    f"/{self.cube_device_refutes} device refutes,"
+                    f" {self.kernel_launches} kernel launches)")
+        if self.resilience_events:
+            out += (f", resilience: {self.resilience_degraded} degraded"
+                    f"/{self.resilience_breaker_trips} breaker trips"
+                    f"/{self.resilience_breaker_probes} probes"
+                    f"/{self.resilience_stale_lock_breaks} stale lock"
+                    f" breaks")
+        if self.crosscheck_runs or self.crosscheck_cap_skips:
+            out += (f", unsat crosschecks: {self.crosscheck_runs}"
+                    f" (+{self.crosscheck_cap_skips} cap-skipped)")
+        device = self.device_stats()
+        if device:
+            out += (f", device pack/ship/solve: {device['pack_seconds']}"
+                    f"/{device['ship_seconds']}/{device['solve_seconds']} s"
+                    f" (pack cache {device['pack_hits']} hits"
+                    f"/{device['pack_misses']} misses,"
+                    f" {device['cap_rejects']} cap-rejects)")
         return out

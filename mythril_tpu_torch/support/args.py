@@ -37,6 +37,8 @@ class _Args:
         self.transaction_sequences = None      # e.g. "[[0xa9059cbb],[-1]]"
         self.trace = None                      # --trace PATH (span tracer
         #   Perfetto export; MYTHRIL_GPU_TRACE is the env equivalent)
+        self.heartbeat = None                  # --heartbeat PATH (live
+        #   metrics JSONL; MYTHRIL_GPU_HEARTBEAT is the env equivalent)
 
     def reset(self):
         self.__init__()

@@ -26,6 +26,10 @@ def test_the_port_has_sources():
     assert "chip_smoke.py" in names
     assert os.path.join("mythril_tpu_torch", "csrc",
                         "ragged_round.cu") in names
+    for module in ("flightrec", "metrics", "roofline", "stats_keys",
+                   "tracer"):
+        assert os.path.join("mythril_tpu_torch", "observe",
+                            module + ".py") in names
     assert len(names) > 20
 
 

@@ -1,0 +1,122 @@
+"""The port's stats-key lint (python -m mythril_tpu_torch.observe.stats_keys)
+and the stats JSON held against the JAX package's: the same key set less
+the surfaces not ported yet, each named with its ROADMAP item, and the
+same per-opcode counts and suffix histogram on one contract."""
+
+import pytest
+
+from mythril_tpu.smt.solver.statistics import (
+    SolverStatistics as ReferenceStatistics,
+)
+from mythril_tpu_torch.observe import stats_keys
+from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
+from tests.test_analysis import KILLBILLY, wrap_creation
+from tests.torch_helpers import run_analyze
+
+# keys of the JAX package's stats JSON whose surface the port has not
+# ported yet, with the ROADMAP.md §1 item that brings each
+NOT_PORTED = {
+    # 5: resilience registry, fault harness, deadline runner, disk tier
+    "persistent_hits": 5, "persistent_misses": 5, "persistent_stores": 5,
+    "persistent_verify_rejects": 5, "resilience_retries": 5,
+    "resilience_quarantines": 5, "resilience_deadline_trips": 5,
+    "resilience_faults_injected": 5,
+    # 6: the bucketed batch path and its evidence slot cap
+    "router_slot_overflow": 6,
+    # 7: K2 and the kernel knob, whose per-shape compiles this counts
+    "kernel_recompiles": 7,
+    # 8: corpus runs (--jobs workers, --corpus-interleave)
+    "resilience_worker_requeues": 8, "xcontract_windows": 8,
+    "xcontract_cones_packed": 8, "xcontract_dedup_hits": 8,
+    # 9: serve and fleet
+    "serve_requests_admitted": 9, "serve_requests_rejected": 9,
+    "serve_requests_requeued": 9, "serve_requests_incomplete": 9,
+    "serve_requests_completed": 9, "serve_batches": 9,
+    "serve_batch_requests": 9, "serve_batch_tenants": 9,
+    "serve_admission_wall": 9, "serve_drain_wall": 9,
+    "serve_tenant_window_share": 9, "fleet_shard_routes": 9,
+    "fleet_requeues": 9, "fleet_shard_restarts": 9, "net_tier_hits": 9,
+    "net_tier_stores": 9, "net_tier_verify_rejects": 9,
+    # 10: autotune and the resolved knob stamp
+    "autotune_candidates_tried": 10, "autotune_rejected_parity": 10,
+    "autotune_rejected_regression": 10, "tuned_knobs_applied": 10,
+    "tuned_profile_rejects": 10, "knobs": 10,
+}
+# the Pallas round's counters under the port's names (K1 is a CUDA kernel)
+RENAMED = {"pallas_launches": "kernel_launches",
+           "pallas_cells_stepped": "kernel_cells_stepped"}
+# the port's own counters: what K1 itself solved, how the router found a
+# model, and cnf_prep's propagation rounds
+PORT_ONLY = {"aig_device_component_hits", "aig_host_components",
+             "router_device_found", "router_host_settled",
+             "router_trivial_settled", "cnf_prep_rounds"}
+
+
+@pytest.fixture(autouse=True)
+def fresh_stats(monkeypatch):
+    monkeypatch.setenv("MYTHRIL_GPU_CALIBRATE", "0")
+    for stats in (SolverStatistics(), ReferenceStatistics()):
+        stats.reset()
+    yield
+    for stats in (SolverStatistics(), ReferenceStatistics()):
+        stats.reset()
+
+
+def test_port_lint_exits_zero(capsys):
+    rc = stats_keys.main()
+    captured = capsys.readouterr()
+    assert rc == 0, f"unemitted statistics counters:\n{captured.err}"
+    assert captured.out.startswith("ok: ")
+
+
+def test_lint_detects_a_counter_missing_from_as_dict(monkeypatch, capsys):
+    """The lint fails when as_dict() drops a counter (it does not match
+    vacuously)."""
+    as_dict = SolverStatistics.as_dict
+
+    def without_a_counter(self):
+        out = as_dict(self)
+        del out["cdcl_settles"]
+        return out
+
+    monkeypatch.setattr(SolverStatistics, "as_dict", without_a_counter)
+    assert stats_keys.main() == 1
+    assert "cdcl_settles" in capsys.readouterr().err
+
+
+def test_lint_detects_a_roofline_stage_mismatch(monkeypatch):
+    from mythril_tpu_torch.observe import roofline
+
+    monkeypatch.setattr(roofline, "STAGES", roofline.STAGES + ("ship2",))
+    failures = stats_keys.violations()
+    assert any("roofline stages" in failure for failure in failures)
+
+
+def test_as_dict_keys_equal_the_reference_less_unported():
+    reference = set(ReferenceStatistics().as_dict())
+    port = set(SolverStatistics().as_dict())
+    assert set(NOT_PORTED) <= reference
+    assert set(NOT_PORTED) | set(RENAMED) <= reference - port
+    expected = ((reference - set(NOT_PORTED) - set(RENAMED))
+                | set(RENAMED.values()) | PORT_ONLY)
+    assert port == expected, (
+        f"port only: {sorted(port - expected)}; "
+        f"missing: {sorted(expected - port)}")
+
+
+def test_opcode_wall_and_suffix_hist_equal_the_reference():
+    """KILLBILLY at -t 2 on the host backend, both packages' frontiers on:
+    the per-state interpreter runs the same opcodes (counts, not seconds)
+    and the prefix resumes the same suffix sizes."""
+    code = wrap_creation(KILLBILLY)
+    seen = {}
+    for package, stats in (("mythril_tpu", ReferenceStatistics()),
+                           ("mythril_tpu_torch", SolverStatistics())):
+        stats.reset()
+        run_analyze(package, code, 2, "cpu", 60, pruning_factor=1)
+        seen[package] = (
+            {op: count for op, (count, _s)
+             in stats.interp_opcode_wall.items()},
+            dict(stats.prepare_suffix_hist))
+    assert seen["mythril_tpu"][0], "no opcode ran on the per-state path"
+    assert seen["mythril_tpu_torch"] == seen["mythril_tpu"]

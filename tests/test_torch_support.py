@@ -31,11 +31,16 @@ def test_env_precedence_env_over_cli_over_default(monkeypatch):
 
 
 def test_tracer_is_a_shared_noop_until_enabled(tmp_path):
+    """With the flight recorder's ring detached (MYTHRIL_GPU_FLIGHTREC=0),
+    span() is the shared no-op until tracing is enabled, and again after
+    a reset."""
     trace = tracer.get_tracer()
     trace.reset()
-    assert tracer.span("x") is tracer.NULL_SPAN
-    trace.enable(str(tmp_path / "trace.json"))
+    ring = trace._ring
+    trace.attach_ring(None)
     try:
+        assert tracer.span("x") is tracer.NULL_SPAN
+        trace.enable(str(tmp_path / "trace.json"))
         with tracer.span("device.kernel", cat="device", cones=3) as sp:
             sp.set(rounds=2)
         assert trace.summary()["device.kernel"][0] == 1
@@ -43,9 +48,11 @@ def test_tracer_is_a_shared_noop_until_enabled(tmp_path):
         events = json.load(open(path))["traceEvents"]
         kernel = [e for e in events if e["name"] == "device.kernel"]
         assert kernel[0]["args"] == {"cones": 3, "rounds": 2}
+        trace.reset()
+        assert tracer.span("x") is tracer.NULL_SPAN
     finally:
         trace.reset()
-    assert tracer.span("x") is tracer.NULL_SPAN
+        trace.attach_ring(ring)
 
 
 def test_solver_seam_sends_a_probe_miss_to_the_device(monkeypatch):

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --fork-prep    # env, build and the fork-prep runs
     python3 chip_smoke.py --frontier-only  # env, build and the frontier phase
     python3 chip_smoke.py --telemetry-overhead  # env, build, the overhead legs twice
+    python3 chip_smoke.py --resilience-only  # env, build, the resilience phase
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
@@ -132,7 +133,38 @@ line):
           Prometheus file, the stats JSON), full tracing off, in the
           order off, on, on, off: the four walls of each, and the CPU
           seconds spent inside the telemetry's own calls (a span
-          recorded, a beat, the stats JSON) in each leg.
+          recorded, a beat, the stats JSON) in each leg;
+  resilience  fault containment and the disk tier on the device backend,
+          through the fault-injection harness: (1) KILLBILLY (-t 2)
+          through the port's CLI in a subprocess with
+          --inject-fault device.dispatch:hang:n1, MYTHRIL_GPU_DEVICE_DEADLINE
+          and MYTHRIL_GPU_STAGE_GRACE at 2 s: it must exit 2 within the
+          deadline, the grace and 30 s while the abandoned call still
+          sleeps, with a stats JSON of completed false, a deadline event
+          at device.dispatch and one injected fault, and a flight-recorder
+          dump whose trigger is the deadline; (2) device.dispatch:raise:n1
+          and, with the cuda step, frontier.step:raise:n1: exit 2 with the
+          injected fault as the DeviceFault's cause and its event; (3) in
+          process, KILLBILLY on the disk tier with no fault, then under
+          each of HOST_FAULTS: the run completes with the no-fault run's
+          findings (issue granularity) and the site's events, and K1
+          launches (except under aig.session:raise:*, whose un-rewritten
+          cones exceed K1's variable space; its n1 run launches), and K1
+          is held bit for bit against its plain version on each run's
+          largest stream (a fault changes the cones K1 is sent); the
+          clean run records no deadline and prints the deadline runner's
+          cost (the stats JSON's deadline_runner_calls and
+          deadline_handoff_wall, which the runner counts itself); (4)
+          xc_dispatch_a.hex (-t 1) three times in new processes on one
+          --solve-cache disk directory: the first stores entries (K1
+          launched), the second hits them with no verify reject, the third
+          (disk.entry:corrupt:*) quarantines, both with the first's
+          findings. Each run prints its wall and K1's and K6's launches
+          (the stats JSON's kernel_launches and frontier_vmap_steps for
+          the CLI runs), beside the card's nvidia-smi line. Every check of
+          the analyze phase's telemetry also fails a clean run that
+          recorded a deadline, and the analyze phase prints the runner's
+          cost summed over the five compared contracts' dispatches.
 --telemetry-overhead runs the overhead legs alone, twice over (eight legs
 a contract).
 
@@ -167,6 +199,7 @@ JSON line goes to chiprun_out/chip_smoke.jsonl.
 """
 
 import contextlib
+import glob
 import json
 import logging
 import os
@@ -1507,6 +1540,8 @@ def _check_telemetry(device, name, paths, record, ring, events, dump):
     if stats["kernel_launches"] != solve_launches:
         failures.append(f"kernel_launches {stats['kernel_launches']} "
                         f"against the smoke's {solve_launches}")
+    if stats["resilience_deadline_trips"]:
+        failures.append("a clean run tripped the dispatch deadline")
     if stats["frontier_vmap_steps"] != record["k6_launches"]:
         failures.append(f"frontier_vmap_steps "
                         f"{stats['frontier_vmap_steps']} against K6's "
@@ -1566,7 +1601,8 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
                   telemetry=None):
     """One in-process analyze from fresh solve state, counted: (report,
     completed, record). `largest` keeps the largest stream (by gates) the
-    backend assembles, `batches` the largest frontier batch K6 steps;
+    backend assembles (the calibration's own stream does not pass
+    there), `batches` the largest frontier batch K6 steps;
     `frontier_backend` pins the frontier's step (None: auto, which is the
     host step for solver_backend "cpu" and K6 for "gpu"); `engine` adds
     CLI options (e.g. {"no_frontier_fork": True}); `telemetry` names the
@@ -1688,6 +1724,9 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
         "aig_device_component_hits": counters["aig_device_component_hits"],
         "aig_host_components": counters["aig_host_components"],
         "cap_rejects": counters["cap_rejects"],
+        # the dispatches the deadline runner guarded, and its hand-offs
+        "runner_calls": counters["deadline_runner_calls"],
+        "runner_handoff_s": counters["deadline_handoff_wall"],
         "cdcl_settles": counters["cdcl_settles"],
         "single_queries": counters["query_count"],
         # {span: [count, seconds]}; spans nest, so they do not sum
@@ -1706,10 +1745,12 @@ def _analyze_contract(device, name, code, tx_count, timeout, compared,
     """One contract on both backends, and for CUDA_HOST_RUNS once more on
     the host CDCL with K6 stepping the frontier (see the module note).
     Returns the device backend's (device_batch_hits,
-    aig_device_component_hits, K6 launches) and the K6 launches of the
-    host-CDCL run."""
+    aig_device_component_hits, K6 launches), the K6 launches of the
+    host-CDCL run, and the device backend's deadline-runner (calls,
+    hand-off seconds)."""
     keys, completed, reports, frontier = {}, {}, {}, {}
     hits = k1_hits = k6_launches = host_k6_launches = 0
+    runner = (0, 0.0)
     legs = [("cpu", None), ("gpu", None)]
     if name in CUDA_HOST_RUNS:
         legs.append(("cpu", "cuda"))
@@ -1729,6 +1770,7 @@ def _analyze_contract(device, name, code, tx_count, timeout, compared,
             hits = record["device_batch_hits"]
             k1_hits = record["aig_device_component_hits"]
             k6_launches = record["k6_launches"]
+            runner = (record["runner_calls"], record["runner_handoff_s"])
         elif frontier_backend == "cuda":
             host_k6_launches = record["k6_launches"]
         emit({"phase": "analyze", "contract": name, "tx": tx_count,
@@ -1756,12 +1798,13 @@ def _analyze_contract(device, name, code, tx_count, timeout, compared,
         if host_k6_launches <= 0:
             raise AssertionError(f"analyze: {name}: K6 was never launched "
                                  f"on the host-CDCL run")
-    return hits, k1_hits, k6_launches, host_k6_launches
+    return hits, k1_hits, k6_launches, host_k6_launches, runner
 
 
-def _hold_stream(device, stream, window, counts):
+def _hold_stream(device, stream, window, counts, timed=True):
     """K1 bit for bit against its plain version on `stream`, and both timed
-    there; launches made here are not counted. Emits one record."""
+    there unless `timed` is false; launches made here are not counted.
+    Emits one record."""
     import torch
 
     from mythril_tpu_torch.gpu import circuit, ragged_kernel
@@ -1778,10 +1821,12 @@ def _hold_stream(device, stream, window, counts):
     x = circuit.init_inputs(gen, lanes, caps.var_cap, device)
     steps, walk_depth = backend.CIRCUIT_STEPS, _walk_depth(stream)
     err = _compare(flat, x, 23, steps, walk_depth, caps)
-    ms = _time_ms(lambda: ragged_kernel.run_round_ragged_kernel(
-        flat, x, 23, steps, walk_depth, caps), repeats=5)
-    plain_ms = _time_ms(lambda: ragged_kernel.run_round_ragged_plain(
-        flat, x, 23, steps, walk_depth, caps), repeats=1)
+    ms = plain_ms = None
+    if timed:
+        ms = _time_ms(lambda: ragged_kernel.run_round_ragged_kernel(
+            flat, x, 23, steps, walk_depth, caps), repeats=5)
+        plain_ms = _time_ms(lambda: ragged_kernel.run_round_ragged_plain(
+            flat, x, 23, steps, walk_depth, caps), repeats=1)
     ragged_kernel.launches = launches
     bound_ms, bound_by, moved, ops = _bound(flat, stream.v1, lanes, steps,
                                             caps)
@@ -1849,17 +1894,23 @@ def phase_analyze(device):
     hits = k1_hits = k6_launches = host_k6_launches = 0
     ragged_kernel.reset_launches()  # the compared runs' count starts here
     steps = []
+    runner_calls, runner_s = 0, 0.0
     for name, code, tx_count, timeout, compared in inputs:
         if compared:
             if name == IDLE_CONTRACT:
                 batches["every"] = steps
-            found = _analyze_contract(device, name, code, tx_count, timeout,
-                                      True, largest, batches)
+            found = _analyze_contract(device, name, code, tx_count,
+                                      timeout, True, largest, batches)
             batches.pop("every", None)
             hits, k1_hits = hits + found[0], k1_hits + found[1]
             k6_launches += found[2]
             host_k6_launches += found[3]
+            runner_calls += found[4][0]
+            runner_s += found[4][1]
     launches = ragged_kernel.launches  # ... and ends here
+    # the deadline runner's cost over every guarded dispatch of the five
+    emit({"phase": "analyze", "runner_calls": runner_calls,
+          "runner_handoff_s": runner_s})
     if launches <= 0:
         raise AssertionError("analyze: K1 was never launched")
     if hits <= 0:
@@ -2011,6 +2062,279 @@ def phase_telemetry_overhead(device, rounds=1):
               "telemetry_cpu_off_s": inside["off"]})
 
 
+# -- resilience: fault containment and the disk tier on the card ------------
+
+# the hang case's knobs: the dispatch budget and the grace past it
+HANG_DEADLINE_S = 2
+HANG_GRACE_S = 2
+HANG_SLACK_S = 30   # process start, CUDA set-up, exploration to the hang
+RESILIENCE_TIMEOUT = 600  # s per CLI run of the phase
+DISK_CONTRACT = "xc_dispatch_a.hex"
+# host sites on the device backend (KILLBILLY -t 2): spec, the site's
+# events that must be counted, and whether K1 must launch in the run.
+# Under aig.session:raise:* every cone stays un-rewritten, and the
+# un-rewritten cones exceed K1's variable space: they are cap rejects
+# settled on the host, so the n1 run holds the site to K1 instead.
+HOST_FAULTS = (
+    ("scheduler.flush:raise:n1", ("injected", "retry"), True),
+    ("prepare.incremental:raise:*", ("injected", "degraded"), True),
+    ("aig.session:raise:*", ("injected", "degraded"), False),
+    ("aig.session:raise:n1", ("injected", "degraded"), True),
+    ("preanalysis.summary:raise:n1", ("injected", "degraded"), True),
+    ("store.lock:raise:n1", ("injected", "degraded"), True),
+    ("disk.write:raise:n1", ("injected", "retry"), True),
+)
+
+
+def _cli_analyze(device, folder, name, code_path, tx_count, extra=(),
+                 env=None, timeout=RESILIENCE_TIMEOUT):
+    """One `python -m mythril_tpu_torch analyze` in its own process on the
+    device backend, fork pruning on, its stats JSON and flight-recorder
+    dumps under `folder`/`name`: a dict of the exit code, the wall, the
+    stats JSON, the findings (issue keys; None unless it exited 0 or 1)
+    and the end of stderr."""
+    run_dir = os.path.join(folder, name)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    stats_path = os.path.join(run_dir, "stats.json")
+    argv = [sys.executable, "-m", "mythril_tpu_torch", "analyze",
+            "-f", code_path, "-t", str(tx_count), "-o", "json",
+            "--pruning-factor", "1", "--execution-timeout",
+            str(ANALYZE_TIMEOUT), *extra]
+    if device.type != "cuda":
+        argv += ["--torch-device", "cpu"]
+    start = time.monotonic()
+    done = subprocess.run(
+        argv, capture_output=True, text=True, timeout=timeout,
+        env={**os.environ, "MYTHRIL_GPU_STATS_JSON": stats_path,
+             "MYTHRIL_GPU_FLIGHTREC_DIR": os.path.join(run_dir, "flightrec"),
+             **(env or {})})
+    wall = time.monotonic() - start
+    stats = {}
+    if os.path.exists(stats_path):
+        with open(stats_path) as fd:
+            stats = json.load(fd)
+    findings = None
+    if done.returncode in (0, 1):
+        issues = json.loads(done.stdout.strip().splitlines()[-1])["issues"]
+        findings = sorted([i["swc-id"], i["function"], i["address"],
+                           i["title"]] for i in issues)
+    dumps = []
+    for path in sorted(glob.glob(os.path.join(run_dir, "flightrec",
+                                              "*.json"))):
+        with open(path) as fd:
+            dumps.append(json.load(fd)["trigger"])
+    return {"rc": done.returncode, "wall_s": wall, "stats": stats,
+            "findings": findings, "dumps": dumps,
+            "stderr": done.stderr[-1500:]}
+
+
+def _site_events(stats, site):
+    return stats.get("resilience", {}).get("sites", {}).get(site, {})
+
+
+def _cli_record(case, run):
+    stats = run["stats"]
+    return {"phase": "resilience", "case": case, "rc": run["rc"],
+            "wall_s": round(run["wall_s"], 3),
+            "k1_launches": stats.get("kernel_launches"),
+            "k6_launches": stats.get("frontier_vmap_steps"),
+            "completed": stats.get("completed"),
+            "resilience": {site: events for site, events in stats.get(
+                "resilience", {}).get("sites", {}).items() if events},
+            "persistent": {key: stats.get(key) for key in (
+                "persistent_hits", "persistent_misses",
+                "persistent_stores", "persistent_verify_rejects")},
+            "dumps": run["dumps"], "findings": run["findings"]}
+
+
+def _host_fault_run(device, code, spec, cache_dir, largest):
+    """KILLBILLY -t 2 in process on the device backend with `spec` armed
+    (None: no fault) and the disk tier on a fresh `cache_dir`: the
+    analyze record and the stats JSON's counters (its resilience section
+    among them). `largest` keeps the largest stream K1 was sent."""
+    from mythril_tpu_torch.resilience import faults
+    from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
+
+    saved = os.environ.get("MYTHRIL_GPU_CACHE_DIR")
+    os.environ["MYTHRIL_GPU_CACHE_DIR"] = cache_dir
+    try:
+        _report, completed, record = _analyze_once(
+            device, code, 2, ANALYZE_TIMEOUT, "gpu", largest,
+            engine={"inject_fault": spec, "solve_cache": "disk"})
+        counters = SolverStatistics().as_dict()
+    finally:
+        faults.configure(None)
+        if saved is None:
+            os.environ.pop("MYTHRIL_GPU_CACHE_DIR", None)
+        else:
+            os.environ["MYTHRIL_GPU_CACHE_DIR"] = saved
+    if not completed:
+        raise AssertionError(f"resilience: {spec}: the run did not complete")
+    return record, counters
+
+
+def phase_resilience(device):
+    """Fault containment and the disk tier on the card (see the module
+    note). Returns K1's launches over the host-site runs."""
+    folder = os.path.join(OUT_DIR, "resilience")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    killbilly = os.path.join(folder, "killbilly.hex")
+    with open(killbilly, "w") as fd:
+        fd.write(_killbilly_creation())
+    smi = nvidia_smi_line()
+    failures = []
+
+    # 1. a dispatch that never returns: abandoned at budget plus grace
+    hang = _cli_analyze(
+        device, folder, "hang", killbilly, 2,
+        extra=("--inject-fault", "device.dispatch:hang:n1"),
+        env={"MYTHRIL_GPU_DEVICE_DEADLINE": str(HANG_DEADLINE_S),
+             "MYTHRIL_GPU_STAGE_GRACE": str(HANG_GRACE_S)},
+        timeout=HANG_DEADLINE_S + HANG_GRACE_S + HANG_SLACK_S + 60)
+    emit({**_cli_record("device.dispatch:hang:n1", hang),
+          "bound_s": HANG_DEADLINE_S + HANG_GRACE_S + HANG_SLACK_S,
+          "nvidia_smi": smi})
+    events = _site_events(hang["stats"], "device.dispatch")
+    if hang["rc"] != 2 or "hard deadline" not in hang["stderr"]:
+        failures.append(f"hang: exit {hang['rc']}: {hang['stderr'][-300:]}")
+    if hang["wall_s"] > HANG_DEADLINE_S + HANG_GRACE_S + HANG_SLACK_S:
+        failures.append(f"hang: {hang['wall_s']:.1f} s past the bound")
+    if hang["stats"].get("completed") is not False \
+            or events.get("deadline", 0) < 1 \
+            or hang["stats"].get("resilience_deadline_trips", 0) < 1 \
+            or hang["stats"].get("resilience_faults_injected") != 1:
+        failures.append(f"hang: stats JSON {events}")
+    if {"site": "device.dispatch", "event": "deadline"} not in hang["dumps"]:
+        failures.append(f"hang: no deadline dump in {hang['dumps']}")
+
+    # 2. device sites raising: a DeviceFault and exit 2
+    for spec, env in (("device.dispatch:raise:n1", {}),
+                      ("frontier.step:raise:n1",
+                       {"MYTHRIL_GPU_FRONTIER_BACKEND": "cuda"})):
+        site = spec.split(":")[0]
+        if device.type != "cuda" and site == "frontier.step":
+            emit({"phase": "resilience", "case": spec,
+                  "skipped": "the cuda step needs a card"})
+            continue
+        run = _cli_analyze(device, folder, site, killbilly, 2,
+                           extra=("--inject-fault", spec), env=env)
+        emit(_cli_record(spec, run))
+        if run["rc"] != 2 or f"injected fault at {site}" not in run["stderr"]:
+            failures.append(f"{spec}: exit {run['rc']}: "
+                            f"{run['stderr'][-300:]}")
+        if _site_events(run["stats"], site).get("injected") != 1 \
+                or run["stats"].get("completed") is not False:
+            failures.append(f"{spec}: stats JSON "
+                            f"{_site_events(run['stats'], site)}")
+
+    # 3. host sites on the device backend, in process: findings as the
+    # no-fault run's, the event counted, K1 launched
+    from mythril_tpu_torch.gpu import ragged_kernel
+
+    code = _killbilly_creation()
+    # the largest stream K1 was sent in each run, held after the runs, and
+    # the cases that must have one
+    streams, launched = {"no fault": {}}, {"no fault"}
+    base, base_counters = _host_fault_run(
+        device, code, None, os.path.join(folder, "cache-base"),
+        streams["no fault"])
+    emit({"phase": "resilience", "case": "no fault (in process)",
+          "wall_s": round(base["wall_s"], 3),
+          "k1_launches": base["kernel_launches"],
+          "k1_calibration_launches": base["calibration_launches"],
+          "k6_launches": base["k6_launches"],
+          "deadline_trips": base_counters["resilience_deadline_trips"],
+          "runner_calls": base_counters["deadline_runner_calls"],
+          "runner_handoff_s": base_counters["deadline_handoff_wall"],
+          "findings": base["findings"], "nvidia_smi": smi})
+    if base_counters["resilience_deadline_trips"]:
+        failures.append("a clean run recorded a deadline")
+    if not base_counters["deadline_runner_calls"]:
+        failures.append("no dispatch went through the deadline runner")
+    ragged_kernel.reset_launches()  # the host-site runs' count starts here
+    for index, (spec, expected, k1_must_launch) in enumerate(HOST_FAULTS):
+        site = spec.split(":")[0]
+        streams[spec] = {}
+        if k1_must_launch:
+            launched.add(spec)
+        record, counters = _host_fault_run(
+            device, code, spec, os.path.join(folder, f"cache-{index}"),
+            streams[spec])
+        events = counters["resilience"]["sites"][site]
+        solve_launches = (record["kernel_launches"]
+                          - record["calibration_launches"])
+        emit({"phase": "resilience", "case": spec,
+              "wall_s": round(record["wall_s"], 3),
+              "k1_launches": record["kernel_launches"],
+              "k1_calibration_launches": record["calibration_launches"],
+              "k6_launches": record["k6_launches"],
+              "cap_rejects": record["cap_rejects"],
+              "runner_calls": counters["deadline_runner_calls"],
+              "runner_handoff_s": counters["deadline_handoff_wall"],
+              "events": events, "findings": record["findings"]})
+        if record["findings"] != base["findings"]:
+            failures.append(f"{spec}: findings {record['findings']}")
+        if any(events.get(event, 0) < 1 for event in expected):
+            failures.append(f"{spec}: events {events}")
+        if k1_must_launch and solve_launches <= 0:
+            failures.append(f"{spec}: K1 did not launch")
+    host_launches = ragged_kernel.launches  # ... and ends here
+    # K1 bit for bit on each run's largest stream: under a host-site
+    # fault the cones K1 is sent differ (un-rewritten, not incremental)
+    host_err = 0
+    for spec, largest in streams.items():
+        if "stream" not in largest:
+            if spec in launched:
+                failures.append(f"{spec}: K1 was sent no stream")
+            continue
+        host_err = max(host_err, _hold_stream(
+            device, largest["stream"], f"resilience-stream ({spec})",
+            {"case": spec}, timed=False)["max_abs_err"])
+
+    # 4. the disk tier across processes: fill, hit, corrupted
+    code_path = os.path.join("bench_inputs", "corpus", DISK_CONTRACT)
+    disk_env = {"MYTHRIL_GPU_CACHE_DIR": os.path.join(folder, "disk-cache")}
+    disk = {}
+    for leg, extra in (("fill", ()), ("hit", ()),
+                       ("corrupt", ("--inject-fault",
+                                    "disk.entry:corrupt:*"))):
+        disk[leg] = _cli_analyze(device, folder, f"disk-{leg}", code_path, 1,
+                                 extra=("--solve-cache", "disk", *extra),
+                                 env=disk_env)
+        emit(_cli_record(f"{DISK_CONTRACT} --solve-cache disk: {leg}",
+                         disk[leg]))
+        if disk[leg]["rc"] not in (0, 1) \
+                or disk[leg]["stats"].get("completed") is not True:
+            failures.append(f"disk {leg}: exit {disk[leg]['rc']}: "
+                            f"{disk[leg]['stderr'][-300:]}")
+    fill, hit, corrupt = (disk[leg]["stats"]
+                          for leg in ("fill", "hit", "corrupt"))
+    if fill.get("persistent_stores", 0) <= 0 \
+            or fill.get("kernel_launches", 0) <= 0:
+        failures.append("disk fill: nothing stored, or K1 never launched")
+    if hit.get("persistent_hits", 0) <= 0 \
+            or hit.get("persistent_verify_rejects"):
+        failures.append(f"disk hit: {hit.get('persistent_hits')} hits, "
+                        f"{hit.get('persistent_verify_rejects')} rejects")
+    if _site_events(corrupt, "disk.entry").get("quarantine", 0) < 1:
+        failures.append("disk corrupt: no quarantine")
+    for leg in ("hit", "corrupt"):
+        if disk[leg]["findings"] != disk["fill"]["findings"]:
+            failures.append(f"disk {leg}: findings differ from the fill's")
+    emit({"phase": "resilience", "case": "summary",
+          "host_site_k1_launches": host_launches,
+          "disk_k1_launches": {leg: disk[leg]["stats"].get("kernel_launches")
+                               for leg in disk},
+          "disk_walls_s": {leg: round(disk[leg]["wall_s"], 3)
+                           for leg in disk},
+          "failed_checks": failures, "nvidia_smi": smi})
+    if failures:
+        raise AssertionError(f"resilience: {failures}")
+    return {"launches": host_launches, "max_abs_err": host_err}
+
+
 FORK_PREP_CONTRACTS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex")
 
 
@@ -2137,6 +2461,11 @@ def main() -> int:
             phase_fork_prep(device)
             print(smi, flush=True)
             return 0
+        if "--resilience-only" in sys.argv[1:]:
+            phase_build()
+            phase_resilience(device)
+            print(smi, flush=True)
+            return 0
         phase_build()
         with _preanalysis(False):
             queries, verdicts, slice_launches = phase_slice(device)
@@ -2146,6 +2475,7 @@ def main() -> int:
         frontier = phase_frontier(device)
         analyze = phase_analyze(device)
         phase_telemetry_overhead(device)
+        resilience = phase_resilience(device)
         emit({"phase": "total", "seconds": time.monotonic() - start})
     except Exception as error:
         import traceback
@@ -2165,9 +2495,12 @@ def main() -> int:
                              "router": router["launches"],
                              "router_forks": router["fork_launches"],
                              "analyze": analyze["launches"],
-                             "analyze_stress": analyze["stress_launches"]},
+                             "analyze_stress": analyze["stress_launches"],
+                             "resilience_host_sites":
+                                 resilience["launches"]},
         "max_abs_err": max(max_err, router["max_abs_err"],
-                           analyze["max_abs_err"]),
+                           analyze["max_abs_err"],
+                           resilience["max_abs_err"]),
         # times of one round on the largest stream the compared analyze
         # runs launched; the router's and the slice's streams beside them
         "ms": analyze["ms"],

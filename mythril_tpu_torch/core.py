@@ -7,10 +7,10 @@ telemetry: fire_lasers installs the flight recorder, starts the heartbeat
 (--heartbeat / MYTHRIL_GPU_HEARTBEAT) and writes the stats JSON
 (MYTHRIL_GPU_STATS_JSON) from its finally, so a run that dies (a module
 exception, a DeviceFault) still leaves its telemetry, tagged
-completed=false, and a flight-recorder dump. Its corpus surfaces (--jobs,
---corpus-interleave), the tuned profile, fault injection, the statespace
-and graph dumps, and loading from solidity, foundry or RPC wait for later
-slices."""
+completed=false, and a flight-recorder dump, and arms the fault-injection
+harness (--inject-fault / MYTHRIL_GPU_FAULTS). Its corpus surfaces
+(--jobs, --corpus-interleave), the tuned profile, the statespace and graph
+dumps, and loading from solidity, foundry or RPC wait for later slices."""
 
 import logging
 import time
@@ -71,7 +71,7 @@ class MythrilAnalyzer:
                 "solve_cache", "transaction_sequences", "beam_width",
                 "disable_coverage_strategy", "no_preanalysis",
                 "no_aig_opt", "no_incremental_prep", "no_vmap_frontier",
-                "no_frontier_fork", "trace", "heartbeat",
+                "no_frontier_fork", "trace", "heartbeat", "inject_fault",
             ):
                 if hasattr(cmd_args, field) and getattr(cmd_args, field) is not None:
                     setattr(args, field, getattr(cmd_args, field))
@@ -103,6 +103,12 @@ class MythrilAnalyzer:
                     frontier_kernel.build_kernel()
         stats = SolverStatistics()
         stats.enabled = True
+        # the fault-injection harness (resilience/faults.py): armed from
+        # MYTHRIL_GPU_FAULTS or --inject-fault, disarmed when neither is
+        # set; one configure per run, so crossing counters start fresh
+        from mythril_tpu_torch.resilience import faults
+
+        faults.configure_from_env(getattr(args, "inject_fault", None))
         # the always-on flight recorder: the tracer (and its span ring)
         # exists before the first span, with --trace unarmed too
         flightrec.install()

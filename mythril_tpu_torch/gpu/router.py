@@ -39,7 +39,12 @@ to the ragged round (backend.try_solve_batch_ragged):
               one re-probe (resilience/breaker.py).
   deadline    each dispatch gets min(MYTHRIL_GPU_DEVICE_DEADLINE — 6 s on
               a card, 2.5 s on the CPU — 0.6 x the query timeout); the
-              round loop checks it between rounds.
+              round loop checks it between rounds. Each stream's backend
+              call runs on the deadline runner (resilience/deadline.py)
+              behind the device.dispatch fault site, and is abandoned at
+              its remaining budget plus MYTHRIL_GPU_STAGE_GRACE (default
+              max(round budget, 2 s)): a call that never returns becomes
+              the recorded DeviceFault below, not a hang.
   evidence    on device "cpu" the plain round serializes on the host, so
               the router runs the JAX package's evidence profile: 8
               restart lanes, 32-step rounds, cube width 3 and at most
@@ -47,12 +52,15 @@ to the ragged round (backend.try_solve_batch_ragged):
               process.
 
 Differences from the JAX package, on purpose: an exception from the
-kernel, its build or the device propagates to the caller as a recorded
-DeviceFault (no host fallback, no deadline-runner thread; the breaker
-sees only zero-hit waste). Dispatch is always ragged: the bucketed path (its admission,
-try_solve_batch_circuit and the switch between the two) waits for K3.
+kernel, its build or the device, an injected fault at device.dispatch or
+device.calibrate, and a dispatch past its hard deadline propagate to the
+caller as a recorded DeviceFault (no host fallback; the breaker sees only
+zero-hit waste). Dispatch is always ragged: the bucketed path (its
+admission, try_solve_batch_circuit and the switch between the two) waits
+for K3.
 """
 
+import contextlib
 import logging
 import os
 import time
@@ -73,6 +81,7 @@ from mythril_tpu_torch.gpu.backend import (
 from mythril_tpu_torch.gpu.device import clear_fault, record_fault
 from mythril_tpu_torch.observe.tracer import span as trace_span
 from mythril_tpu_torch.preanalysis import aig_partition
+from mythril_tpu_torch.resilience import maybe_inject, run_with_deadline
 from mythril_tpu_torch.resilience import breaker as breaker_mod
 from mythril_tpu_torch.resilience.breaker import StageBreaker
 from mythril_tpu_torch.support.env import env_float
@@ -179,6 +188,14 @@ class QueryRouter:
         default = 2.5 if self._evidence_mode() else 6.0
         return env_float("MYTHRIL_GPU_DEVICE_DEADLINE", default)
 
+    def deadline_grace(self) -> float:
+        """Slack past the dispatch budget before the hard deadline fires:
+        the round loop honours the budget between rounds, so a healthy
+        backend returns within budget plus one round; only a call that
+        stopped returning reaches the hard deadline."""
+        return env_float("MYTHRIL_GPU_STAGE_GRACE",
+                         max(self.round_budget_s, 2.0))
+
     def _profile_steps(self) -> int:
         """Round length the active profile runs."""
         if self._evidence_mode():
@@ -233,6 +250,7 @@ class QueryRouter:
             return
         start = time.monotonic()
         with trace_span("router.calibrate", cat="router"):
+            maybe_inject("device.calibrate")
             self._rates = self._measure_rates()
         self.calibration_seconds = time.monotonic() - start
         log.info("device micro-calibration: %s (%.2fs)", self._rates,
@@ -614,17 +632,32 @@ class QueryRouter:
                                        problems, stats)
 
     def _ragged_dispatch(self, group, remaining, profile):
-        """One chunk through the backend: a ragged stream's rounds, then
-        the cube second pass on the cones they missed."""
-        return self.backend.try_solve_batch_ragged(
-            [unit.problem for unit in group],
-            budget_seconds=remaining,
-            packed_hint=[unit.pc for unit in group],
-            extra_roots=[unit.extra for unit in group],
-            cube_vars=self.cube_vars(),
-            cube_min_levels=self.cube_min_levels,
-            stream_budget=self.ragged_stream_budget,
-            **profile)
+        """One chunk through the backend (a ragged stream's rounds, then
+        the cube second pass on the cones they missed) behind the
+        device.dispatch fault site, on the deadline runner's thread with a
+        hard bound of the remaining budget plus the grace. Everything the
+        stream enqueues on the device (pack, upload, K1's launches, the
+        copies back) is enqueued inside the call, on the runner thread,
+        with the backend's device made current there."""
+        device = self.backend.device
+
+        def call():
+            maybe_inject("device.dispatch")
+            scope = (torch.cuda.device(device) if device.type == "cuda"
+                     else contextlib.nullcontext())
+            with scope:
+                return self.backend.try_solve_batch_ragged(
+                    [unit.problem for unit in group],
+                    budget_seconds=remaining,
+                    packed_hint=[unit.pc for unit in group],
+                    extra_roots=[unit.extra for unit in group],
+                    cube_vars=self.cube_vars(),
+                    cube_min_levels=self.cube_min_levels,
+                    stream_budget=self.ragged_stream_budget,
+                    **profile)
+
+        return run_with_deadline("device.dispatch", call,
+                                 remaining + self.deadline_grace())
 
     @staticmethod
     def _order_window(window: List[_Unit]) -> List[_Unit]:

@@ -107,10 +107,13 @@ def add_analysis_args(parser) -> None:
                              "current CUDA device, an error without one; "
                              "cpu runs the kernels' plain PyTorch versions)")
     parser.add_argument("--solve-cache", dest="solve_cache",
-                        default="memory", choices=["off", "memory"],
+                        default="memory", choices=["off", "memory", "disk"],
                         help="solve-result cache tiers: memory (default) is "
                              "the in-process term-keyed tier and the "
-                             "quick-sat probe; off disables result caching")
+                             "quick-sat probe; disk adds the persistent "
+                             "cross-run result store and the persisted "
+                             "calibration under MYTHRIL_GPU_CACHE_DIR; off "
+                             "disables result caching")
     parser.add_argument("--no-preanalysis", action="store_true",
                         dest="no_preanalysis",
                         help="disable the static bytecode pre-analysis "
@@ -163,6 +166,16 @@ def add_analysis_args(parser) -> None:
                              "(default 10 s), Prometheus text file via "
                              "MYTHRIL_GPU_PROM; env equivalent: "
                              "MYTHRIL_GPU_HEARTBEAT")
+    parser.add_argument("--inject-fault", metavar="SPEC", default=None,
+                        dest="inject_fault",
+                        help="arm the deterministic fault-injection harness "
+                             "(resilience/faults.py): a comma-separated "
+                             "list of site:kind:trigger plans, e.g. "
+                             "device.dispatch:raise:n1,disk.entry:corrupt:* "
+                             "— kinds raise|hang|delay|corrupt|exit, "
+                             "triggers n<k> (k-th crossing), r<p> (seeded "
+                             "rate, MYTHRIL_GPU_FAULT_SEED) or * (every "
+                             "crossing); env equivalent: MYTHRIL_GPU_FAULTS")
     parser.add_argument("--disable-mutation-pruner", action="store_true")
     parser.add_argument("--disable-coverage-strategy", action="store_true")
     parser.add_argument("--disable-dependency-pruning", action="store_true")

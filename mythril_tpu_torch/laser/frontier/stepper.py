@@ -525,16 +525,19 @@ class FrontierStepper:
         if not survivors:
             return []
 
-        # a fault in encode or in a host step sends every collected
-        # survivor down the existing bail path — untouched original
-        # states, flagged to replay the whole run per-state — so it can
-        # cost wall, never a state or a finding; repeated faults blow the
-        # session fuse. A fault of the CUDA step is not replayed: it is
+        # the registered fault site frontier.step: a fault in encode or in
+        # a host step sends every collected survivor down the existing
+        # bail path — untouched original states, flagged to replay the
+        # whole run per-state — so it can cost wall, never a state or a
+        # finding; repeated faults blow the session fuse. A fault of the
+        # CUDA step (an injected one included) is not replayed: it is
         # recorded as a DeviceFault and stops the analysis, as K1's do
         from mythril_tpu_torch import resilience
 
         on_device = self.backend == "cuda"
         try:
+            if not on_device:
+                resilience.maybe_inject("frontier.step")
             # the lane's tag/handle capture costs a window snapshot per
             # row: build it only when some collected row actually takes
             # the structural-replay decode
@@ -555,6 +558,7 @@ class FrontierStepper:
             from mythril_tpu_torch.gpu.device import record_fault
 
             try:
+                resilience.maybe_inject("frontier.step")
                 outputs = kernel.step_batch(run, frame, self.backend,
                                             self.device)
             except Exception as error:

@@ -9,11 +9,10 @@ to disk at the first sign of trouble:
 
   trigger                       where it fires
   breaker_trip                  resilience/breaker.py _trip (any site)
+  deadline                      resilience/deadline.py run_with_deadline
+                                (K1's dispatch abandoned at its deadline)
   run incomplete                fire_lasers' finally with completed=False
                                 (a module exception, a DeviceFault)
-
-The JAX package's third trigger, a stage deadline, waits for the port's
-deadline runner.
 
 Each dump is a self-describing JSON artifact (metrics.stamp(): schema
 version, git rev, platform) carrying the trigger, the ring in time order
@@ -42,9 +41,8 @@ CAP_ENV = "MYTHRIL_GPU_FLIGHTREC_CAP"
 DEFAULT_CAP = 512
 MAX_DUMPS = 4
 
-# resilience event names that dump the ring (the JAX package also dumps
-# on "deadline", which comes with the port's deadline runner)
-TRIGGER_EVENTS = ("breaker_trip",)
+# resilience event names that dump the ring
+TRIGGER_EVENTS = ("breaker_trip", "deadline")
 RUN_INCOMPLETE = "run_incomplete"
 
 _dumps_written = 0
@@ -98,8 +96,8 @@ def _dump(trigger: dict) -> Optional[str]:
     global _dumps_written
     if ring_capacity() <= 0 or _dumps_written >= MAX_DUMPS:
         return None
-    # called from inside resilience.record_event while a breaker is
-    # mid-degradation: the recorder must never turn that into a failure,
+    # called from inside resilience.record_event while a breaker or a
+    # deadline is mid-degradation: the recorder must never turn that into a failure,
     # so nothing here escapes
     try:
         from mythril_tpu_torch.observe import metrics

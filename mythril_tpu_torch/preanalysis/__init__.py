@@ -61,6 +61,7 @@ def get_code_summary(disassembly) -> Optional[CodeSummary]:
                 and not resilience.fuse_blown("preanalysis.summary")):
             from mythril_tpu_torch.observe.tracer import span as trace_span
 
+            resilience.maybe_inject("preanalysis.summary")
             with trace_span("preanalysis.summary", cat="analyze",
                             code_bytes=len(disassembly.bytecode)):
                 summary = CodeSummary(disassembly)

@@ -1,5 +1,9 @@
 """Solve service in front of the solver seam (support/model.py).
 
+  store.py        persistent on-disk result tier keyed by a canonical
+                  content fingerprint of the blasted instance
+                  (fingerprint.py); SAT entries are replay-verified on
+                  every hit, UNSAT entries carry crosscheck provenance
   scheduler.py    coalescing solve scheduler: a submit() -> handle facade
                   and the solve_batch / solve_fork_batch seams, flushing
                   buffered queries as ONE get_models_batch call (one
@@ -13,8 +17,8 @@
 Tier selection rides `args.solve_cache`:
   off     no result caching at all
   memory  the in-memory term-keyed tier and the quick-sat probe (default)
-  disk    the memory tier plus persisted calibration; the JAX package's
-          persistent result store is not ported yet
+  disk    the memory tier plus the persistent result store and the
+          persisted calibration, under MYTHRIL_GPU_CACHE_DIR
 """
 
 import os
@@ -46,7 +50,10 @@ def cache_dir() -> str:
 
 def reset_service_state() -> None:
     """Discard buffered scheduler state (unresolved handles degrade to
-    unknown); clear_caches() calls this so tests start clean."""
+    unknown) and release the store handle, so the next access re-opens
+    from disk; clear_caches() calls this so tests start clean."""
     from mythril_tpu_torch.service.scheduler import reset_scheduler
+    from mythril_tpu_torch.service.store import reset_result_store
 
     reset_scheduler()
+    reset_result_store()

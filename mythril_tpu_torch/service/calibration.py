@@ -15,10 +15,10 @@ The JAX package's tuned-profile section waits for the autotune slice.
 import json
 import logging
 import os
-import tempfile
 import time
 from typing import Optional
 
+from mythril_tpu_torch.service.store import atomic_write_json
 from mythril_tpu_torch.support.lock import LockFile
 
 log = logging.getLogger(__name__)
@@ -46,24 +46,6 @@ def _enabled() -> bool:
     from mythril_tpu_torch.service import disk_tier_enabled
 
     return disk_tier_enabled()
-
-
-def atomic_write_json(path: str, payload: dict) -> bool:
-    """Temp-file + atomic-rename JSON write in `path`'s directory (the
-    caller holds whatever lock the destination needs)."""
-    fd, tmp_path = tempfile.mkstemp(dir=os.path.dirname(path),
-                                    suffix=".tmp")
-    try:
-        with os.fdopen(fd, "w") as handle:
-            json.dump(payload, handle)
-        os.replace(tmp_path, path)
-        return True
-    except OSError:
-        try:
-            os.unlink(tmp_path)
-        except OSError:
-            pass
-        return False
 
 
 def load_profile(platform: Optional[str], restarts: int,

@@ -18,17 +18,26 @@ Flush triggers (bounded window):
 Synchronous host code (time.monotonic checks, no threads). Every flush is
 counted in SolverStatistics (window_flushes, coalesced_queries).
 
-Differences from the JAX package: a failed flush propagates to the
-demanding caller (its handles degrade to unknown first, so none
-dangles) instead of being retried query by query, and the interleave
-coordinator's parking and fair per-origin sub-groups wait for the corpus
-slice.
+Failure isolation (the registered fault site scheduler.flush, retry
+action): a group whose batched solve raises is retried query by query, so
+the buffered siblings still get their real verdicts and only a query that
+fails alone degrades to unknown. A DeviceFault, or a NoDeviceError, is
+not a host error: it propagates at once and is never retried, which would
+launch K1 again after the device failed (the JAX package retries those
+too, as its device errors fall back to the host).
+
+Differences from the JAX package: the DeviceFault rule above, and the
+interleave coordinator's parking and fair per-origin sub-groups wait for
+the corpus slice.
 """
 
+import logging
 import time
 from typing import List, Optional, Tuple
 
 from mythril_tpu_torch.support.env import env_float
+
+log = logging.getLogger(__name__)
 
 COALESCE_MS = 6.0
 DEFAULT_COALESCE_MAX = 16
@@ -141,7 +150,6 @@ class CoalescingScheduler:
             return
         from mythril_tpu_torch.observe.tracer import span as trace_span
         from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
-        from mythril_tpu_torch.support.model import get_models_batch
 
         buffered, self._buffer = self._buffer, []
         self._oldest = None
@@ -153,20 +161,55 @@ class CoalescingScheduler:
             with trace_span("scheduler.flush", cat="service",
                             queries=len(buffered), groups=len(groups)):
                 for flag, entries in groups.items():
-                    outcomes = get_models_batch(
-                        [constraints for _h, constraints, _f, _o in entries],
-                        crosscheck=flag,
-                        origins=[origin for _h, _c, _f, origin in entries])
+                    outcomes = self._solve_group(flag, entries)
                     for (handle, _c, _f, _o), outcome in zip(entries,
                                                              outcomes):
                         handle._resolve(outcome)
         finally:
-            # an error propagates to the demanding caller; no popped
-            # handle may dangle, so the ones still pending degrade to
-            # unknown first
+            # an error escaping the isolation below (a DeviceFault) reaches
+            # the demanding caller; no popped handle may dangle, so the
+            # ones still pending degrade to unknown first
             for entry in buffered:
                 if not entry[0].done:
                     entry[0]._resolve(("unknown", None))
+
+    @staticmethod
+    def _solve_group(flag, entries) -> List:
+        """Solve one crosscheck group of a window flush, isolating a
+        failing query: on a host error the group is retried query by query
+        (a `retry` event), and only a query that fails alone degrades to
+        unknown (a `degraded` event). A device error propagates
+        unretried."""
+        from mythril_tpu_torch.gpu.device import DeviceFault, NoDeviceError
+        from mythril_tpu_torch.resilience import maybe_inject, record_event
+        from mythril_tpu_torch.support.model import get_models_batch
+
+        try:
+            maybe_inject("scheduler.flush")
+            return get_models_batch(
+                [constraints for _h, constraints, _f, _o in entries],
+                crosscheck=flag,
+                origins=[origin for _h, _c, _f, origin in entries])
+        except (DeviceFault, NoDeviceError):
+            raise
+        except Exception:
+            log.warning("coalesced solve flush failed; retrying the %d "
+                        "buffered quer(ies) individually", len(entries),
+                        exc_info=True)
+            record_event("scheduler.flush", "retry")
+        outcomes = []
+        for _handle, constraints, _f, origin in entries:
+            try:
+                outcomes.append(get_models_batch(
+                    [constraints], crosscheck=flag, origins=[origin])[0])
+            except (DeviceFault, NoDeviceError):
+                raise
+            except Exception:
+                log.exception("query failed alone after a flush failure; "
+                              "degrading it (only) to unknown")
+                record_event("scheduler.flush", "degraded")
+                outcomes.append(("unknown", None))
+        return outcomes
 
     def clear(self) -> None:
         """Discard buffered state WITHOUT solving (clear_caches/test

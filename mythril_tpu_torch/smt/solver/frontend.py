@@ -502,6 +502,7 @@ class Solver:
         resume = None
         if use_incr:
             try:
+                resilience.maybe_inject("prepare.incremental")
                 resume = incremental.try_resume(asserted)
             except Exception:
                 log.warning("incremental prefix resume failed; full "
@@ -614,6 +615,7 @@ class Solver:
                 # memoized, so the fallback lands on identical roots);
                 # repeated faults blow the session fuse
                 try:
+                    resilience.maybe_inject("aig.session")
                     roots = [prep.blaster.assert_bool(t) for t in lowered]
                     prep.blaster.last_roots = roots
                     with trace_span("solver.aig_opt", cat="solver",

@@ -263,6 +263,17 @@ def _crosscheck_enabled() -> bool:
 
 CROSSCHECK_CLAUSE_CAP = 150_000
 
+# outcome of the most recent _crosscheck_unsat: True only when the permuted
+# re-solve positively re-proved UNSAT (cap skips and inconclusive timeouts
+# are False). The persistent result store reads it right after an UNSAT
+# settle, so an entry records provenance as confirmed, never as requested
+# (support/model._crosscheck_confirmed).
+_last_crosscheck_confirmed = False
+
+
+def last_crosscheck_confirmed() -> bool:
+    return _last_crosscheck_confirmed
+
 
 def _crosscheck_unsat(num_vars, clauses, assumptions, timeout_seconds,
                       conflict_budget=0) -> str:
@@ -270,6 +281,8 @@ def _crosscheck_unsat(num_vars, clauses, assumptions, timeout_seconds,
     relabeling + clause shuffle. Disagreement degrades the verdict to
     UNKNOWN. Instances past CROSSCHECK_CLAUSE_CAP are skipped (counted) and
     the re-solve is capped at 3 s."""
+    global _last_crosscheck_confirmed
+    _last_crosscheck_confirmed = False
     stats = SolverStatistics()
     if len(clauses) > CROSSCHECK_CLAUSE_CAP:
         stats.add_crosscheck(skipped=True)
@@ -287,6 +300,7 @@ def _crosscheck_unsat(num_vars, clauses, assumptions, timeout_seconds,
 
 def _crosscheck_resolve(num_vars, clauses, assumptions, timeout_seconds,
                         conflict_budget) -> str:
+    global _last_crosscheck_confirmed
     from mythril_tpu_torch.smt.bitblast import CNF
 
     rng = random.Random(num_vars * 1_000_003 + len(clauses))
@@ -321,7 +335,9 @@ def _crosscheck_resolve(num_vars, clauses, assumptions, timeout_seconds,
                      num_vars, len(clauses))
         return UNKNOWN
     # UNKNOWN (a timed-out re-solve) keeps the verdict: the crosscheck
-    # only degrades a verdict on positive disagreement
+    # only degrades a verdict on positive disagreement; only UNSAT is a
+    # confirmation the persistent tier may record
+    _last_crosscheck_confirmed = second == UNSAT
     return UNSAT
 
 

@@ -37,10 +37,16 @@ class SolverStatistics:
         "router_dispatched_clauses",
         "crosscheck_runs",
         "crosscheck_cap_skips",
-        # result tiers (support/model.py): the in-memory term-keyed tier
-        # and the recent-model quick-sat probe
+        # result tiers (support/model.py): the in-memory term-keyed tier,
+        # the recent-model quick-sat probe, and the persistent disk tier
+        # (service/store.py: lookups that hit or missed, entries written,
+        # entries rejected by the replay check or quarantined)
         "memory_hits",
         "quick_sat_hits",
+        "persistent_hits",
+        "persistent_misses",
+        "persistent_stores",
+        "persistent_verify_rejects",
         # coalescing scheduler windows (service/scheduler.py)
         "window_flushes",
         "coalesced_queries",
@@ -106,12 +112,21 @@ class SolverStatistics:
         "fork_pair_pack_attempts",
         "fork_pair_pack_hits",
         "fork_stream_dispatches",
-        # resilience events (resilience/): degraded stages, breaker trips
-        # and half-open re-probes, stale lock breaks
-        "resilience_degraded",
+        # resilience events (resilience/): retries, breaker trips and
+        # half-open re-probes, quarantined cache entries, degraded stages,
+        # hard-deadline trips of K1's dispatch, stale lock breaks and
+        # injected faults; the per-site breakdown is the stats JSON
+        # "resilience" section
+        "resilience_retries",
         "resilience_breaker_trips",
         "resilience_breaker_probes",
+        "resilience_quarantines",
+        "resilience_degraded",
+        "resilience_deadline_trips",
         "resilience_stale_lock_breaks",
+        "resilience_faults_injected",
+        # calls guarded by the deadline runner (resilience/deadline.py)
+        "deadline_runner_calls",
         # the engine (laser/svm.py, analysis/module/loader.py): detection
         # modules the static reachability gate skipped, fork-prune solves
         # skipped on inert cones, and fork sides pruned on a drained
@@ -167,13 +182,20 @@ class SolverStatistics:
         # the batched fork epilogue (pending conditions, the coalesced
         # feasibility bundle, cohort materialization)
         "frontier_fork_wall",
+        # the deadline runner's queue hand-offs: each guarded call's wall
+        # less the call's own wall on the runner thread
+        "deadline_handoff_wall",
     )
     # resilience event name -> the counter it rolls up into
     _RESILIENCE_EVENT_COUNTERS = {
-        "degraded": "resilience_degraded",
+        "retry": "resilience_retries",
         "breaker_trip": "resilience_breaker_trips",
         "breaker_probe": "resilience_breaker_probes",
+        "quarantine": "resilience_quarantines",
+        "degraded": "resilience_degraded",
+        "deadline": "resilience_deadline_trips",
         "stale_break": "resilience_stale_lock_breaks",
+        "injected": "resilience_faults_injected",
     }
 
     def __new__(cls):
@@ -264,6 +286,22 @@ class SolverStatistics:
         """A query settled by the recent-model quick-sat probe."""
         self._add("quick_sat_hits")
 
+    def add_persistent_lookup(self, hit: bool) -> None:
+        """A disk-tier probe of a blasted instance fingerprint. A
+        verify-rejected or provenance-rejected entry counts as a miss (the
+        caller also records the reject)."""
+        self._add("persistent_hits" if hit else "persistent_misses")
+
+    def add_persistent_store(self) -> None:
+        """One entry written to the disk tier."""
+        self._add("persistent_stores")
+
+    def add_persistent_verify_reject(self) -> None:
+        """A disk-tier entry that failed its replay check against the
+        original constraints, or was quarantined as malformed: a safe
+        miss, never a verdict."""
+        self._add("persistent_verify_rejects")
+
     def add_window_flush(self, queries: int) -> None:
         """One coalescing-scheduler flush covering `queries` buffered
         queries (service/scheduler.py)."""
@@ -279,6 +317,12 @@ class SolverStatistics:
             self.cdcl_settles += 1
             self.cdcl_clauses += clauses
             self.settle_wall += seconds
+
+    def add_deadline_handoff(self, seconds: float) -> None:
+        """One call through the deadline runner and its hand-off cost."""
+        if self.enabled:
+            self.deadline_runner_calls += 1
+            self.deadline_handoff_wall += seconds
 
     def add_crosscheck_seconds(self, seconds: float) -> None:
         self._add("crosscheck_wall", seconds)
@@ -587,12 +631,19 @@ class SolverStatistics:
         from mythril_tpu_torch.observe import roofline
 
         out["roofline"] = roofline.build(self)
-        # the sites that recorded an event this run; no fault harness is
-        # ported, so nothing is ever armed
+        # per-site resilience events, every registered site present
+        # (zero-filled, so the section's shape is stable for the lint and
+        # for diffing runs), and the armed fault-injection spec ('' when
+        # disarmed)
+        from mythril_tpu_torch.resilience import faults, registry
+
+        sites = {name: dict(self.resilience_events.get(name, {}))
+                 for name in registry.FAULT_SITES}
+        for site, events in self.resilience_events.items():
+            sites.setdefault(site, dict(events))
         out["resilience"] = {
-            "sites": {site: dict(events) for site, events
-                      in self.resilience_events.items()},
-            "faults_active": None,
+            "sites": sites,
+            "faults_active": faults.active_spec(),
         }
         # which K1 produced the device figures: "cuda" for the kernel,
         # "plain" for its plain version on a CPU device, "none" when no
@@ -622,9 +673,14 @@ class SolverStatistics:
         if self.router_host_direct or self.cap_rejects:
             out += (f", routed host-direct: {self.router_host_direct}"
                     f", cap-rejects: {self.cap_rejects}")
-        if self.memory_hits or self.quick_sat_hits:
+        if self.memory_hits or self.quick_sat_hits or self.persistent_hits \
+                or self.persistent_misses:
             out += (f", cache tiers: memory {self.memory_hits}"
-                    f"/quick-sat {self.quick_sat_hits}")
+                    f"/quick-sat {self.quick_sat_hits}"
+                    f"/persistent {self.persistent_hits}"
+                    f" (misses {self.persistent_misses},"
+                    f" verify-rejects {self.persistent_verify_rejects},"
+                    f" stores {self.persistent_stores})")
         if self.window_flushes:
             out += (f", coalesce windows: {self.window_flushes}"
                     f" flushes ({self.coalesced_queries} queries,"
@@ -673,11 +729,14 @@ class SolverStatistics:
                     f"/{self.cube_device_refutes} device refutes,"
                     f" {self.kernel_launches} kernel launches)")
         if self.resilience_events:
-            out += (f", resilience: {self.resilience_degraded} degraded"
+            out += (f", resilience: {self.resilience_retries} retries"
+                    f"/{self.resilience_degraded} degraded"
+                    f"/{self.resilience_quarantines} quarantines"
                     f"/{self.resilience_breaker_trips} breaker trips"
                     f"/{self.resilience_breaker_probes} probes"
+                    f"/{self.resilience_deadline_trips} deadline trips"
                     f"/{self.resilience_stale_lock_breaks} stale lock"
-                    f" breaks")
+                    f" breaks/{self.resilience_faults_injected} injected")
         if self.crosscheck_runs or self.crosscheck_cap_skips:
             out += (f", unsat crosschecks: {self.crosscheck_runs}"
                     f" (+{self.crosscheck_cap_skips} cap-skipped)")

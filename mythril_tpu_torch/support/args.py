@@ -26,8 +26,7 @@ class _Args:
         # torch device of the gpu backend: None = "cuda" (raises without a
         # card); "cpu" runs every kernel's plain PyTorch version
         self.torch_device = None
-        self.solve_cache = "memory"            # off | memory | disk (the
-        #   calibration only; the result store is not ported)
+        self.solve_cache = "memory"            # off | memory | disk
         self.no_preanalysis = False            # pre-analysis master switch
         self.no_aig_opt = False                # the AIG rewrite alone
         self.no_incremental_prep = False       # the prefix resume alone
@@ -39,6 +38,8 @@ class _Args:
         #   Perfetto export; MYTHRIL_GPU_TRACE is the env equivalent)
         self.heartbeat = None                  # --heartbeat PATH (live
         #   metrics JSONL; MYTHRIL_GPU_HEARTBEAT is the env equivalent)
+        self.inject_fault = None               # --inject-fault SPEC (the
+        #   fault-injection harness; MYTHRIL_GPU_FAULTS wins over it)
 
     def reset(self):
         self.__init__()

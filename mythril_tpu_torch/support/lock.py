@@ -1,8 +1,10 @@
-"""Inter-process file lock around the calibration cache's writes (a copy
-of mythril_tpu.support.lock with the knob prefix changed; the JAX
-package's fault-injection crossing is not ported).
+"""Inter-process file lock around the result store's and the calibration
+cache's writes (a copy of mythril_tpu.support.lock with the knob prefix
+changed).
 
-POSIX-only flock. The lock file records its owner (`pid ts`) on acquire.
+POSIX-only flock. Every acquire crosses the registered fault site
+`store.lock`: an injected failure there degrades to proceeding unlocked
+(counted `degraded`). The lock file records its owner (`pid ts`) on acquire.
 A contended acquire checks whether the recorded owner is still alive
 (pid liveness probe) and whether the lock has exceeded its max age
 (DEFAULT_MAX_AGE_S) — critical sections under it hold the lock for
@@ -48,6 +50,14 @@ class LockFile:
 
         from mythril_tpu_torch import resilience
 
+        try:
+            resilience.maybe_inject("store.lock")
+        except resilience.InjectedFault:
+            # an injected lock-layer failure: proceed unlocked (atomic
+            # renames keep every guarded write safe; races just lose)
+            resilience.record_event("store.lock", "degraded")
+            self._handle = None
+            return
         deadline = time.monotonic() + self.timeout_seconds
         self._handle = open(self.path, "a+")
         broke_stale = False

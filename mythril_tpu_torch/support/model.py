@@ -2,10 +2,12 @@
 
 get_model(constraints, ...) is the choke point every single reachability
 check and exploit concretization goes through: memory result tier ->
-quick-sat probe over recent models -> full solve on the host CDCL with a
+quick-sat probe over recent models -> persistent disk tier (service/store,
+keyed by the blasted instance's content fingerprint, replay-verified;
+under solve_cache "disk" only) -> full solve on the host CDCL with a
 deadline capped by the global time budget (Optimize when the caller
-minimizes or maximizes) -> the verdict lands in the memory tier. It raises
-UnsatError on unsat and SolverTimeOutException on unknown.
+minimizes or maximizes) -> the verdict lands in every enabled tier. It
+raises UnsatError on unsat and SolverTimeOutException on unknown.
 
 get_models_batch(constraint_sets) takes N constraint lists (sibling-path
 feasibility checks) and returns N entries of ("sat", Model) /
@@ -13,15 +15,20 @@ feasibility checks) and returns N entries of ("sat", Model) /
 
   memory result tier -> quick-sat probe over recent models -> prepare on
   the host (simplify, lower, blast; with pre-analysis the prefix resume,
-  AIG rewrite and CNF preprocessing) -> with `args.solver_backend ==
-  "gpu"`, the adaptive router (gpu/router.py) sends the eligible queries
-  to the device -> every device model is rebuilt and validated against
-  the original constraints -> the host CDCL settles the rest and alone
-  proves UNSAT -> verdicts land in the memory tiers.
+  AIG rewrite and CNF preprocessing) -> persistent disk tier -> with
+  `args.solver_backend == "gpu"`, the adaptive router (gpu/router.py)
+  sends the eligible queries to the device -> every device model is
+  rebuilt and validated against the original constraints -> the host
+  CDCL settles the rest and alone proves UNSAT -> verdicts land in the
+  memory tiers and the disk tier (a device model at whole-instance and
+  component granularity, so K1's work outlives the process).
 
-A device error raises out of here (the JAX package falls back to the
-CDCL). The persistent disk tier (store, fingerprints) waits for a later
-slice.
+A device error raises out of here as a recorded DeviceFault, and so does
+a fresh device model that fails its _reconstruct check (the JAX package
+falls back to the CDCL for both). An entry loaded from disk that fails
+_reconstruct is a host artefact: a safe miss, counted in
+persistent_verify_rejects. The disk tier's network mirror and its
+cross-contract counters come with the fleet and corpus slices.
 """
 
 import os
@@ -132,6 +139,191 @@ def _cache_key(terms_list) -> Optional[tuple]:
         return None
 
 
+def _persistent_store():
+    """The on-disk result store, or None when the disk tier is off."""
+    from mythril_tpu_torch.service import disk_tier_enabled
+
+    if not disk_tier_enabled():
+        return None
+    from mythril_tpu_torch.service.store import get_result_store
+
+    store = get_result_store()
+    return store if store.available else None
+
+
+def _prep_partition(prep):
+    """The AIG-level partition of a prepared instance's rewritten cone
+    (preanalysis/aig_partition.py), or None for monolithic instances: the
+    same gate the router's component dispatch uses."""
+    aig_roots = getattr(prep, "aig_roots", None)
+    if not aig_roots:
+        return None
+    try:
+        from mythril_tpu_torch.preanalysis import aig_partition
+
+        return aig_partition.partition_for_aig_roots(aig_roots)
+    except Exception:
+        return None
+
+
+def _probe_component_assembly(store, solver, prep, stats):
+    """Disk-tier probe at component granularity: when the whole-instance
+    fingerprint misses but every non-trivial component of the partitioned
+    instance has a stored SAT sub-model, the components reassemble into a
+    full model, so a sub-cone shared by different parent queries hits
+    across them. The assembled assignment goes through Solver._reconstruct
+    (validated against the ORIGINAL constraints): any staleness or
+    collision is a safe miss. Returns ("sat", Model, True) or None."""
+    partition = _prep_partition(prep)
+    if partition is None:
+        return None
+    from mythril_tpu_torch.preanalysis.aig_partition import (
+        apply_trivial_assignment,
+        component_vars,
+        merge_component_bits,
+    )
+    from mythril_tpu_torch.service.fingerprint import component_fingerprint
+
+    aig, dense_q = prep.aig_roots[0], prep.aig_roots[2]
+    merged = [False] * (prep.num_vars + 1)
+    try:
+        for component in partition.components:
+            if apply_trivial_assignment(component, dense_q, merged):
+                continue
+            comp_nv, comp_cnf, comp_dense = component.instance(aig)
+            entry = store.lookup(component_fingerprint(
+                comp_nv, comp_cnf, component.roots, comp_dense))
+            if entry is None or entry.verdict != "sat" \
+                    or entry.num_vars != comp_nv or entry.bits is None:
+                return None
+            merge_component_bits(
+                comp_dense, dense_q, component_vars(comp_dense),
+                entry.bits, merged)
+        model = solver._reconstruct(prep, merged)
+    except Exception:
+        stats.add_persistent_verify_reject()
+        return None
+    return ("sat", model, True)
+
+
+def _persist_component_entries(store, prep, bits, stats) -> None:
+    """Store each non-trivial component's sub-model under its own
+    fingerprint, so later queries sharing the sub-cone (under any parent,
+    in any later process) can reassemble it from disk."""
+    partition = _prep_partition(prep)
+    if partition is None or bits is None:
+        return
+    from mythril_tpu_torch.preanalysis.aig_partition import component_vars
+    from mythril_tpu_torch.service.fingerprint import component_fingerprint
+
+    aig, dense_q = prep.aig_roots[0], prep.aig_roots[2]
+    try:
+        for component in partition.components:
+            if component.trivial_assignment is not None:
+                continue  # units reassemble for free; nothing to store
+            comp_nv, comp_cnf, comp_dense = component.instance(aig)
+            comp_bits = [False] * (comp_nv + 1)
+            for gvar in component_vars(comp_dense):
+                qvar = dense_q.get(int(gvar))
+                if qvar is not None and qvar < len(bits):
+                    comp_bits[comp_dense.arr[gvar]] = bool(bits[qvar])
+            fingerprint = component_fingerprint(
+                comp_nv, comp_cnf, component.roots, comp_dense)
+            if store.store_sat(fingerprint, comp_nv, comp_bits):
+                stats.add_persistent_store()
+    except Exception:
+        pass  # persistence is best-effort; never break a solve
+
+
+def _probe_persistent(solver, prep, crosscheck, stats):
+    """Disk-tier lookup for a blasted instance: (fingerprint, outcome).
+    outcome is ("sat", Model, True) / ("unsat", None, memoizable) on a
+    trusted hit, None on a miss; fingerprint is None when the disk tier
+    is off or the instance cannot be fingerprinted (callers reuse it to
+    store the eventual verdict)."""
+    store = _persistent_store()
+    if store is None:
+        return None, None
+    from mythril_tpu_torch.service.fingerprint import instance_fingerprint
+
+    with trace_span("cache.probe", cat="service"):
+        return _probe_persistent_store(
+            store, instance_fingerprint(prep), solver, prep, crosscheck,
+            stats)
+
+
+def _probe_persistent_store(store, fingerprint, solver, prep, crosscheck,
+                            stats):
+    """A SAT entry is replay-verified: its bits go through
+    Solver._reconstruct against the ORIGINAL constraints, and a failure is
+    a safe miss (persistent_verify_rejects), never a verdict and never a
+    DeviceFault. An UNSAT entry is trusted on the detection path only with
+    crosscheck provenance; an unprovenanced one trusted on the engine path
+    is not memoizable (a memory-tier UNSAT is final even in a detection
+    context, which would bypass the provenance gate)."""
+    if fingerprint is None:
+        return None, None
+    entry = store.lookup(fingerprint)
+    if entry is None:
+        # a whole-instance miss: a partitioned instance may still
+        # reassemble from per-component entries
+        assembled = _probe_component_assembly(store, solver, prep, stats)
+        stats.add_persistent_lookup(hit=assembled is not None)
+        return fingerprint, assembled
+    if entry.verdict == "sat":
+        try:
+            if entry.num_vars != prep.num_vars:
+                raise ValueError("entry width differs from the instance")
+            model = solver._reconstruct(prep, entry.bits)
+        except Exception:
+            stats.add_persistent_verify_reject()
+            stats.add_persistent_lookup(hit=False)
+            return fingerprint, None
+        stats.add_persistent_lookup(hit=True)
+        return fingerprint, ("sat", model, True)
+    if crosscheck and not entry.crosschecked:
+        # a detection-critical lookup of an entry that never got its
+        # second opinion: re-solve (and re-store with provenance)
+        stats.add_persistent_lookup(hit=False)
+        return fingerprint, None
+    stats.add_persistent_lookup(hit=True)
+    return fingerprint, ("unsat", None, entry.crosschecked)
+
+
+def _crosscheck_confirmed(crosscheck: bool) -> bool:
+    """Whether the just-settled UNSAT verdict's crosscheck ran and
+    positively re-proved UNSAT on the permuted instance. Provenance
+    records confirmed, not requested: a cap-skipped or timed-out
+    crosscheck keeps the verdict in-process but is not persisted as a
+    second opinion."""
+    if not crosscheck:
+        return False
+    from mythril_tpu_torch.smt.solver import sat_backend
+
+    return sat_backend.last_crosscheck_confirmed()
+
+
+def _persist_result(fingerprint, prep, status, bits=None,
+                    crosscheck=False, stats=None) -> None:
+    """Write a settled verdict into the disk tier (no-op when off). A SAT
+    verdict is stored whole and per component."""
+    if fingerprint is None:
+        return
+    store = _persistent_store()
+    if store is None:
+        return
+    if status == SAT:
+        stored = store.store_sat(fingerprint, prep.num_vars, bits)
+        _persist_component_entries(store, prep, bits, stats)
+    elif status == UNSAT:
+        stored = store.store_unsat(
+            fingerprint, crosschecked=_crosscheck_confirmed(crosscheck))
+    else:
+        return
+    if stored and stats is not None:
+        stats.add_persistent_store()
+
+
 def get_model(
     constraints,
     minimize: Iterable = (),
@@ -221,16 +413,33 @@ def _get_model_impl(
                 raise UnsatError()
             raise SolverTimeOutException()
 
+        fingerprint, cached_outcome = _probe_persistent(
+            solver, prep, crosscheck, stats)
+        if cached_outcome is not None:
+            verdict, model, memoizable = cached_outcome
+            if verdict == "sat":
+                if key is not None:
+                    _store_result(key, model)
+                model_cache.put(model)
+                return model
+            if key is not None and memoizable:
+                _store_result(key, UNSAT)
+            raise UnsatError()
+
         status = solver._solve_prepared(prep)
         if status == SAT:
             model = solver.model()
             if key is not None:
                 _store_result(key, model)
                 model_cache.put(model)
+            _persist_result(fingerprint, prep, SAT, bits=prep.last_bits,
+                            crosscheck=crosscheck, stats=stats)
             return model
         if status == UNSAT:
             if key is not None:
                 _store_result(key, UNSAT)
+            _persist_result(fingerprint, prep, UNSAT, crosscheck=crosscheck,
+                            stats=stats)
             raise UnsatError()
         raise SolverTimeOutException()
     finally:
@@ -293,7 +502,7 @@ def _get_models_batch_impl(constraint_sets, enforce_execution_time,
         for pair in fork_pairs:
             fork_members.update(pair)
 
-    pending: List[tuple] = []  # (idx, key, solver, prep)
+    pending: List[tuple] = []  # (idx, key, fingerprint, solver, prep)
     start = time.monotonic()
     for idx, constraints in enumerate(constraint_sets):
         raw_constraints = [
@@ -341,7 +550,21 @@ def _get_models_batch_impl(constraint_sets, enforce_execution_time,
             else:
                 results[idx] = ("unknown", None)
             continue
-        pending.append((idx, key, solver, prep))
+        fingerprint, cached_outcome = _probe_persistent(
+            solver, prep, crosscheck, stats)
+        if cached_outcome is not None:
+            verdict, model, memoizable = cached_outcome
+            if verdict == "sat":
+                results[idx] = ("sat", model)
+                if key is not None:
+                    _store_result(key, model, tier)
+                quick_cache.put(model)
+            else:
+                results[idx] = ("unsat", None)
+                if key is not None and memoizable:
+                    _store_result(key, UNSAT, tier)
+            continue
+        pending.append((idx, key, fingerprint, solver, prep))
 
     if pending and args.solver_backend == "gpu":
         from mythril_tpu_torch.gpu.router import get_router
@@ -349,7 +572,7 @@ def _get_models_batch_impl(constraint_sets, enforce_execution_time,
         eligible = []
         ineligible = []
         for entry in pending:
-            prep = entry[3]
+            prep = entry[4]
             if prep.blaster is not None and not prep.clauses.has_empty:
                 eligible.append(entry)
             else:
@@ -365,32 +588,41 @@ def _get_models_batch_impl(constraint_sets, enforce_execution_time,
                 if i in position and j in position] or None
         bits_list = get_router(args.torch_device).dispatch(
             [(p.num_vars, p.clauses, p.aig_roots)
-             for _i, _k, _s, p in eligible],
+             for _i, _k, _f, _s, p in eligible],
             timeout_s, stats, fork_pairs=eligible_pairs,
             origins=[origin_of(entry[0]) for entry in eligible])
         still_pending = list(ineligible)
-        for (idx, key, solver, prep), bits in zip(eligible, bits_list):
+        for entry, bits in zip(eligible, bits_list):
+            idx, key, fingerprint, solver, prep = entry
             stats.add_device_batch_query(hit=bits is not None)
             if bits is None:
-                still_pending.append((idx, key, solver, prep))
+                still_pending.append(entry)
                 continue
-            # validated against the original constraints: a model that
-            # passed the clause check but fails here is a solver bug
+            # validated against the original constraints: a device model
+            # that passed the clause check but fails here is a fault of
+            # the device path, recorded so no caller can retry past it
             prep.last_bits = bits
-            with trace_span("solver.reconstruct", cat="solver"):
-                model = solver._reconstruct(prep, bits)
+            try:
+                with trace_span("solver.reconstruct", cat="solver"):
+                    model = solver._reconstruct(prep, bits)
+            except Exception as error:
+                from mythril_tpu_torch.gpu.device import record_fault
+
+                raise record_fault(error) from error
             results[idx] = ("sat", model)
             tier, quick_cache = caches_for_origin(origin_of(idx))
             if key is not None:
                 _store_result(key, model, tier)
                 quick_cache.put(model)
+            _persist_result(fingerprint, prep, SAT, bits=bits,
+                            crosscheck=crosscheck, stats=stats)
         pending = still_pending
 
     # CDCL settles the rest (and proves UNSAT); no device re-entry
     settle_start = time.monotonic()
     with trace_span("solver.settle_pass", cat="solver",
                     queries=len(pending)):
-        for idx, key, solver, prep in pending:
+        for idx, key, fingerprint, solver, prep in pending:
             solver.allow_device = False
             solver.unsat_crosscheck = crosscheck
             solver.timeout = max(0.05,
@@ -403,10 +635,14 @@ def _get_models_batch_impl(constraint_sets, enforce_execution_time,
                 if key is not None:
                     _store_result(key, model, tier)
                     quick_cache.put(model)
+                _persist_result(fingerprint, prep, SAT, bits=prep.last_bits,
+                                crosscheck=crosscheck, stats=stats)
             elif status == UNSAT:
                 results[idx] = ("unsat", None)
                 if key is not None:
                     _store_result(key, UNSAT, tier)
+                _persist_result(fingerprint, prep, UNSAT,
+                                crosscheck=crosscheck, stats=stats)
             else:
                 results[idx] = ("unknown", None)
     stats.add_host_route_seconds(time.monotonic() - settle_start)
@@ -431,7 +667,8 @@ def clear_result_tiers() -> None:
 
 def clear_caches() -> None:
     """Drop every piece of process-global solve state: the memory tiers,
-    the per-origin blasters, the scheduler's buffer, the incremental
+    the per-origin blasters, the scheduler's buffer and the store handle
+    (the disk tier itself survives), the incremental
     memos, the aig_opt session and result cache, the partition cache, the
     router (its calibration and breaker) and the session fuses; and, once
     the engine's front (core.py) is loaded, its reset_engine_state."""

@@ -93,7 +93,8 @@ def test_analyze_cli_device_hits_and_stats_json(tmp_path):
     assert stats["kernel_backend"] == "plain"
     assert stats["kernel_launches"] > 0
     assert set(stats["roofline"]["stages"]) == set(roofline.STAGES)
-    assert stats["resilience"]["faults_active"] is None
+    # no fault armed: the JAX package's empty spec
+    assert stats["resilience"]["faults_active"] == ""
     assert isinstance(stats["resilience"]["sites"], dict)
     assert sum(count for count, _s in stats["interp_opcode_wall"].values())
     reference = set(ReferenceStatistics().as_dict())

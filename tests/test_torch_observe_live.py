@@ -15,6 +15,7 @@ import pytest
 
 from mythril_tpu_torch.observe import flightrec, metrics
 from mythril_tpu_torch.observe.tracer import get_tracer, span
+from mythril_tpu_torch.resilience import registry
 from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
 from mythril_tpu_torch.support.args import args
 
@@ -263,8 +264,10 @@ def test_trigger_events_auto_dump_postmortem():
         "breaker_probe": 1, "breaker_trip": 1}
     stats = SolverStatistics()
     assert stats.resilience_breaker_trips == 1
-    assert stats.as_dict()["resilience"]["sites"] == {
+    sites = stats.as_dict()["resilience"]["sites"]
+    assert {site: events for site, events in sites.items() if events} == {
         "device.dispatch": {"breaker_probe": 1, "breaker_trip": 1}}
+    assert set(sites) == set(registry.FAULT_SITES)  # zero-filled
 
 
 def test_breaker_trip_reaches_the_recorder():

@@ -16,11 +16,6 @@ from tests.torch_helpers import run_analyze
 # keys of the JAX package's stats JSON whose surface the port has not
 # ported yet, with the ROADMAP.md §1 item that brings each
 NOT_PORTED = {
-    # 5: resilience registry, fault harness, deadline runner, disk tier
-    "persistent_hits": 5, "persistent_misses": 5, "persistent_stores": 5,
-    "persistent_verify_rejects": 5, "resilience_retries": 5,
-    "resilience_quarantines": 5, "resilience_deadline_trips": 5,
-    "resilience_faults_injected": 5,
     # 6: the bucketed batch path and its evidence slot cap
     "router_slot_overflow": 6,
     # 7: K2 and the kernel knob, whose per-shape compiles this counts
@@ -46,10 +41,12 @@ NOT_PORTED = {
 RENAMED = {"pallas_launches": "kernel_launches",
            "pallas_cells_stepped": "kernel_cells_stepped"}
 # the port's own counters: what K1 itself solved, how the router found a
-# model, and cnf_prep's propagation rounds
+# model, cnf_prep's propagation rounds, and the deadline runner's calls and
+# their hand-off cost
 PORT_ONLY = {"aig_device_component_hits", "aig_host_components",
              "router_device_found", "router_host_settled",
-             "router_trivial_settled", "cnf_prep_rounds"}
+             "router_trivial_settled", "cnf_prep_rounds",
+             "deadline_runner_calls", "deadline_handoff_wall"}
 
 
 @pytest.fixture(autouse=True)

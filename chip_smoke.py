@@ -7,14 +7,16 @@
     python3 chip_smoke.py --frontier-only  # env, build and the frontier phase
     python3 chip_smoke.py --telemetry-overhead  # env, build, the overhead legs twice
     python3 chip_smoke.py --resilience-only  # env, build, the resilience phase
+    python3 chip_smoke.py --bucketed-only  # env, build, the bucketed phase
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
 
   env     torch / CUDA versions, the card and its power limit;
-  build   nvcc for the ragged round (mythril_tpu_torch/csrc/ragged_round.cu)
-          and for the frontier step (csrc/frontier_step.cu), and g++ for
-          the host CDCL (native/sat.cpp), all started together, into
+  build   nvcc for the ragged round (mythril_tpu_torch/csrc/ragged_round.cu),
+          for the frontier step (csrc/frontier_step.cu) and for the
+          bucketed path's per-query round (csrc/circuit_round.cu), and g++
+          for the host CDCL (native/sat.cpp), all started together, into
           mythril_tpu_torch/_build/;
   slice   get_models_batch with solver_backend="gpu" on a window of 64
           sibling-path queries at 256 bits (the coalescing window cap),
@@ -126,6 +128,29 @@ line):
           spans; full tracing was on for the span summary, --trace
           unarmed) holds the run's last router.dispatch and
           laser.frontier_step spans; and the dump reads back;
+  bucketed the bucketed path (--no-ragged) with K3, the per-query round
+          (after the analyze phase): (1) K3 against its plain version,
+          bit for bit (x and found), on 300 seeded random batches of 1-16
+          queries (support/workloads.circuit_batch: spare query slots,
+          1-4 roots, spare variables; two of them with an x row past the
+          shared-memory cap, so the global path runs) at random lanes,
+          steps and walk depths, and on the graft entry's batch
+          (mythril_tpu_torch.graft.entry); (2) the sibling window
+          (WINDOW queries, seed SEED) through get_models_batch with
+          MYTHRIL_GPU_RAGGED=0 behind a fresh router: verdicts must equal
+          the host CDCL's, every model must satisfy its constraints, K3
+          must launch, and it is held on the largest batch launched; (3)
+          KILLBILLY (-t 2) and xc_dispatch_a.hex (-t 1) through
+          MythrilAnalyzer with no_ragged on the device backend at the
+          production profile (64 lanes, 64 steps): findings must equal the
+          host backend's at issue granularity, K3 must launch and K1 must
+          not, K3 is held on the largest batch each run launched, and each
+          run prints its wall, prepare, cnf_prep and get_model seconds
+          beside the host and ragged device runs of the analyze phase
+          (--bucketed-only runs those two itself); (4) K3 timed on the
+          largest batch of the two under CUDA events, beside its plain
+          version's time, the bound and the serial chain of barrier
+          phases a lane's steps run (steps x (levels + walk depth));
   telemetry-overhead  KILLBILLY (-t 2) and xc_dispatch_a.hex (-t 1) on
           the device backend with every telemetry artifact off
           (MYTHRIL_GPU_FLIGHTREC=0, nothing written) and on (the ring at
@@ -193,7 +218,8 @@ Then the script's total seconds, the {"kernels": [...]} line (K1's and
 K6's launches over the five compared analyze contracts and their times on
 the largest stream and frontier batch they launched; K1's router and slice
 streams and K6's 64-row, division and 1-row batches and its idle share
-beside them), the
+beside them; K3's launches over the bucketed analyze runs and its time on
+their largest batch), the
 card's nvidia-smi line, and last {"ok": true, "device": {...}}. A copy of every
 JSON line goes to chiprun_out/chip_smoke.jsonl.
 """
@@ -279,7 +305,11 @@ def _preanalysis(on: bool):
 
 
 def phase_build():
-    from mythril_tpu_torch.gpu import frontier_kernel, ragged_kernel
+    from mythril_tpu_torch.gpu import (
+        circuit_kernel,
+        frontier_kernel,
+        ragged_kernel,
+    )
     from mythril_tpu_torch.smt.solver import sat_backend
 
     results, errors = {}, []
@@ -295,6 +325,7 @@ def phase_build():
     threads = [threading.Thread(target=run, args=(name, fn)) for name, fn in
                (("nvcc", ragged_kernel.build_kernel),
                 ("nvcc-frontier", frontier_kernel.build_kernel),
+                ("nvcc-circuit", circuit_kernel.build_kernel),
                 ("g++", sat_backend.get_native_lib))]
     for thread in threads:
         thread.start()
@@ -308,8 +339,10 @@ def phase_build():
 
     emit({"phase": "build", "nvcc_s": round(results["nvcc"][0], 3),
           "nvcc_frontier_s": round(results["nvcc-frontier"][0], 3),
+          "nvcc_circuit_s": round(results["nvcc-circuit"][0], 3),
           "gxx_s": round(results["g++"][0], 3), "ptxas": ptxas("nvcc"),
-          "ptxas_frontier": ptxas("nvcc-frontier")})
+          "ptxas_frontier": ptxas("nvcc-frontier"),
+          "ptxas_circuit": ptxas("nvcc-circuit")})
 
 
 def _prepared_window(queries):
@@ -1746,9 +1779,9 @@ def _analyze_contract(device, name, code, tx_count, timeout, compared,
     the host CDCL with K6 stepping the frontier (see the module note).
     Returns the device backend's (device_batch_hits,
     aig_device_component_hits, K6 launches), the K6 launches of the
-    host-CDCL run, and the device backend's deadline-runner (calls,
-    hand-off seconds)."""
-    keys, completed, reports, frontier = {}, {}, {}, {}
+    host-CDCL run, the device backend's deadline-runner (calls, hand-off
+    seconds), and each leg's record."""
+    keys, completed, reports, frontier, records = {}, {}, {}, {}, {}
     hits = k1_hits = k6_launches = host_k6_launches = 0
     runner = (0, 0.0)
     legs = [("cpu", None), ("gpu", None)]
@@ -1764,6 +1797,7 @@ def _analyze_contract(device, name, code, tx_count, timeout, compared,
             telemetry=name if solver_backend == "gpu" else None)
         keys[leg] = _issue_keys(report)
         completed[leg] = done
+        records[leg] = record
         reports[leg] = (report.as_json(), report.as_text())
         frontier[leg] = record["frontier"]
         if solver_backend == "gpu":
@@ -1798,7 +1832,7 @@ def _analyze_contract(device, name, code, tx_count, timeout, compared,
         if host_k6_launches <= 0:
             raise AssertionError(f"analyze: {name}: K6 was never launched "
                                  f"on the host-CDCL run")
-    return hits, k1_hits, k6_launches, host_k6_launches, runner
+    return hits, k1_hits, k6_launches, host_k6_launches, runner, records
 
 
 def _hold_stream(device, stream, window, counts, timed=True):
@@ -1895,12 +1929,14 @@ def phase_analyze(device):
     ragged_kernel.reset_launches()  # the compared runs' count starts here
     steps = []
     runner_calls, runner_s = 0, 0.0
+    records = {}
     for name, code, tx_count, timeout, compared in inputs:
         if compared:
             if name == IDLE_CONTRACT:
                 batches["every"] = steps
             found = _analyze_contract(device, name, code, tx_count,
                                       timeout, True, largest, batches)
+            records[name] = found[5]
             batches.pop("every", None)
             hits, k1_hits = hits + found[0], k1_hits + found[1]
             k6_launches += found[2]
@@ -1946,7 +1982,7 @@ def phase_analyze(device):
     return {**held, "launches": launches, "stress_launches": stress_launches,
             "max_abs_err": err, "k6": k6, "k6_launches": k6_launches,
             "k6_host_launches": host_k6_launches, "k6_stress": stress_k6,
-            "frontier_idle": idle}
+            "frontier_idle": idle, "records": records}
 
 
 @contextlib.contextmanager
@@ -2388,6 +2424,373 @@ def phase_fork_prep(device):
                   "findings": len(report.issues)})
 
 
+BUCKETED_RUNS = 300  # random batches K3 is held against its plain version
+BUCKETED_GLOBAL_RUNS = 2  # of them with an x row past shared memory
+BUCKETED_CONTRACTS = ("killbilly", "xc_dispatch_a.hex")
+
+
+def _timed_once(device, fn):
+    """(fn's result, its ms): CUDA events on the card, the host clock on
+    the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        start = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - start) * 1e3
+    torch.cuda.synchronize()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, begin.elapsed_time(end)
+
+
+def _compare_k3(device, tensors, x, seed, steps, walk_depth):
+    """K3 against its plain version on one launch's inputs: (max abs
+    error, the plain run's ms). Raises unless bit for bit."""
+    import torch
+
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    got_x, got_found = circuit_kernel.run_round_circuit_kernel(
+        tensors, x, seed, steps, walk_depth)
+    (want_x, want_found), plain_ms = _timed_once(
+        device, lambda: circuit_kernel.run_round_circuit_plain(
+            tensors, x, seed, steps, walk_depth))
+    torch_sync(device)
+    if not (torch.equal(got_x, want_x) and torch.equal(got_found,
+                                                        want_found)):
+        raise AssertionError(
+            f"K3 disagrees with its plain version: "
+            f"{int((got_x != want_x).sum())} x cells, "
+            f"{int((got_found != want_found).sum())} found cells")
+    return max(int((got_x - want_x).abs().max()),
+               int((got_found.int() - want_found.int()).abs().max())), \
+        plain_ms
+
+
+def _k3_bound(tensors, x, steps, walk_depth):
+    """Least time for one K3 round: the five level entries of each real
+    gate (out_idx > 0: the cells the operations count; the bucket's
+    padding is never needed), the per-variable and root tables of every
+    query slot and the rows array read once, x in and out, found out,
+    over the HBM rate; against the 32-bit logic of the real gates and the
+    root checks of every step and the final check over the CUDA-core rate
+    (the walks, whose length depends on the data, are not counted: a
+    lower bound). Returns (ms, by, bytes, ops, serial chain): the chain
+    is the barrier phases a lane's steps run one after another, steps x
+    (levels + walk depth) plus the final simulate, levels being those
+    with a real gate."""
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    q_count, lanes, v1 = x.shape
+    gates = int((tensors["out_idx"] > 0).sum())
+    tables = gates * 4 * len(circuit_kernel.LEVEL_KEYS) + sum(
+        tensors[key].numel() * 4
+        for key in circuit_kernel.VAR_KEYS + circuit_kernel.ROOT_KEYS)
+    rows = circuit_kernel.level_rows(tensors)
+    moved = tables + rows.numel() * 4 + q_count * lanes * v1 * 4 * 2 \
+        + q_count * lanes
+    live_roots = int((tensors["root_mask"] == 1).sum())
+    ops = lanes * (steps + 1) * (3 * gates + 2 * live_roots)
+    byte_s, op_s = moved / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    levels = int((rows.amax(dim=0) > 0).sum())
+    return (max(byte_s, op_s) * 1e3,
+            "bytes" if byte_s >= op_s else "operations", moved, ops,
+            steps * (levels + walk_depth) + levels)
+
+
+@contextlib.contextmanager
+def _keep_largest_k3(largest):
+    """Keep the largest K3 launch (query slots x lanes x levels x width)
+    inside the block: largest gets "size", "tensors", a copy of the
+    launch's "x", its "seed", "steps" and "walk_depth"."""
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    real = circuit_kernel.run_round_circuit_kernel
+
+    def keep(tensors, x, seed, steps, walk_depth, rows=None):
+        size = x.shape[0] * x.shape[1] * tensors["out_idx"][0].numel()
+        if size > largest.get("size", -1):
+            largest.update(size=size, tensors=tensors, x=x.clone(),
+                           seed=seed, steps=steps, walk_depth=walk_depth)
+        return real(tensors, x, seed, steps, walk_depth, rows)
+
+    circuit_kernel.run_round_circuit_kernel = keep
+    try:
+        yield largest
+    finally:
+        circuit_kernel.run_round_circuit_kernel = real
+
+
+@contextlib.contextmanager
+def _k3_calibration_launches(counts):
+    """Adds to counts["launches"] the K3 launches the router's calibration
+    makes inside the block."""
+    from mythril_tpu_torch.gpu import circuit_kernel
+    from mythril_tpu_torch.gpu.router import QueryRouter
+
+    measure = QueryRouter._measure_round_latency
+
+    def counted(self, *args, **kwargs):
+        before = circuit_kernel.launches
+        try:
+            return measure(self, *args, **kwargs)
+        finally:
+            counts["launches"] = (counts.get("launches", 0)
+                                  + circuit_kernel.launches - before)
+
+    QueryRouter._measure_round_latency = counted
+    try:
+        yield counts
+    finally:
+        QueryRouter._measure_round_latency = measure
+
+
+@contextlib.contextmanager
+def _ragged(on: bool):
+    """MYTHRIL_GPU_RAGGED pinned inside the block."""
+    saved = os.environ.get("MYTHRIL_GPU_RAGGED")
+    os.environ["MYTHRIL_GPU_RAGGED"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("MYTHRIL_GPU_RAGGED", None)
+        else:
+            os.environ["MYTHRIL_GPU_RAGGED"] = saved
+
+
+def _hold_k3(device, batch, window, counts, timed=False):
+    """K3 bit for bit against its plain version on a kept launch (its
+    plain run timed), K3 itself timed there when `timed`; launches made
+    here are not counted. Emits one record."""
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    launches = circuit_kernel.launches
+    tensors, x = batch["tensors"], batch["x"]
+    args = (batch["seed"], batch["steps"], batch["walk_depth"])
+    err, plain_ms = _compare_k3(device, tensors, x, *args)
+    ms = None
+    if timed:
+        ms = _time_ms(lambda: circuit_kernel.run_round_circuit_kernel(
+            tensors, x, *args), repeats=5)
+    circuit_kernel.launches = launches
+    bound_ms, bound_by, moved, ops, chain = _k3_bound(
+        tensors, x, batch["steps"], batch["walk_depth"])
+    q_count, lanes, v1 = x.shape
+    levels, width = tensors["out_idx"].shape[1:]
+    emit({"phase": "bucketed", "window": window, "queries": q_count,
+          "lanes": lanes, "levels": levels, "width": width, "v1": v1,
+          "steps": batch["steps"], "walk_depth": batch["walk_depth"],
+          "smem_path": circuit_kernel.launch_shape(q_count, lanes, v1)[1],
+          **counts, "bit_identical": True, "max_abs_err": err, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "bytes": moved, "ops": ops, "serial_chain_phases": chain})
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "serial_chain_phases": chain}
+
+
+def _k3_random_holds(device):
+    """K3 against its plain version on BUCKETED_RUNS seeded random batches
+    of 1-16 queries (support/workloads.circuit_batch: padding slots,
+    1-4 roots, spare variables), BUCKETED_GLOBAL_RUNS of them with a row
+    past the shared-memory cap, and the graft entry's batch."""
+    import torch
+
+    from mythril_tpu_torch import graft
+    from mythril_tpu_torch.gpu import circuit_kernel
+    from mythril_tpu_torch.support.workloads import circuit_batch
+
+    launches = circuit_kernel.launches
+    err, start = 0, time.monotonic()
+    shapes = {"smem": 0, "global": 0}
+    for run in range(BUCKETED_RUNS):
+        rng = random.Random(SEED + 100 + run)
+        wide = run < BUCKETED_GLOBAL_RUNS
+        batch = circuit_batch(rng, max_queries=4 if wide else 16,
+                              min_v1=circuit_kernel.SMEM_X_CAP + 16
+                              if wide else 0)
+        tensors = circuit_kernel.device_batch(batch, device)
+        q_count, levels = batch["out_idx"].shape[:2]
+        lanes = rng.randint(1, 16)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + run)
+        x = torch.randint(0, 2, (q_count, lanes, batch["ga_var"].shape[1]),
+                          generator=gen, device=device, dtype=torch.int32)
+        walk = rng.choice((levels + 4, rng.randint(0, levels + 4)))
+        err = max(err, _compare_k3(device, tensors, x, rng.getrandbits(31),
+                                   rng.randint(0, 12), walk)[0])
+        shapes["smem" if circuit_kernel.launch_shape(
+            q_count, lanes, batch["ga_var"].shape[1])[1] else "global"] += 1
+    fn, args = graft.entry(None if device.type == "cuda" else device)
+    err = max(err, _compare_k3(device, args[0], args[1], args[2],
+                               graft.STEPS_PER_ROUND,
+                               int(args[0]["out_idx"].shape[1]) + 4)[0])
+    fn(*args)  # the entry's own step runs too
+    circuit_kernel.launches = launches
+    emit({"phase": "bucketed", "window": "random-batches",
+          "batches": BUCKETED_RUNS, "paths": shapes, "graft_entry": True,
+          "bit_identical": True, "max_abs_err": err,
+          "seconds": time.monotonic() - start})
+    return err
+
+
+def _bucketed_sibling(device):
+    """The sibling window through get_models_batch on the bucketed path:
+    verdicts equal to the host CDCL's, every model checked; K3 held on
+    the largest batch it launched. Returns (launches, max abs error)."""
+    import mythril_tpu_torch.smt as smt
+    from mythril_tpu_torch.gpu import circuit_kernel
+    from mythril_tpu_torch.smt.solver import frontend
+    from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
+    from mythril_tpu_torch.support.args import args
+    from mythril_tpu_torch.support.model import clear_caches, get_models_batch
+    from mythril_tpu_torch.support.workloads import sibling_window
+
+    queries = sibling_window(smt, WINDOW, seed=SEED)
+    clear_caches()
+    frontend._global_blaster = None
+    host = _host_verdicts(device, queries)
+    clear_caches()
+    frontend._global_blaster = None
+    stats = SolverStatistics()
+    stats.reset()
+    stats.enabled = True
+    largest, calibration = {}, {}
+    args.reset()
+    args.solver_backend = "gpu"
+    args.torch_device = None if device.type == "cuda" else device
+    circuit_kernel.reset_launches()  # the window's count starts here
+    start = time.monotonic()
+    try:
+        # a window of its own: no analysis's execution budget applies
+        with _ragged(False), _keep_largest_k3(largest), \
+                _k3_calibration_launches(calibration):
+            results = get_models_batch(queries,
+                                       enforce_execution_time=False)
+        torch_sync(device)
+    finally:
+        args.reset()
+    wall = time.monotonic() - start
+    launches = circuit_kernel.launches  # ... and ends here
+    verdicts = [status for status, _model in results]
+    if verdicts != host:
+        raise AssertionError(f"bucketed sibling window: verdicts {verdicts} "
+                             f"differ from the host CDCL's {host}")
+    for (status, model), constraints in zip(results, queries):
+        if status == "sat" and not model.satisfies(constraints):
+            raise AssertionError("bucketed sibling window: a model fails "
+                                 "its constraints")
+    if launches <= calibration.get("launches", 0) or not largest:
+        raise AssertionError("bucketed sibling window: K3 ran no round")
+    counters = stats.as_dict()
+    emit({"phase": "bucketed", "window": "sibling", "queries": len(queries),
+          "wall_s": wall, "k3_launches": launches,
+          "k3_calibration_launches": calibration.get("launches", 0),
+          "sat": verdicts.count("sat"),
+          **{key: counters[key] for key in (
+              "device_batch_queries", "device_batch_hits",
+              "device_dispatches", "device_dispatched_queries",
+              "device_slots", "router_host_direct", "cap_rejects",
+              "router_slot_overflow", "aig_device_components",
+              "aig_device_component_hits")}})
+    held = _hold_k3(device, largest, "sibling-largest-bucket",
+                    {"k3_launches": launches})
+    return launches, held["max_abs_err"]
+
+
+def phase_bucketed(device, ragged_records=None):
+    """The bucketed path (--no-ragged) with K3 (see the module note).
+    `ragged_records` ({contract: {leg: record}}) are the analyze phase's
+    host and ragged device runs; without them the phase runs them itself.
+    Returns K3's launches on the analyze runs, its comparisons and times
+    on their largest batch."""
+    from mythril_tpu_torch.gpu import circuit_kernel, ragged_kernel
+    from mythril_tpu_torch.gpu import router as router_mod
+
+    err = _k3_random_holds(device)
+    sibling_launches, sibling_err = _bucketed_sibling(device)
+    err = max(err, sibling_err)
+    inputs = {name: (code, tx, timeout)
+              for name, code, tx, timeout, _c in _analyze_inputs()
+              if name in BUCKETED_CONTRACTS}
+    total, largest_all = 0, {}
+    for name in BUCKETED_CONTRACTS:
+        code, tx_count, timeout = inputs[name]
+        legs = dict((ragged_records or {}).get(name, {}))
+        for leg, solver_backend in (("cpu", "cpu"), ("gpu", "gpu")):
+            if leg not in legs:
+                legs[leg] = _analyze_once(device, code, tx_count, timeout,
+                                          solver_backend, {})[2]
+        largest, calibration = {}, {}
+        k1_before = ragged_kernel.launches
+        circuit_kernel.reset_launches()  # this run's count starts here
+        with _keep_largest_k3(largest), \
+                _k3_calibration_launches(calibration):
+            _report, done, record = _analyze_once(
+                device, code, tx_count, timeout, "gpu", {},
+                engine={"no_ragged": True})
+        launches = circuit_kernel.launches  # ... and ends here
+        # the roofline's ceilings of the run: K3's rate and the ship rate
+        # its calibration measured, beside the stage rates
+        with _ragged(False):
+            ceilings = router_mod._router.attainable_rates()
+        total += launches
+        row = {}
+        for leg, rec in (("host", legs["cpu"]), ("ragged", legs["gpu"]),
+                         ("bucketed", record)):
+            row[leg] = {
+                "wall_s": rec["wall_s"], "completed": rec["completed"],
+                "prepare_s": rec["prepare_s"],
+                "cnf_prep_s": rec["spans"].get("solver.cnf_prep",
+                                               [0, 0.0])[1],
+                "get_model_s": rec["spans"].get("solver.get_model",
+                                                [0, 0.0])[1],
+                "device_batch_queries": rec["device_batch_queries"],
+                "device_batch_hits": rec["device_batch_hits"],
+                "cnf_prep_split": rec["cnf_prep_split"],
+                "findings": len(rec["findings"])}
+        emit({"phase": "bucketed", "contract": name, "tx": tx_count,
+              "k3_launches": launches,
+              "k3_calibration_launches": calibration.get("launches", 0),
+              "k1_launches": ragged_kernel.launches - k1_before,
+              "router": record["router"], "cap_rejects":
+                  record["cap_rejects"], "router_host_direct":
+                  record["router_host_direct"], "ceilings": ceilings,
+              **row})
+        if not done:
+            raise AssertionError(f"bucketed: {name} did not complete")
+        if record["findings"] != legs["cpu"]["findings"]:
+            raise AssertionError(
+                f"bucketed: {name}: findings {record['findings']} differ "
+                f"from the host backend's {legs['cpu']['findings']}")
+        if launches <= calibration.get("launches", 0) or not largest:
+            raise AssertionError(f"bucketed: {name}: K3 ran no round")
+        if ragged_kernel.launches != k1_before:
+            raise AssertionError(f"bucketed: {name}: K1 launched")
+        err = max(err, _hold_k3(device, largest, f"{name}-largest",
+                                {"contract": name,
+                                 "k3_launches": launches})["max_abs_err"])
+        if largest["size"] > largest_all.get("size", -1):
+            largest_all = largest
+    timed = _hold_k3(device, largest_all, "analyze-largest-timed",
+                     {"k3_launches": total}, timed=True)
+    return {**timed, "launches": total, "max_abs_err": err,
+            "sibling_launches": sibling_launches}
+
+
+def bucketed_only(device) -> int:
+    """Env, build and the bucketed phase alone (see the module note)."""
+    phase_build()
+    phase_bucketed(device)
+    return 0
+
+
 def _host_verdicts(device, queries):
     from mythril_tpu_torch.support.args import args
     from mythril_tpu_torch.support.model import get_models_batch
@@ -2466,6 +2869,10 @@ def main() -> int:
             phase_resilience(device)
             print(smi, flush=True)
             return 0
+        if "--bucketed-only" in sys.argv[1:]:
+            bucketed_only(device)
+            print(smi, flush=True)
+            return 0
         phase_build()
         with _preanalysis(False):
             queries, verdicts, slice_launches = phase_slice(device)
@@ -2474,6 +2881,7 @@ def main() -> int:
         router = phase_router(device)
         frontier = phase_frontier(device)
         analyze = phase_analyze(device)
+        bucketed = phase_bucketed(device, analyze["records"])
         phase_telemetry_overhead(device)
         resilience = phase_resilience(device)
         emit({"phase": "total", "seconds": time.monotonic() - start})
@@ -2552,6 +2960,27 @@ def main() -> int:
         "launch_floor": _timing_fields(frontier["floor"]),
         "analyze_idle": {key: analyze["frontier_idle"].get(key) for key in (
             "contract", "steps", "host_step_ms", "device_idle_share")},
+    }, {
+        "name": "circuit_round",
+        "route": "cuda",
+        "source": "mythril_tpu_torch/csrc/circuit_round.cu",
+        # an XLA program, not a Pallas kernel: run_round_circuit, vmapped
+        # over queries by run_round_circuit_batch (:507)
+        "replaces": "mythril_tpu/tpu/circuit.py:460",
+        # the main path's launches: the bucketed phase's analyze runs
+        # (--no-ragged), their calibration launches included
+        "launches": bucketed["launches"],
+        "launches_by_path": {"bucketed_analyze": bucketed["launches"],
+                             "bucketed_sibling":
+                                 bucketed["sibling_launches"]},
+        "max_abs_err": bucketed["max_abs_err"],
+        # one round on the largest batch the analyze runs launched
+        "ms": bucketed["ms"],
+        "plain_ms": bucketed["plain_ms"],
+        "bound_ms": bucketed["bound_ms"],
+        "bound_by": bucketed["bound_by"],
+        "library_ms": None,
+        "serial_chain_phases": bucketed["serial_chain_phases"],
     }]})
     with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w") as fd:
         fd.write("\n".join(_lines) + "\n")

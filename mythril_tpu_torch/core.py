@@ -21,14 +21,40 @@ from mythril_tpu_torch.analysis.report import Issue, Report
 from mythril_tpu_torch.analysis.security import fire_lasers, retrieve_callback_issues
 from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
 from mythril_tpu_torch.ethereum.evmcontract import EVMContract
-from mythril_tpu_torch.gpu.device import DeviceFault, clear_fault
+from mythril_tpu_torch.gpu.device import (
+    DeviceFault,
+    clear_fault,
+    resolve_device,
+)
 from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
 from mythril_tpu_torch.support.args import args
+from mythril_tpu_torch.support.time_handler import time_handler
 from mythril_tpu_torch.laser.transaction.models import tx_id_manager
 
 log = logging.getLogger(__name__)
 
 ANALYSIS_ADDRESS = 0x901D12EBE1B195E5AA8748E62BD7734AE19B51F  # well-known probe address
+
+
+def build_device_kernels() -> None:
+    """Build every kernel the run's device path launches: K1 on the ragged
+    path or K3 on the bucketed one (--no-ragged), and K6 with the frontier
+    on. A build is slow the first time (nvcc), so it happens here, before
+    the first window, and never inside a dispatch's hard deadline."""
+    from mythril_tpu_torch.gpu import (
+        circuit_kernel,
+        frontier_kernel,
+        ragged_kernel,
+    )
+    from mythril_tpu_torch.gpu.router import ragged_enabled
+    from mythril_tpu_torch.laser import frontier
+
+    if ragged_enabled():
+        ragged_kernel.build_kernel()
+    else:
+        circuit_kernel.build_kernel()
+    if frontier.enabled():
+        frontier_kernel.build_kernel()
 
 
 class MythrilDisassembler:
@@ -71,7 +97,8 @@ class MythrilAnalyzer:
                 "solve_cache", "transaction_sequences", "beam_width",
                 "disable_coverage_strategy", "no_preanalysis",
                 "no_aig_opt", "no_incremental_prep", "no_vmap_frontier",
-                "no_frontier_fork", "trace", "heartbeat", "inject_fault",
+                "no_frontier_fork", "no_ragged", "trace", "heartbeat",
+                "inject_fault",
             ):
                 if hasattr(cmd_args, field) and getattr(cmd_args, field) is not None:
                     setattr(args, field, getattr(cmd_args, field))
@@ -88,19 +115,12 @@ class MythrilAnalyzer:
 
         reset_engine_state()
         if args.solver_backend == "gpu":
-            # the device backend needs its device, K1 and (with the
-            # frontier on) K6 before the first window: with no card and
-            # none named this raises (NoDeviceError), and a kernel that
-            # does not build raises, before anything is explored; neither
-            # finishes on the host
-            from mythril_tpu_torch.gpu import frontier_kernel, ragged_kernel
-            from mythril_tpu_torch.gpu.device import resolve_device
-            from mythril_tpu_torch.laser import frontier
-
+            # the device backend needs its device and its kernels before
+            # the first window: with no card and none named this raises
+            # (NoDeviceError), and a kernel that does not build raises,
+            # before anything is explored; neither finishes on the host
             if resolve_device(args.torch_device).type == "cuda":
-                ragged_kernel.build_kernel()
-                if frontier.enabled():
-                    frontier_kernel.build_kernel()
+                build_device_kernels()
         stats = SolverStatistics()
         stats.enabled = True
         # the fault-injection harness (resilience/faults.py): armed from
@@ -141,6 +161,9 @@ class MythrilAnalyzer:
                 # stats JSON, so the two agree
                 heartbeat.stop(final=True)
             self._dump_stats_json(stats, completed=completed)
+            # the execution budget ends with the run: a window solved after
+            # it, outside any analysis, is not held to a spent budget
+            time_handler.start_execution(None)
             if trace_path:
                 tracer = get_tracer()
                 tracer.write()

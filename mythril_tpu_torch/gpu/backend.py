@@ -6,11 +6,18 @@ circuit structure), chunks the window, and hands each chunk here; the
 chunk is packed into ONE ragged flat stream (circuit.RaggedStream) and
 rounds of the ragged round (ragged_kernel.py) run until every cone is
 solved or the search stalls, with the cube second pass on the cones the
-plain rounds miss. Found models are checked against the CNF on the host;
-None entries are left to the caller's CDCL, which alone proves UNSAT.
+plain rounds miss.
 
-A kernel that fails to build or to launch, a device error, or a chunk past
-a kernel capacity raises: nothing here drops the device path silently.
+try_solve_batch_circuit() is the bucketed path (--no-ragged): one level
+bucket of queries, each cone padded to the bucket's shape and the query
+axis to a power of two, runs rounds of the per-query round
+(circuit_kernel.py) over every query at once. try_solve() is its
+single-query form.
+
+Found models are checked against the CNF on the host; None entries are
+left to the caller's CDCL, which alone proves UNSAT. A kernel that fails
+to build or to launch, a device error, or a chunk past a kernel capacity
+raises: nothing here drops the device path silently.
 """
 
 import logging
@@ -21,7 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mythril_tpu_torch.gpu import circuit, ragged_kernel
+from mythril_tpu_torch.gpu import circuit, circuit_kernel, ragged_kernel
 from mythril_tpu_torch.gpu.device import resolve_device
 from mythril_tpu_torch.observe.tracer import span as trace_span
 from mythril_tpu_torch.preanalysis import cubes
@@ -50,6 +57,14 @@ def shape_bucket(n: int) -> int:
             return size + size // 2
         size *= 2
     return size
+
+
+def _pow2_slots(dp: int, n: int) -> int:
+    """Query-axis padding: a pow2 ramp from `dp` (1 on one card)."""
+    q = max(1, dp)
+    while q < n:
+        q *= 2
+    return q
 
 
 def _circuit_struct_key(aig, roots) -> tuple:
@@ -123,6 +138,8 @@ class DeviceSolverBackend:
         self.reset_stats()
         self._seed = 0
         self._pack_cache = _LRU(512)  # struct key -> PackedCircuit
+        # (struct key, bucket shape) -> the padded tables on the device
+        self._padded_cache = _LRU(256)
         # test hook: on_stream(stream, entries) before each upload
         self.on_stream = None
 
@@ -163,6 +180,20 @@ class DeviceSolverBackend:
         # ragged-round launches and the block-aligned cells they stepped
         self.kernel_launches = 0
         self.kernel_cells_stepped = 0
+
+    def try_solve(self, num_vars: int, clauses, assumptions=(),
+                  budget_seconds: float = 2.0,
+                  aig_roots: Optional[Tuple] = None):
+        """Search one query's model on the device; None if not found in
+        budget. The caller provides the blasted AIG (`aig_roots = (aig,
+        root_lits[, dense])`); assumption probes and bare CNF go back to
+        the CDCL (None). A model found is validated against the CNF on
+        the host."""
+        if aig_roots is None or assumptions:
+            return None
+        return self.try_solve_batch_circuit(
+            [(num_vars, clauses, aig_roots)],
+            budget_seconds=budget_seconds)[0]
 
     def count_cap_reject(self, count: int = 1,
                          under_floor: bool = False) -> None:
@@ -213,6 +244,201 @@ class DeviceSolverBackend:
         rows = pc.level_rows
         widest = int(rows.max()) if len(rows) else 1
         return (pc.num_levels * widest * 5 + pc.v1 * 5) * 4 * 2
+
+    # -- the bucketed path (circuit_kernel.py) ---------------------------------
+
+    def padded_query_slots(self, n: int) -> int:
+        """Query-axis padding of a bucketed launch of n live queries (one
+        card: the pow2 ramp from 1) — occupancy accounting."""
+        return _pow2_slots(1, n)
+
+    def _platform_caps(self) -> Tuple[int, int, int]:
+        """The router's (level, cell, var) eligibility caps."""
+        from mythril_tpu_torch.gpu.router import get_router
+
+        return get_router(self.device).resolve_caps()
+
+    def _padded_device(self, pc, skey, shape_key) -> dict:
+        """One cone's tables padded to the bucket shape, on the device,
+        through the padded-tensor cache: ship bytes and wall accrue per
+        miss (only misses pad and upload)."""
+        def upload():
+            start = time.monotonic()
+            entry = circuit_kernel.device_batch(
+                {key: value[None] for key, value
+                 in pc.padded_to(*shape_key).items()}, self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.ship_seconds += time.monotonic() - start
+            return entry
+
+        entry, hit = self._padded_cache.get_or((skey, shape_key), upload)
+        if not hit:
+            self.ship_bytes += int(sum(t.numel() * t.element_size()
+                                       for t in entry.values()))
+        return entry
+
+    def try_solve_batch_circuit(
+        self,
+        problems: Sequence[Tuple[int, Sequence, Tuple]],
+        budget_seconds: float = 4.0,
+        size_caps: Optional[Tuple[int, int, int]] = None,
+        num_restarts: Optional[int] = None,
+        steps: Optional[int] = None,
+        packed_hint: Optional[Sequence] = None,
+    ) -> List[Optional[List[bool]]]:
+        """Solve many blasted queries with the per-query round in one
+        launch a round. `problems` entries are (num_vars, clauses,
+        (aig, root_lits[, dense])). Returns per-query model bits or None
+        (the caller's CDCL settles misses and alone proves UNSAT).
+
+        Each cone is padded to the batch's 1.5x shape bucket (levels,
+        width, variables, roots), the query axis to a power of two with
+        all-zero slots (no live root: found at step 0). Packing and the
+        padded device tables are cached by circuit structure across
+        calls. `size_caps` overrides the router's (level, cell, var)
+        caps; `num_restarts` / `steps` the per-round work (the router's
+        evidence profile on the CPU); `packed_hint` (aligned with
+        `problems`) supplies PackedCircuits the router already built.
+
+        Rounds run until every query is solved, STALL_ROUNDS rounds pass
+        without a new solve, or the budget is spent. A query solved in
+        one round keeps that lane's assignment; between rounds the first
+        half of each unsolved query's lanes is re-drawn from a seeded
+        generator on the backend's device."""
+        results: List[Optional[List[bool]]] = [None] * len(problems)
+        if size_caps is not None:
+            level_cap, cell_cap, v1_cap = size_caps
+        else:
+            level_cap, cell_cap, v1_cap = self._platform_caps()
+
+        # entries: (orig idx, num_vars, pc, struct key, dense map or None)
+        packed: List[Tuple] = []
+        with trace_span("device.pack", cat="device",
+                        queries=len(problems)):
+            for qi, (num_vars, clauses, aig_roots) in enumerate(problems):
+                if num_vars == 0:
+                    continue
+                if packed_hint is not None and packed_hint[qi] is not None:
+                    pc = packed_hint[qi]
+                else:
+                    pc = self.pack_problem(
+                        (num_vars, clauses, aig_roots), v1_cap)
+                    if pc is None:
+                        continue
+                dense = aig_roots[2] if len(aig_roots) > 2 else None
+                skey = _circuit_struct_key(aig_roots[0], aig_roots[1])
+                if (pc.ok and pc.num_levels <= level_cap
+                        and pc.num_levels * pc.max_width <= cell_cap
+                        and pc.v1 <= v1_cap):
+                    packed.append((qi, num_vars, pc, skey, dense))
+                elif pc.ok:
+                    self.count_cap_reject()
+        self.queries += len(packed)
+        if not packed:
+            return results
+        call_start = time.monotonic()
+        deadline = call_start + budget_seconds
+        self.batch_calls += 1
+        self.batch_queries += len(packed)
+        self._seed += 1
+
+        pcs = [p for _, _, p, _, _ in packed]
+        n_levels = shape_bucket(max(p.num_levels for p in pcs) or 1)
+        width = shape_bucket(max(p.max_width for p in pcs))
+        v1 = shape_bucket(max(p.v1 for p in pcs))
+        n_roots = shape_bucket(max(p.num_roots for p in pcs))
+        walk_depth = min(n_levels + 4, circuit.MAX_LEVELS)
+        if num_restarts is None:
+            num_restarts = self.num_restarts
+        if steps is None:
+            steps = self.CIRCUIT_STEPS
+        q = _pow2_slots(1, len(packed))
+        shape_key = (n_levels, width, v1, n_roots)
+
+        with trace_span("device.ship", cat="device", slots=q):
+            padded = [self._padded_device(p, skey, shape_key)
+                      for _, _, p, skey, _ in packed]
+            if q > len(packed):
+                zero, _ = self._padded_cache.get_or(
+                    ("zero", shape_key),
+                    lambda: {key: torch.zeros_like(value)
+                             for key, value in padded[0].items()})
+                padded += [zero] * (q - len(packed))
+            # batch assembly of resident tables, on the device
+            tensors = {key: torch.cat([entry[key] for entry in padded])
+                       for key in circuit.TENSOR_KEYS}
+            rows = circuit_kernel.level_rows(tensors)
+        solve_start = time.monotonic()
+
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(self._seed)
+        x = torch.randint(0, 2, (q, num_restarts, v1), generator=generator,
+                          device=self.device, dtype=torch.int32)
+        # sticky per-slot results: a query solved in round k keeps its
+        # model even if later rounds re-randomize
+        solved = np.zeros((q,), dtype=bool)
+        best_rows = {}  # slot -> host copy of the satisfying assignment
+        rounds = stall = 0
+        half = num_restarts // 2
+        with trace_span("device.kernel", cat="device", slots=q,
+                        levels=n_levels, width=width,
+                        restarts=num_restarts) as kernel_span:
+            while True:
+                x, found = circuit_kernel.run_round_circuit_kernel(
+                    tensors, x,
+                    seed=(self._seed * 1000003 + rounds) & 0x7FFFFFFF,
+                    steps=steps, walk_depth=walk_depth, rows=rows)
+                rounds += 1
+                self.flips += q * num_restarts * steps
+                # the calibration's cell unit: each step resimulates the
+                # bucket's levels x width cells plus a walk (the 2x), per
+                # padded query slot
+                self.cells_stepped += q * steps * 2 * n_levels * width
+                found_host = found.cpu().numpy()
+                round_solved = found_host.any(axis=1)
+                newly = round_solved & ~solved
+                if newly.any():
+                    stall = 0
+                    x_host = x.cpu().numpy()
+                    for slot in np.nonzero(newly)[0]:
+                        lane = int(np.argmax(found_host[slot]))
+                        best_rows[int(slot)] = x_host[slot, lane].copy()
+                else:
+                    stall += 1
+                solved |= round_solved
+                if (solved.all() or stall >= self.STALL_ROUNDS
+                        or time.monotonic() >= deadline):
+                    break
+                # re-draw the unsolved queries' first half of lanes
+                # (solved slots keep their frozen assignments)
+                if half:
+                    fresh = torch.randint(
+                        0, 2, (q, half, v1), generator=generator,
+                        device=self.device, dtype=torch.int32)
+                    unsolved = torch.as_tensor(
+                        ~solved, device=self.device)[:, None, None]
+                    x[:, :half] = torch.where(unsolved, fresh, x[:, :half])
+            kernel_span.set(rounds=rounds)
+        self.solve_seconds += time.monotonic() - solve_start
+
+        with trace_span("device.check", cat="device", queries=len(packed)):
+            for slot, (qi, num_vars, pc, _skey, dense) in enumerate(packed):
+                assignment = best_rows.get(slot)
+                if assignment is None:
+                    self.fallbacks += 1
+                    continue
+                bits = self.bits_from_circuit_assignment(
+                    pc, dense, num_vars, assignment)
+                if self._honors(bits, problems[qi][1]):
+                    results[qi] = bits
+                    self.batch_sat += 1
+                    self.sat_found += 1
+                else:
+                    self.fallbacks += 1
+                    log.warning("circuit model failed host clause check")
+        self.device_seconds += time.monotonic() - call_start
+        return results
 
     # -- ragged flat-stream dispatch (circuit.RaggedStream) ------------------
 

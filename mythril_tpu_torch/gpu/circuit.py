@@ -15,9 +15,11 @@ The search runs over the AIG *inputs* only:
 
 A satisfying input assignment found this way satisfies the WHOLE CNF after
 one simulation pass. This module holds the host side: the levelized cone
-(PackedCircuit), the window of cones packed into one flat stream
-(RaggedStream) and the restart-lane initialisation. The round itself is
-the CUDA kernel in gpu/ragged_kernel.py.
+(PackedCircuit, and its copy padded to a batch shape for the bucketed
+path), the window of cones packed into one flat stream (RaggedStream) and
+the restart-lane initialisation. The rounds themselves are the CUDA
+kernels in gpu/ragged_kernel.py (a ragged stream) and
+gpu/circuit_kernel.py (a bucketed batch of padded cones).
 
 Shapes: x is [R, V1] int32 in {0,1} (var 0 pinned to 0 = constant FALSE;
 literal value = x[var] ^ neg). Level tensors [L, G]; per-var gate tables
@@ -180,6 +182,32 @@ class PackedCircuit:
         if not self.ok:
             return 0
         return int(sum(getattr(self, key).nbytes for key in TENSOR_KEYS))
+
+    def padded_to(self, num_levels, max_width, v1, num_roots) -> dict:
+        """Copy the tensors into a shared batch shape (the bucketed path's
+        query axis): zero padding, so padded level cells read and write
+        var 0 and padded roots are masked."""
+        def pad2(a):
+            out = np.zeros((max(num_levels, 1), max_width), dtype=np.int32)
+            out[: a.shape[0], : a.shape[1]] = a
+            return out
+
+        def pad1(a, n):
+            out = np.zeros((n,), dtype=np.int32)
+            out[: a.shape[0]] = a
+            return out
+
+        return dict(
+            out_idx=pad2(self.out_idx), a_var=pad2(self.a_var),
+            a_neg=pad2(self.a_neg), b_var=pad2(self.b_var),
+            b_neg=pad2(self.b_neg),
+            ga_var=pad1(self.ga_var, v1), ga_neg=pad1(self.ga_neg, v1),
+            gb_var=pad1(self.gb_var, v1), gb_neg=pad1(self.gb_neg, v1),
+            is_gate=pad1(self.is_gate, v1),
+            root_var=pad1(self.root_var, num_roots),
+            root_neg=pad1(self.root_neg, num_roots),
+            root_mask=pad1(self.root_mask, num_roots),
+        )
 
 
 TENSOR_KEYS = ("out_idx", "a_var", "a_neg", "b_var", "b_neg",

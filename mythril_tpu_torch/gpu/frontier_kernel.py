@@ -38,22 +38,17 @@ scatter does.
 import ctypes
 import math
 import os
-import shutil
-import subprocess
-import tempfile
 import threading
 import time
 
 import numpy as np
 import torch
 
+from mythril_tpu_torch.gpu.ragged_kernel import nvcc_library
 from mythril_tpu_torch.laser.frontier import words
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SOURCE = os.path.join(_PACKAGE_DIR, "csrc", "frontier_step.cu")
-BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # micro-op kinds and binary ops in the order of csrc/frontier_step.cu's
 # Kind and BinOp enums
@@ -438,29 +433,7 @@ def build_kernel() -> dict:
     global _lib
     with _lib_lock:
         start = time.monotonic()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so_path = os.path.join(BUILD_DIR, "libfrontier_step.so")
-        log_path = os.path.join(BUILD_DIR, "frontier_step.ptxas.txt")
-        if (not os.path.exists(so_path) or os.path.getmtime(so_path)
-                < os.path.getmtime(KERNEL_SOURCE)):
-            nvcc = shutil.which("nvcc") or os.path.join(
-                os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-            with tempfile.NamedTemporaryFile(suffix=".so", dir=BUILD_DIR,
-                                             delete=False) as tmp:
-                tmp_path = tmp.name
-            try:
-                done = subprocess.run(
-                    [nvcc, *NVCC_FLAGS, "-o", tmp_path, KERNEL_SOURCE],
-                    capture_output=True, text=True, timeout=600)
-                if done.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({done.returncode}):\n{done.stderr}")
-                with open(log_path, "w") as fd:
-                    fd.write(done.stderr)
-                os.replace(tmp_path, so_path)
-            finally:
-                if os.path.exists(tmp_path):
-                    os.unlink(tmp_path)
+        so_path, ptxas = nvcc_library(KERNEL_SOURCE, "frontier_step")
         if _lib is None:
             lib = ctypes.CDLL(so_path)
             lib.frontier_step_args_size.restype = ctypes.c_int
@@ -476,10 +449,6 @@ def build_kernel() -> dict:
             lib.frontier_step_error_string.restype = ctypes.c_char_p
             lib.frontier_step_error_string.argtypes = [ctypes.c_int]
             _lib = lib
-        ptxas = ""
-        if os.path.exists(log_path):
-            with open(log_path) as fd:
-                ptxas = fd.read()
         return {"seconds": time.monotonic() - start, "ptxas": ptxas}
 
 

@@ -588,6 +588,40 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
+def nvcc_library(source: str, stem: str):
+    """Compile `source` with nvcc into _build/lib<stem>.so, skipped when
+    the library is newer than its source. Returns (the library's path,
+    the compiler's resource report)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so_path = os.path.join(BUILD_DIR, f"lib{stem}.so")
+    log_path = os.path.join(BUILD_DIR, f"{stem}.ptxas.txt")
+    if (not os.path.exists(so_path)
+            or os.path.getmtime(so_path) < os.path.getmtime(source)):
+        nvcc = shutil.which("nvcc") or os.path.join(
+            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+        with tempfile.NamedTemporaryFile(suffix=".so", dir=BUILD_DIR,
+                                         delete=False) as tmp:
+            tmp_path = tmp.name
+        try:
+            done = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-o", tmp_path, source],
+                capture_output=True, text=True, timeout=600)
+            if done.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({done.returncode}):\n{done.stderr}")
+            with open(log_path, "w") as fd:
+                fd.write(done.stderr)
+            os.replace(tmp_path, so_path)
+        finally:
+            if os.path.exists(tmp_path):
+                os.unlink(tmp_path)
+    ptxas = ""
+    if os.path.exists(log_path):
+        with open(log_path) as fd:
+            ptxas = fd.read()
+    return so_path, ptxas
+
+
 def build_kernel() -> dict:
     """Compile csrc/ragged_round.cu with nvcc into _build/ (skipped when
     the library is newer than its source) and load it. Returns
@@ -595,29 +629,7 @@ def build_kernel() -> dict:
     global _lib
     with _lib_lock:
         start = time.monotonic()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so_path = os.path.join(BUILD_DIR, "libragged_round.so")
-        log_path = os.path.join(BUILD_DIR, "ragged_round.ptxas.txt")
-        if (not os.path.exists(so_path) or os.path.getmtime(so_path)
-                < os.path.getmtime(KERNEL_SOURCE)):
-            nvcc = shutil.which("nvcc") or os.path.join(
-                os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-            with tempfile.NamedTemporaryFile(suffix=".so", dir=BUILD_DIR,
-                                             delete=False) as tmp:
-                tmp_path = tmp.name
-            try:
-                done = subprocess.run(
-                    [nvcc, *NVCC_FLAGS, "-o", tmp_path, KERNEL_SOURCE],
-                    capture_output=True, text=True, timeout=600)
-                if done.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({done.returncode}):\n{done.stderr}")
-                with open(log_path, "w") as fd:
-                    fd.write(done.stderr)
-                os.replace(tmp_path, so_path)
-            finally:
-                if os.path.exists(tmp_path):
-                    os.unlink(tmp_path)
+        so_path, ptxas = nvcc_library(KERNEL_SOURCE, "ragged_round")
         if _lib is None:
             lib = ctypes.CDLL(so_path)
             ptr = ctypes.c_void_p
@@ -629,10 +641,6 @@ def build_kernel() -> dict:
             lib.ragged_round_error_string.restype = ctypes.c_char_p
             lib.ragged_round_error_string.argtypes = [ctypes.c_int]
             _lib = lib
-        ptxas = ""
-        if os.path.exists(log_path):
-            with open(log_path) as fd:
-                ptxas = fd.read()
         return {"seconds": time.monotonic() - start, "ptxas": ptxas}
 
 

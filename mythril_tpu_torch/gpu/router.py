@@ -1,4 +1,5 @@
-"""Adaptive device-solver routing: the ragged path of mythril_tpu.tpu.router.
+"""Adaptive device-solver routing (mythril_tpu.tpu.router): the ragged
+path, the default, and the bucketed one.
 
 get_models_batch hands each window of prepared queries to dispatch(),
 which decides per cone where it is solved and ships the device-bound ones
@@ -51,13 +52,44 @@ to the ragged round (backend.try_solve_batch_ragged):
               MYTHRIL_GPU_RAGGED_WINDOW_CAP (default 4) streams per
               process.
 
-Differences from the JAX package, on purpose: an exception from the
-kernel, its build or the device, an injected fault at device.dispatch or
+The bucketed path (--no-ragged, or MYTHRIL_GPU_RAGGED=0, which wins over
+the flag either way) is the JAX package's level-bucketed dispatch with K3,
+the per-query round (backend.try_solve_batch_circuit):
+
+  caps        (level, cell, var) eligibility caps: MYTHRIL_GPU_LEVEL_CAP,
+              _CELL_CAP and _VAR_CAP override; else 1024 levels on a card
+              (896 on the CPU), raised (never below the 640-level floor,
+              at most 4x) by K3's micro-calibration, 2^22 cells, 2^16
+              variables on a card (2^15 on the CPU).
+  admission   past a cap: a cap reject; at most HOST_DIRECT_LEVELS deep:
+              host-direct; one round over the cone's levels x width plus
+              the amortized pack and ship wall past the round budget:
+              a cost reject, counted as a cap reject, unless the cone is
+              inside the 640-level, 2^20-cell floor; else the device.
+              Partitioned queries dispatch component by component under
+              the same rules. Fork pairs are not packed as shared cones:
+              each side is a query of its own.
+  dispatch    admitted units group by the 1.5x bucket of their depth; the
+              fullest bucket goes first, one backend call each (its
+              query axis padded to a power of two). In evidence mode at
+              most MYTHRIL_GPU_CPU_DISPATCH_CAP (default 2) dispatches a
+              process, each trimmed to MYTHRIL_GPU_CPU_BATCH_SLOTS
+              (default 2) queries; the rest go to the host CDCL, counted
+              as router_slot_overflow.
+  calibration K3 on the calibration circuit, timed with CUDA events over
+              CAL_STEPS after one warm-up launch (perf_counter on the
+              CPU): per_cell_s, seconds per cell and step, and the ship
+              rate (pad and upload), beside the stage rates. It runs only
+              while the bucketed mode is live: the ragged path never
+              resolves these caps.
+
+Differences from the JAX package, on purpose: an exception from a kernel,
+its build or the device, an injected fault at device.dispatch or
 device.calibrate, and a dispatch past its hard deadline propagate to the
 caller as a recorded DeviceFault (no host fallback; the breaker sees only
-zero-hit waste). Dispatch is always ragged: the bucketed path (its
-admission, try_solve_batch_circuit and the switch between the two) waits
-for K3.
+zero-hit waste), on either path. The JAX package calibrates K3 in every
+process (it resolves its caps on every dispatch); the port only where the
+bucketed mode is live, and K1 only where the ragged one is.
 """
 
 import contextlib
@@ -69,7 +101,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mythril_tpu_torch.gpu import circuit, ragged_kernel
+from mythril_tpu_torch.gpu import circuit, circuit_kernel, ragged_kernel
 from mythril_tpu_torch.gpu.backend import (
     CUBE_MIN_LEVELS_DEFAULT,
     CUBE_VARS_DEFAULT,
@@ -95,6 +127,36 @@ LEVEL_CAP_FLOOR = 640
 CELL_FLOOR = 1 << 20
 CAL_STEPS = 8  # micro-calibration round length (tiny on purpose)
 ROUND_BUDGET_S = 4.0  # device seconds one stream's round may plan for
+# the bucketed path's default caps (the JAX package's raised defaults: the
+# production analyze cones levelize at 513-540 levels through get_model
+# and 772-800 at the batched fork-pruning seam)
+DEFAULT_LEVEL_CAP_CPU = 896
+DEFAULT_LEVEL_CAP_DEVICE = 1024
+DEFAULT_CELL_CAP = 1 << 22
+DEFAULT_VAR_CAP_CPU = 1 << 15
+DEFAULT_VAR_CAP_DEVICE = 1 << 16
+
+
+def ragged_enabled() -> bool:
+    """The dispatch mode: MYTHRIL_GPU_RAGGED first (0/off/false or
+    1/on/true), then the --no-ragged flag; ragged by default. Module-level
+    because the scheduler and get_models_batch read it too."""
+    env = os.environ.get("MYTHRIL_GPU_RAGGED", "")
+    if env in ("0", "off", "false"):
+        return False
+    if env in ("1", "on", "true"):
+        return True
+    from mythril_tpu_torch.support.args import args
+
+    return not getattr(args, "no_ragged", False)
+
+
+def _env_cap(name: str) -> Optional[int]:
+    """An integer cap override, or None when unset or malformed."""
+    try:
+        return int(os.environ[name])
+    except (KeyError, ValueError):
+        return None
 
 
 class _Unit:
@@ -147,6 +209,10 @@ class QueryRouter:
         self._rates = {}
         self.calibration_seconds = 0.0
         self._calibrated = False
+        # the bucketed path: its (level, cell, var) caps once resolved, and
+        # K3's calibration (per_cell_s in _rates)
+        self._caps = None
+        self._bucketed_calibrated = False
         self._breaker = StageBreaker("device.dispatch")
         self.round_budget_s = ROUND_BUDGET_S
         self.max_waste_s = env_float("MYTHRIL_GPU_DEVICE_MAX_WASTE", -1.0)
@@ -161,6 +227,10 @@ class QueryRouter:
         self.ragged_windows = 0
         self.cube_min_levels = int(env_float("MYTHRIL_GPU_CUBE_MIN_LEVELS",
                                              CUBE_MIN_LEVELS_DEFAULT))
+        # evidence-mode bucketed dispatches per process, and those made
+        self.cpu_dispatch_cap = int(
+            env_float("MYTHRIL_GPU_CPU_DISPATCH_CAP", 2))
+        self.dispatches = 0
 
     def _evidence_mode(self) -> bool:
         """True where the plain round serializes on the host (device
@@ -228,6 +298,7 @@ class QueryRouter:
         if os.environ.get("MYTHRIL_GPU_CALIBRATE", "") == "0":
             return
         from mythril_tpu_torch.service.calibration import (
+            KERNEL_RATE_KEY,
             STAGE_RATE_KEYS,
             load_profile,
             save_profile,
@@ -235,9 +306,11 @@ class QueryRouter:
 
         platform = self._platform()
         restarts, steps = self._profile_restarts(), self._profile_steps()
-        cached = load_profile(platform, restarts, steps)
-        if cached is not None:
-            self._rates = cached
+        cached = load_profile(platform, restarts, steps) or {}
+        if KERNEL_RATE_KEY in cached:
+            own = {key: cached[key] for key in (KERNEL_RATE_KEY,)
+                   + STAGE_RATE_KEYS if key in cached}
+            self._rates.update(own)
             if any(key not in cached for key in STAGE_RATE_KEYS):
                 # an entry with K1's rate but not every stage ceiling
                 # would leave those stages without a ceiling for good
@@ -245,17 +318,18 @@ class QueryRouter:
                 # without a kernel round, and re-save
                 with trace_span("router.calibrate", cat="router"):
                     rates, _flat = self._measure_stage_rates()
-                self._rates = {**cached, **rates}
-                save_profile(platform, restarts, steps, self._rates)
+                self._rates.update(rates)
+                save_profile(platform, restarts, steps, {**own, **rates})
             return
         start = time.monotonic()
         with trace_span("router.calibrate", cat="router"):
             maybe_inject("device.calibrate")
-            self._rates = self._measure_rates()
-        self.calibration_seconds = time.monotonic() - start
-        log.info("device micro-calibration: %s (%.2fs)", self._rates,
+            rates = self._measure_rates()
+        self._rates.update(rates)
+        self.calibration_seconds += time.monotonic() - start
+        log.info("device micro-calibration: %s (%.2fs)", rates,
                  self.calibration_seconds)
-        save_profile(platform, restarts, steps, self._rates)
+        save_profile(platform, restarts, steps, rates)
 
     def _measure_rates(self) -> dict:
         """The stage rates and K1's rate on their calibration stream."""
@@ -272,20 +346,8 @@ class QueryRouter:
         clauses/s (repeated cold CDCL solves of the same CNF). The stream
         is (flat on the device, stream), or None when it exceeds the
         kernel's capacities."""
-        from mythril_tpu_torch.smt import symbol_factory
-        from mythril_tpu_torch.smt.solver.frontend import Solver
-
         device = self.backend.device
-        a = symbol_factory.BitVecSym("!cal!a", 64)
-        b = symbol_factory.BitVecSym("!cal!b", 64)
-        solver = Solver()
-        solver.add(a + b == 12345, a > 17, b > 23)
-        prep = solver._prepare([])
-        pack_start = time.perf_counter()
-        pc = circuit.PackedCircuit(prep.aig_roots[0], prep.aig_roots[1])
-        pack_elapsed = time.perf_counter() - pack_start
-        if not pc.ok:
-            raise RuntimeError("calibration circuit failed to pack")
+        prep, pc, pack_elapsed = self._calibration_circuit()
         rates = {}
         if pack_elapsed > 0 and pc.nbytes:
             rates["pack_bytes_s"] = pc.nbytes / pack_elapsed
@@ -308,6 +370,158 @@ class QueryRouter:
         if ragged_elapsed > 0 and stream.nbytes:
             rates["ragged_bytes_s"] = stream.nbytes / ragged_elapsed
         return rates, (flat, stream)
+
+    @staticmethod
+    def _calibration_circuit():
+        """(prep, PackedCircuit, levelization seconds) of the calibration
+        query: a blasted comparison cone, the production query shape at
+        1/4 width."""
+        from mythril_tpu_torch.smt import symbol_factory
+        from mythril_tpu_torch.smt.solver.frontend import Solver
+
+        a = symbol_factory.BitVecSym("!cal!a", 64)
+        b = symbol_factory.BitVecSym("!cal!b", 64)
+        solver = Solver()
+        solver.add(a + b == 12345, a > 17, b > 23)
+        prep = solver._prepare([])
+        pack_start = time.perf_counter()
+        pc = circuit.PackedCircuit(prep.aig_roots[0], prep.aig_roots[1])
+        pack_elapsed = time.perf_counter() - pack_start
+        if not pc.ok:
+            raise RuntimeError("calibration circuit failed to pack")
+        return prep, pc, pack_elapsed
+
+    def _calibrate_bucketed(self) -> bool:
+        """K3's micro-calibration, once per process and only while the
+        bucketed mode is live: per_cell_s and the ship rate
+        (_measure_round_latency), with the stage rates beside them unless
+        the persisted entry has them. An entry with per_cell_s skips the
+        measurement; one without it measures K3 and the ship rate, and
+        nothing else. A kernel, build or device error raises. Returns
+        whether per_cell_s is known."""
+        if self._bucketed_calibrated:
+            return "per_cell_s" in self._rates
+        self._bucketed_calibrated = True
+        if os.environ.get("MYTHRIL_GPU_CALIBRATE", "") == "0":
+            return False
+        from mythril_tpu_torch.service.calibration import (
+            CIRCUIT_KEYS,
+            STAGE_RATE_KEYS,
+            load_profile,
+            save_profile,
+        )
+
+        platform = self._platform()
+        restarts, steps = self._profile_restarts(), self._profile_steps()
+        cached = load_profile(platform, restarts, steps) or {}
+        self._rates.update({key: cached[key] for key in CIRCUIT_KEYS
+                            + STAGE_RATE_KEYS if key in cached})
+        if "per_cell_s" in cached:
+            return True
+        start = time.monotonic()
+        rates = {}
+        with trace_span("router.calibrate", cat="router"):
+            maybe_inject("device.calibrate")
+            if any(key not in cached for key in STAGE_RATE_KEYS):
+                rates, _flat = self._measure_stage_rates()
+            rates.update(self._measure_round_latency())
+        self._rates.update(rates)
+        self.calibration_seconds += time.monotonic() - start
+        log.info("K3 micro-calibration: %s (%.2fs)", rates,
+                 time.monotonic() - start)
+        save_profile(platform, restarts, steps, rates)
+        return True
+
+    def _measure_round_latency(self) -> dict:
+        """{per_cell_s, ship_bytes_s} on the calibration circuit: the ship
+        rate over its padding and upload (the bucketed path's ship
+        window), and K3's seconds per (cell x step) ministep, sim and
+        walk folded in (levels x width cells a step), timed with CUDA
+        events over CAL_STEPS after one warm-up launch (perf_counter for
+        the plain round on the CPU), at the restart lanes the profile
+        dispatches with."""
+        device = self.backend.device
+        _prep, pc, _pack_elapsed = self._calibration_circuit()
+        rates = {}
+        ship_start = time.perf_counter()
+        padded = pc.padded_to(pc.num_levels, pc.max_width, pc.v1,
+                              pc.num_roots)
+        tensors = circuit_kernel.device_batch(
+            {key: value[None] for key, value in padded.items()}, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ship_elapsed = time.perf_counter() - ship_start
+        shipped = int(sum(value.nbytes for value in padded.values()))
+        if ship_elapsed > 0 and shipped:
+            rates["ship_bytes_s"] = shipped / ship_elapsed
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+        x = torch.randint(0, 2, (1, self._profile_restarts(), pc.v1),
+                          generator=generator, device=device,
+                          dtype=torch.int32)
+        rows = circuit_kernel.level_rows(tensors)
+        walk = pc.num_levels + 4
+
+        def launch(seed):
+            return circuit_kernel.run_round_circuit_kernel(
+                tensors, x, seed, CAL_STEPS, walk, rows)
+
+        launch(1)  # warm-up: the first launch pays the build and setup
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            launch(2)
+            end.record()
+            end.synchronize()
+            elapsed = begin.elapsed_time(end) / 1e3
+        else:
+            kernel_start = time.perf_counter()
+            launch(2)
+            elapsed = time.perf_counter() - kernel_start
+        cells = pc.num_levels * max(pc.max_width, 1)
+        rates["per_cell_s"] = max(elapsed / (CAL_STEPS * 2 * cells), 1e-12)
+        return rates
+
+    def resolve_caps(self) -> Tuple[int, int, int]:
+        """(level, cell, var) eligibility caps of the bucketed path: an env
+        override first, then the calibrated level cap, then the
+        defaults. Resolving them calibrates K3."""
+        if self._caps is not None:
+            return self._caps
+        on_cpu = self._evidence_mode()
+        level = _env_cap("MYTHRIL_GPU_LEVEL_CAP")
+        if level is None:
+            level = (DEFAULT_LEVEL_CAP_CPU if on_cpu
+                     else DEFAULT_LEVEL_CAP_DEVICE)
+            measured = self._calibrated_level_cap()
+            if measured is not None:
+                # measurement may raise the cap, never below the floor
+                level = max(LEVEL_CAP_FLOOR, min(measured, level * 4))
+        else:
+            self._calibrate_bucketed()  # the cost model still wants it
+        cell = _env_cap("MYTHRIL_GPU_CELL_CAP")
+        if cell is None:
+            cell = DEFAULT_CELL_CAP
+        var = _env_cap("MYTHRIL_GPU_VAR_CAP")
+        if var is None:
+            var = DEFAULT_VAR_CAP_CPU if on_cpu else DEFAULT_VAR_CAP_DEVICE
+        self._caps = (level, cell, var)
+        log.info("bucketed caps: levels<=%d cells<=%d vars<=%d", *self._caps)
+        return self._caps
+
+    def _calibrated_level_cap(self) -> Optional[int]:
+        """The level cap at which a production round (profile steps, sim
+        and walk, the analyze cones' ~1k width) fits the round budget, at
+        K3's calibrated latency; None when not calibrated."""
+        if not self._calibrate_bucketed():
+            return None
+        per_round_level = (self._rates["per_cell_s"] * self._profile_steps()
+                           * 2 * 1024)
+        if per_round_level <= 0:
+            return None
+        return int(self.round_budget_s / per_round_level)
 
     def _measure_kernel_rate(self, flat, stream) -> float:
         """K1's cells per second on the calibration stream, timed with
@@ -367,13 +581,42 @@ class QueryRouter:
 
     def attainable_rates(self) -> dict:
         """The roofline's ceilings (observe/roofline.py): the calibrated
-        kernel_cells_s, pack_bytes_s, ragged_bytes_s and settle_clauses_s,
-        measured this process or loaded from the persisted entry; a rate
-        never measured is absent. A pure read: it never measures, launches
-        or synchronizes."""
-        return dict(self._rates)
+        kernel_cells_s, pack_bytes_s, ragged_bytes_s, settle_clauses_s and
+        ship_bytes_s, measured this process or loaded from the persisted
+        entry; a rate never measured is absent. The kernel stage ranks
+        against K1's rate on the ragged path and K3's (1 / per_cell_s) on
+        the bucketed one. A pure read: it never measures, launches or
+        synchronizes."""
+        out = dict(self._rates)
+        per_cell = out.pop("per_cell_s", None)
+        if not ragged_enabled():
+            out.pop("kernel_cells_s", None)
+            if per_cell:
+                out["kernel_cells_s"] = 1.0 / per_cell
+        return out
 
     # -- cost model -------------------------------------------------------------
+
+    def est_round_seconds(self, levels: int, width: int = 1024) -> float:
+        """ONE bucketed round over a levels x width cone at the profile's
+        steps: K3's calibrated per-cell latency, else a conservative
+        platform constant."""
+        per_cell = self._rates.get("per_cell_s")
+        if not per_cell:
+            per_cell = 1e-7 if self._evidence_mode() else 1e-9
+        return per_cell * self._profile_steps() * 2 * (
+            max(levels, 1) * max(width, 1))
+
+    def prep_overhead_seconds(self) -> float:
+        """Amortized pack and ship wall per pack-cache lookup (the
+        backend's observed mean; 0 before the first): a cold cache charges
+        its levelize-and-upload misses against the round budget, a warm
+        one decays toward the cheap hit path."""
+        backend = self.backend
+        total = backend.pack_hits + backend.pack_misses
+        if not total:
+            return 0.0
+        return (backend.pack_seconds + backend.ship_seconds) / total
 
     def est_ragged_round_seconds(self, cells: int) -> float:
         """ONE ragged round over a stream whose bucketed combined
@@ -406,10 +649,16 @@ class QueryRouter:
             self._breaker.waste_budget_s = self._waste_budget()
         return self._breaker.allow()
 
-    def record_dispatch(self, hits: int, seconds: float) -> None:
+    def record_dispatch(self, hits: int, seconds: float,
+                        ragged: bool = True) -> None:
         """Feed the breaker: device wall with zero models found charges
-        the waste budget; one hit forgives everything."""
-        self.ragged_windows += 1
+        the waste budget; one hit forgives everything. A ragged stream
+        counts against the evidence stream cap, a bucketed dispatch
+        against the evidence dispatch cap."""
+        if ragged:
+            self.ragged_windows += 1
+        else:
+            self.dispatches += 1
         if not self._breaker.waste_budget_s:
             self._breaker.waste_budget_s = self._waste_budget()
         if hits > 0:
@@ -443,10 +692,16 @@ class QueryRouter:
         if not problems or not self.device_usable():
             return results
         evidence = self._evidence_mode()
-        if evidence and self.ragged_windows >= self.ragged_window_cap:
-            return results  # evidence budget spent: host-only from here
-        self._calibrate()
-        caps = ragged_kernel.kernel_caps()
+        ragged = ragged_enabled()
+        if ragged:
+            if evidence and self.ragged_windows >= self.ragged_window_cap:
+                return results  # evidence budget spent: host-only from here
+            self._calibrate()
+            caps = ragged_kernel.kernel_caps()
+        else:
+            if evidence and self.dispatches >= self.cpu_dispatch_cap:
+                return results
+            caps = self.resolve_caps()
         budget = (min(self.dispatch_deadline(), 0.6 * timeout_s)
                   if timeout_s else self.dispatch_deadline())
         profile = {}
@@ -463,26 +718,34 @@ class QueryRouter:
         states = {}   # query index -> _SplitState (partitioned queries)
         with trace_span("router.plan", cat="router", queries=len(problems)):
             self._plan_window(problems, fork_pairs, caps, buckets, states,
-                              stats, origin_of)
+                              stats, origin_of, ragged)
 
         deadline = time.monotonic() + budget
-        self._dispatch_ragged(buckets, states, results, problems, deadline,
-                              profile, evidence, caps, stats)
+        if ragged:
+            self._dispatch_ragged(buckets, states, results, problems,
+                                  deadline, profile, evidence, caps, stats)
+        else:
+            self._dispatch_bucketed(buckets, states, results, problems,
+                                    deadline, profile, evidence, caps, stats)
         if states:
             self._settle_components(states, results, problems, timeout_s,
                                     stats)
         return results
 
     def _plan_window(self, problems, fork_pairs, caps, buckets, states,
-                     stats, origin_of) -> None:
-        """Admission of one window: fork pairs packed as shared cones,
-        partitioned queries planned component by component, and every
-        other query packed and admitted whole. Device-bound units land in
-        `buckets`, split states in `states`."""
+                     stats, origin_of, ragged: bool = True) -> None:
+        """Admission of one window: on the ragged path fork pairs packed
+        as shared cones, partitioned queries planned component by
+        component, and every other query packed and admitted whole (under
+        the ragged rules, or the bucketed ones with `caps` the (level,
+        cell, var) tuple). Device-bound units land in `buckets`, split
+        states in `states`."""
         fork_qis = set()       # every query index named in a fork pair
         fork_consumed = set()  # packed via the shared-cone pair path
         for qt, qf in fork_pairs or ():
             fork_qis.update((qt, qf))
+            if not ragged:
+                continue  # bucketed: each side is a query of its own
             pair = self._pack_fork_pair(qt, qf, problems)
             if stats is not None:
                 stats.add_fork_pair_pack(hit=pair is not None)
@@ -513,16 +776,21 @@ class QueryRouter:
             if partition is not None:
                 states[qi] = self._plan_components(
                     qi, num_vars, aig_roots, partition, caps, buckets,
-                    stats, fork=qi in fork_qis, origin=origin_of(qi))
+                    stats, fork=qi in fork_qis, origin=origin_of(qi),
+                    ragged=ragged)
                 continue
-            pc = self.backend.pack_problem(problem, caps.var_cap)
+            pc = self.backend.pack_problem(
+                problem, caps.var_cap if ragged else caps[2])
             if pc is None:  # pre-pack var-cap reject (counted by backend)
                 continue
             if not pc.ok:
                 continue  # trivially unsat roots: the CDCL proves it
-            verdict = self._admission_ragged(pc, caps)
-            if verdict == "tiny" and qi in fork_qis:
-                verdict = "device"  # fork feasibility rides the launch
+            if ragged:
+                verdict = self._admission_ragged(pc, caps)
+                if verdict == "tiny" and qi in fork_qis:
+                    verdict = "device"  # fork feasibility rides the launch
+            else:
+                verdict = self._admission(pc, caps)
             if verdict == "cap":
                 self.backend.count_cap_reject(
                     under_floor=(pc.num_levels <= LEVEL_CAP_FLOOR
@@ -535,9 +803,36 @@ class QueryRouter:
                 if stats is not None:
                     stats.add_host_direct()
                 continue
+            if verdict == "cost":
+                # one round alone busts the round budget: the host takes
+                # it, counted like a cap reject
+                self.backend.count_cap_reject()
+                continue
             buckets.setdefault(shape_bucket(pc.num_levels), []).append(
                 _Unit(qi, None, pc, problem, fork=qi in fork_qis,
                       origin=origin_of(qi)))
+
+    def _admission(self, pc, caps) -> str:
+        """The bucketed admission policy, shared by monolithic queries and
+        projected components: "cap" (past the (level, cell, var) caps),
+        "tiny" (the host CDCL settles it by propagation), "cost" (one
+        round plus the amortized pack and ship wall busts the round
+        budget; cones inside the level x cell floor are exempt), else
+        "device"."""
+        level_cap, cell_cap, v1_cap = caps
+        if (pc.num_levels > level_cap
+                or pc.num_levels * pc.max_width > cell_cap
+                or pc.v1 > v1_cap):
+            return "cap"
+        if pc.num_levels <= self.host_direct_levels:
+            return "tiny"
+        under_floor = (pc.num_levels <= LEVEL_CAP_FLOOR
+                       and pc.num_levels * pc.max_width <= CELL_FLOOR)
+        if (not under_floor
+                and self.est_round_seconds(pc.num_levels, pc.max_width)
+                + self.prep_overhead_seconds() > self.round_budget_s):
+            return "cost"
+        return "device"
 
     def _admission_ragged(self, pc, caps, extra_roots: int = 0) -> str:
         """The admission policy, shared by monolithic queries, projected
@@ -630,6 +925,67 @@ class QueryRouter:
             with trace_span("router.land", cat="router", units=len(group)):
                 self._apply_group_bits(group, group_bits, results, states,
                                        problems, stats)
+
+    def _dispatch_bucketed(self, buckets, states, results, problems,
+                           deadline, profile, evidence, caps, stats) -> None:
+        """The bucketed loop: the fullest level bucket first (under the
+        evidence dispatch cap and the shared deadline it yields the most
+        models per second spent), one backend call a bucket; in evidence
+        mode each trimmed to the slot cap, the overflow left to the host
+        CDCL and counted."""
+        max_slots = None
+        if evidence:
+            max_slots = max(1, int(env_float(
+                "MYTHRIL_GPU_CPU_BATCH_SLOTS", 2)))
+        for level in sorted(buckets, key=lambda b: -len(buckets[b])):
+            if ((evidence and self.dispatches >= self.cpu_dispatch_cap)
+                    or self._breaker.state == breaker_mod.OPEN):
+                break
+            group = buckets[level]
+            if max_slots is not None and len(group) > max_slots:
+                if stats is not None:
+                    stats.add_slot_overflow(len(group) - max_slots)
+                for unit in group[max_slots:]:
+                    if unit.component is not None:
+                        unit.resolved = True
+                        states[unit.qi].host.append(unit)
+                group = group[:max_slots]
+            remaining = deadline - time.monotonic()
+            if remaining <= 0.1:
+                break  # the host settles the rest: the deadline guarantee
+            t0 = time.monotonic()
+            group_bits = self._guarded_dispatch(group, remaining, caps,
+                                                profile)
+            elapsed = time.monotonic() - t0
+            hits = sum(1 for bits in group_bits if bits is not None)
+            if stats is not None:
+                stats.add_device_dispatch(
+                    len(group), self.backend.padded_query_slots(len(group)),
+                    elapsed)
+            self.record_dispatch(hits, elapsed, ragged=False)
+            with trace_span("router.land", cat="router", units=len(group)):
+                self._apply_group_bits(group, group_bits, results, states,
+                                       problems, stats)
+
+    def _guarded_dispatch(self, group, remaining, caps, profile):
+        """One bucketed dispatch (backend.try_solve_batch_circuit, K3's
+        rounds) behind the device.dispatch fault site, on the deadline
+        runner's thread with a hard bound of the remaining budget plus the
+        grace, the backend's device made current there."""
+        device = self.backend.device
+
+        def call():
+            maybe_inject("device.dispatch")
+            scope = (torch.cuda.device(device) if device.type == "cuda"
+                     else contextlib.nullcontext())
+            with scope:
+                return self.backend.try_solve_batch_circuit(
+                    [unit.problem for unit in group],
+                    budget_seconds=remaining, size_caps=caps,
+                    packed_hint=[unit.pc for unit in group], **profile)
+
+        return run_with_deadline("device.dispatch", call,
+                                 remaining + self.deadline_grace())
 
     def _ragged_dispatch(self, group, remaining, profile):
         """One chunk through the backend (a ragged stream's rounds, then
@@ -747,12 +1103,12 @@ class QueryRouter:
 
     def _plan_components(self, qi, num_vars, aig_roots, partition, caps,
                          buckets, stats=None, fork: bool = False,
-                         origin=None) -> _SplitState:
+                         origin=None, ragged: bool = True) -> _SplitState:
         """Project a partitioned query onto dispatch units: trivial
         components (all-unit root sets) write their literals into the
-        merge state directly, device-eligible components join the buckets
-        individually, and the rest settle on the host CDCL inside
-        _settle_components."""
+        merge state directly, device-eligible components (under the
+        ragged or the bucketed admission) join the buckets individually,
+        and the rest settle on the host CDCL inside _settle_components."""
         aig, dense_q = aig_roots[0], aig_roots[2]
         state = _SplitState(num_vars)
         for component in partition.components:
@@ -768,9 +1124,14 @@ class QueryRouter:
             state.units.append(unit)
             # not pc.ok: past the circuit caps (the partition never
             # projects constant roots) — routes host like any other
-            verdict = self._admission_ragged(pc, caps) if pc.ok else "cap"
-            if verdict == "tiny" and fork:
-                verdict = "device"
+            if not pc.ok:
+                verdict = "cap"
+            elif ragged:
+                verdict = self._admission_ragged(pc, caps)
+                if verdict == "tiny" and fork:
+                    verdict = "device"
+            else:
+                verdict = self._admission(pc, caps)
             if verdict == "device":
                 buckets.setdefault(shape_bucket(pc.num_levels),
                                    []).append(unit)

@@ -143,6 +143,13 @@ def add_analysis_args(parser) -> None:
                              "MYTHRIL_GPU_VMAP_FRONTIER=0|1 (step backend: "
                              "MYTHRIL_GPU_FRONTIER_BACKEND=auto|numpy|"
                              "torch|cuda)")
+    parser.add_argument("--no-ragged", action="store_true",
+                        dest="no_ragged",
+                        help="disable the ragged dispatch (one flat stream "
+                             "a window, K1) and the cube second pass, "
+                             "restoring the level-bucketed padded dispatch "
+                             "with the per-query round K3; env override: "
+                             "MYTHRIL_GPU_RAGGED=0|1")
     parser.add_argument("--no-frontier-fork", action="store_true",
                         dest="no_frontier_fork",
                         help="disable batched forking of symbolic JUMPI "

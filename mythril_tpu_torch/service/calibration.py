@@ -2,10 +2,13 @@
 measurement entries only).
 
 The router (gpu/router.py) measures its stage rates once per process —
-the kernel's cells per second on a small two-cone stream, pack, stream
-assembly + upload and host-CDCL settle rates. Under solve_cache "disk"
-the measurement persists beside the other service artifacts, keyed by
-(platform, restart lanes, round steps), so a later process skips it.
+K1's cells per second on a small two-cone stream (kernel_cells_s), pack,
+stream assembly + upload and host-CDCL settle rates; and, where the
+bucketed path runs, K3's seconds per cell and step (per_cell_s) with the
+ship rate. Under solve_cache "disk" the measurement persists beside the
+other service artifacts, keyed by (platform, restart lanes, round steps),
+so a later process skips it; a save merges into the entry, so the two
+kernels' measurements share it.
 
 Entries carry a schema stamp and a measurement timestamp; a schema bump
 or a malformed file degrades to re-measurement, never to a wrong rate.
@@ -26,10 +29,14 @@ log = logging.getLogger(__name__)
 CALIBRATION_SCHEMA_VERSION = 1
 _FILENAME = "calibration.json"
 
-# kernel_cells_s gates an entry (the chunker's cost model runs off it);
-# the others are best-effort stage rates
+# kernel_cells_s (K1) or per_cell_s (K3) gates an entry (a cost model runs
+# off each); the others are best-effort stage rates
 KERNEL_RATE_KEY = "kernel_cells_s"
 STAGE_RATE_KEYS = ("pack_bytes_s", "ragged_bytes_s", "settle_clauses_s")
+# K3's calibration: its latency and the ship rate measured beside it
+CIRCUIT_KEYS = ("per_cell_s", "ship_bytes_s")
+_GATES = (KERNEL_RATE_KEY, "per_cell_s")
+_KEYS = (KERNEL_RATE_KEY,) + STAGE_RATE_KEYS + CIRCUIT_KEYS
 
 
 def _path() -> str:
@@ -50,8 +57,10 @@ def _enabled() -> bool:
 
 def load_profile(platform: Optional[str], restarts: int,
                  steps: int) -> Optional[dict]:
-    """The cached entry for this platform + cell profile — {kernel_cells_s,
-    optional stage rates} — or None (measure)."""
+    """The cached entry for this platform + cell profile — the positive
+    numbers among kernel_cells_s, per_cell_s, ship_bytes_s and the stage
+    rates, with kernel_cells_s or per_cell_s among them — or None
+    (measure)."""
     if not platform or not _enabled():
         return None
     try:
@@ -64,21 +73,19 @@ def load_profile(platform: Optional[str], restarts: int,
     entry = payload.get("entries", {}).get(_key(platform, restarts, steps))
     if not isinstance(entry, dict):
         return None
-    rate = entry.get(KERNEL_RATE_KEY)
-    if not isinstance(rate, (int, float)) or rate <= 0:
+    out = {key: float(entry[key]) for key in _KEYS
+           if isinstance(entry.get(key), (int, float)) and entry[key] > 0}
+    if not any(key in out for key in _GATES):
         return None
-    out = {KERNEL_RATE_KEY: float(rate)}
-    for key in STAGE_RATE_KEYS:
-        value = entry.get(key)
-        if isinstance(value, (int, float)) and value > 0:
-            out[key] = float(value)
     return out
 
 
 def save_profile(platform: Optional[str], restarts: int, steps: int,
                  profile: dict) -> None:
-    """Persist a measurement entry (no-op unless solve_cache is "disk")."""
-    if not platform or not _enabled() or not profile.get(KERNEL_RATE_KEY):
+    """Merge a measurement into its entry (no-op unless solve_cache is
+    "disk", or without kernel_cells_s or per_cell_s in `profile`)."""
+    if not platform or not _enabled() \
+            or not any(profile.get(key) for key in _GATES):
         return
     path = _path()
     try:
@@ -93,8 +100,11 @@ def save_profile(platform: Optional[str], restarts: int, steps: int,
                     payload.setdefault("entries", {})
             except (OSError, ValueError):
                 pass
-            payload["entries"][_key(platform, restarts, steps)] = {
-                **{key: value for key, value in profile.items()
+            key = _key(platform, restarts, steps)
+            entry = payload["entries"].get(key)
+            payload["entries"][key] = {
+                **(entry if isinstance(entry, dict) else {}),
+                **{name: value for name, value in profile.items()
                    if isinstance(value, (int, float)) and value > 0},
                 "measured_at": int(time.time()),
             }

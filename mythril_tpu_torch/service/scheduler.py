@@ -11,7 +11,8 @@ Flush triggers (bounded window):
            buffer (single-threaded callers can never deadlock on a
            buffered handle)
   count    the buffer reaching MYTHRIL_GPU_COALESCE_MAX (default 16; 64
-           with the gpu backend, where one ragged launch covers a window)
+           with the gpu backend's ragged path, where one launch covers a
+           window)
   age      a submit arriving after the oldest buffered entry has waited
            COALESCE_MS (6 ms)
 
@@ -77,9 +78,13 @@ class CoalescingScheduler:
         from mythril_tpu_torch.support.args import args
 
         default_max = DEFAULT_COALESCE_MAX
-        # widen only where one launch can cover the window
+        # widen only where one launch can cover the window: the ragged
+        # path on the gpu backend
         if args.solver_backend == "gpu":
-            default_max = DEFAULT_COALESCE_MAX_RAGGED
+            from mythril_tpu_torch.gpu.router import ragged_enabled
+
+            if ragged_enabled():
+                default_max = DEFAULT_COALESCE_MAX_RAGGED
         self.max_batch = max(
             1, int(env_float("MYTHRIL_GPU_COALESCE_MAX", default_max)))
         # entries: (handle, constraint list, crosscheck, origin tag)

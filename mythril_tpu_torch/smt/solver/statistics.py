@@ -31,6 +31,9 @@ class SolverStatistics:
         # == cones: a stream pads no query axis), and the clause volume
         # of the queries that reached the router
         "router_host_direct",
+        # cones the bucketed path's evidence slot cap trimmed from a
+        # dispatch (big enough for the device; the evidence budget was not)
+        "router_slot_overflow",
         "device_dispatches",
         "device_dispatched_queries",
         "device_slots",
@@ -256,9 +259,15 @@ class SolverStatistics:
         to be worth a device slot)."""
         self._add("router_host_direct", count)
 
+    def add_slot_overflow(self, count: int = 1) -> None:
+        """Device-worthy cones trimmed from a bucketed dispatch by the
+        evidence-mode slot cap, settled by the host CDCL."""
+        self._add("router_slot_overflow", count)
+
     def add_device_dispatch(self, queries: int, slots: int,
                             seconds: float) -> None:
-        """One device launch sequence (a ragged stream) carrying `queries`
+        """One device launch sequence (a ragged stream, or a bucketed
+        dispatch whose query axis pads to `slots`) carrying `queries`
         cones in `slots` slots."""
         if self.enabled:
             self.device_dispatches += 1

@@ -32,6 +32,8 @@ class _Args:
         self.no_incremental_prep = False       # the prefix resume alone
         self.no_vmap_frontier = False          # --no-vmap-frontier
         self.no_frontier_fork = False          # --no-frontier-fork
+        self.no_ragged = False                 # --no-ragged: the bucketed
+        #   dispatch with K3 (MYTHRIL_GPU_RAGGED wins over it)
         self.beam_width = 8                    # --beam-search WIDTH
         self.transaction_sequences = None      # e.g. "[[0xa9059cbb],[-1]]"
         self.trace = None                      # --trace PATH (span tracer

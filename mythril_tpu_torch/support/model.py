@@ -496,11 +496,16 @@ def _get_models_batch_impl(constraint_sets, enforce_execution_time,
     # fork-pair members prepare under the root-forcing-deferred aig_opt
     # sweep (preanalysis/aig_opt.deferred_forcing): the per-side forced
     # sweep would diverge the pair's shared base roots, which is exactly
-    # what the router's shared-cone pair packing keys on
+    # what the router's shared-cone pair packing keys on. Only where the
+    # pair can reach that packing, the ragged path: elsewhere the forced
+    # sweep's smaller cones win
     fork_members = set()
     if fork_pairs and args.solver_backend == "gpu":
-        for pair in fork_pairs:
-            fork_members.update(pair)
+        from mythril_tpu_torch.gpu.router import ragged_enabled
+
+        if ragged_enabled():
+            for pair in fork_pairs:
+                fork_members.update(pair)
 
     pending: List[tuple] = []  # (idx, key, fingerprint, solver, prep)
     start = time.monotonic()

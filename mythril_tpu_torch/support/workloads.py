@@ -13,7 +13,8 @@ same seed builds the same constraint sets in either.
 
 random_cones and big_cone build packed AIG cones directly (no SMT layer):
 small cones for kernel windows, and one cone too large for the ragged
-kernel's shared-memory path.
+kernel's shared-memory path; circuit_batch pads small cones into a batch
+of the bucketed path's round.
 
 frontier_program and frontier_frame build what the batched frontier step
 (K6) takes: seeded random straight-line programs over the fast set (the
@@ -118,6 +119,39 @@ def random_cones(rng: random.Random, count: int) -> list:
         if pc.ok:
             cones.append(pc)
     return cones
+
+
+def circuit_batch(rng: random.Random, max_queries: int = 16,
+                  min_v1: int = 0) -> dict:
+    """A numpy batch of the bucketed path's round (K3): 1-max_queries
+    random cones asserting 1-4 of their last gates, each negated at
+    random, padded to one shape a little past the largest cone (at least
+    `min_v1` variables), the query axis to a power of two whose spare
+    slots are all zeros."""
+    from mythril_tpu_torch.gpu.circuit import PackedCircuit
+    from mythril_tpu_torch.gpu.circuit_kernel import stack_padded
+    from mythril_tpu_torch.smt.bitblast import AIG
+
+    count, pcs = rng.randint(1, max_queries), []
+    while len(pcs) < count:
+        aig = AIG()
+        lits = [aig.lit_of_var(aig.new_var())
+                for _ in range(rng.randint(4, 12))]
+        for _ in range(rng.randint(20, 80)):
+            lits.append(aig.and_gate(rng.choice(lits) ^ rng.randint(0, 1),
+                                     rng.choice(lits) ^ rng.randint(0, 1)))
+        pc = PackedCircuit(aig, [lit ^ rng.randint(0, 1) for lit
+                                 in lits[-rng.randint(1, 4):]])
+        if pc.ok:
+            pcs.append(pc)
+    shape = (max(pc.num_levels for pc in pcs) + rng.randint(0, 3),
+             max(pc.max_width for pc in pcs) + rng.randint(0, 5),
+             max(max(pc.v1 for pc in pcs) + rng.randint(0, 40), min_v1),
+             max(pc.num_roots for pc in pcs) + rng.randint(0, 2))
+    slots = 1
+    while slots < len(pcs):
+        slots *= 2
+    return stack_padded(pcs, shape, slots)
 
 
 def big_cone(rng: random.Random, gates: int = 30000, inputs: int = 64,

@@ -182,6 +182,9 @@ def test_roofline_emitted_in_stats_json_and_gap_ranking(monkeypatch):
     router_mod.reset_router()
     try:
         router = router_mod.get_router("cpu")
+        # the CPU backend is process-wide: an analyze test run earlier on
+        # this worker leaves its stage counters there
+        router.backend.reset_stats()
         router._rates = {"kernel_cells_s": 4e7, "pack_bytes_s": 2e8,
                          "ragged_bytes_s": 1e8, "settle_clauses_s": 1e3}
         stats = SolverStatistics()

@@ -16,8 +16,6 @@ from tests.torch_helpers import run_analyze
 # keys of the JAX package's stats JSON whose surface the port has not
 # ported yet, with the ROADMAP.md §1 item that brings each
 NOT_PORTED = {
-    # 6: the bucketed batch path and its evidence slot cap
-    "router_slot_overflow": 6,
     # 7: K2 and the kernel knob, whose per-shape compiles this counts
     "kernel_recompiles": 7,
     # 8: corpus runs (--jobs workers, --corpus-interleave)

@@ -98,11 +98,19 @@ def run_analyze(package: str, code_hex: str, tx_count: int, backend: str,
         cmd_args.torch_device = device
     disassembler = core.MythrilDisassembler()
     disassembler.load_from_bytecode(code_hex, bin_runtime=bin_runtime)
-    with watch_timeouts(package) as timeouts:
-        analyzer = core.MythrilAnalyzer(disassembler, cmd_args=cmd_args,
-                                        strategy="bfs")
-        report = analyzer.fire_lasers(modules=modules,
-                                      transaction_count=tx_count)
+    time_handler = importlib.import_module(
+        f"{package}.support.time_handler").time_handler
+    try:
+        with watch_timeouts(package) as timeouts:
+            analyzer = core.MythrilAnalyzer(disassembler, cmd_args=cmd_args,
+                                            strategy="bfs")
+            report = analyzer.fire_lasers(modules=modules,
+                                          transaction_count=tx_count)
+    finally:
+        # the JAX package's fire_lasers leaves its execution budget set:
+        # once it passed, a later get_models_batch in this process (a
+        # JAX-package test on the same worker) would dispatch nothing
+        time_handler.start_execution(None)
     assert not timeouts, f"{package} run did not complete: {timeouts}"
     assert not report.exceptions, report.exceptions
     args.reset()

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --telemetry-overhead  # env, build, the overhead legs twice
     python3 chip_smoke.py --resilience-only  # env, build, the resilience phase
     python3 chip_smoke.py --bucketed-only  # env, build, the bucketed phase
+    python3 chip_smoke.py --k3-split PATH  # env, build, K3's split
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
@@ -132,10 +133,15 @@ line):
           (after the analyze phase): (1) K3 against its plain version,
           bit for bit (x and found), on 300 seeded random batches of 1-16
           queries (support/workloads.circuit_batch: spare query slots,
-          1-4 roots, spare variables; two of them with an x row past the
-          shared-memory cap, so the global path runs) at random lanes,
-          steps and walk depths, and on the graft entry's batch
-          (mythril_tpu_torch.graft.entry); (2) the sibling window
+          1-4 roots, spare variables; two of them with x past shared
+          memory, so the global tier runs) at random lanes, steps and
+          walk depths, on the graft entry's batch
+          (mythril_tpu_torch.graft.entry), and on a deep synthetic batch
+          of each layout tier (support/workloads.deep_batch, K3_TIER_CASES:
+          shared32 with the stream in the ring and resident, shared16,
+          xshared at 32, 16 and 8 lanes a word, global) at 64, 1, 31, 33
+          and 96 lanes (the variants at 64), launch_shape's tier checked
+          on each; (2) the sibling window
           (WINDOW queries, seed SEED) through get_models_batch with
           MYTHRIL_GPU_RAGGED=0 behind a fresh router: verdicts must equal
           the host CDCL's, every model must satisfy its constraints, K3
@@ -148,9 +154,13 @@ line):
           run prints its wall, prepare, cnf_prep and get_model seconds
           beside the host and ragged device runs of the analyze phase
           (--bucketed-only runs those two itself); (4) K3 timed on the
-          largest batch of the two under CUDA events, beside its plain
-          version's time, the bound and the serial chain of barrier
-          phases a lane's steps run (steps x (levels + walk depth));
+          largest batch of the two under CUDA events, with its split
+          (steps=0: one simulate and the check; walk_depth=0: the
+          simulates and root picks without walks) and the plain run's
+          walk lengths (mean, largest, and the mean of a 32-lane group's
+          longest), beside its plain version's time, the bound and the
+          serial chain of phases a lane's steps run (steps x (levels +
+          walk depth));
   telemetry-overhead  KILLBILLY (-t 2) and xc_dispatch_a.hex (-t 1) on
           the device backend with every telemetry artifact off
           (MYTHRIL_GPU_FLIGHTREC=0, nothing written) and on (the ring at
@@ -209,6 +219,11 @@ checks nothing.
 interface (run_step_kernel, prepare_launch, step_batch, encode_program),
 so a copy of this script placed in a checkout of an earlier version of
 the port times that version's K6 on the same batches.
+--k3-split PATH times K3 at those three settings on the largest batch of
+the two bucketed analyze runs, kept in the torch.save file PATH (captured
+and written there when it does not exist). It calls only the round's
+interface, so a copy of this script placed in a checkout of an earlier
+version of the port times that version's K3 on the same batch.
 --forms-only times the same three streams with the host CDCL's verdicts
 and no other phase. It calls only the round's interface (flatten_stream,
 device_flat, run_round_ragged_kernel), so a copy of this script placed in
@@ -219,7 +234,7 @@ K6's launches over the five compared analyze contracts and their times on
 the largest stream and frontier batch they launched; K1's router and slice
 streams and K6's 64-row, division and 1-row batches and its idle share
 beside them; K3's launches over the bucketed analyze runs and its time on
-their largest batch), the
+their largest batch, with its split and the plain run's walk lengths), the
 card's nvidia-smi line, and last {"ok": true, "device": {...}}. A copy of every
 JSON line goes to chiprun_out/chip_smoke.jsonl.
 """
@@ -2425,7 +2440,7 @@ def phase_fork_prep(device):
 
 
 BUCKETED_RUNS = 300  # random batches K3 is held against its plain version
-BUCKETED_GLOBAL_RUNS = 2  # of them with an x row past shared memory
+BUCKETED_GLOBAL_RUNS = 2  # of them with x past shared memory
 BUCKETED_CONTRACTS = ("killbilly", "xc_dispatch_a.hex")
 
 
@@ -2448,18 +2463,20 @@ def _timed_once(device, fn):
     return out, begin.elapsed_time(end)
 
 
-def _compare_k3(device, tensors, x, seed, steps, walk_depth):
+def _compare_k3(device, tensors, x, seed, steps, walk_depth, walks=None):
     """K3 against its plain version on one launch's inputs: (max abs
-    error, the plain run's ms). Raises unless bit for bit."""
+    error, the plain run's ms). Raises unless bit for bit. `walks`, a
+    list, gets the plain run's walk lengths (run_round_circuit_plain)."""
     import torch
 
     from mythril_tpu_torch.gpu import circuit_kernel
 
     got_x, got_found = circuit_kernel.run_round_circuit_kernel(
         tensors, x, seed, steps, walk_depth)
+    extra = {} if walks is None else {"walks": walks}
     (want_x, want_found), plain_ms = _timed_once(
         device, lambda: circuit_kernel.run_round_circuit_plain(
-            tensors, x, seed, steps, walk_depth))
+            tensors, x, seed, steps, walk_depth, **extra))
     torch_sync(device)
     if not (torch.equal(got_x, want_x) and torch.equal(got_found,
                                                         want_found)):
@@ -2476,7 +2493,7 @@ def _k3_bound(tensors, x, steps, walk_depth):
     """Least time for one K3 round: the five level entries of each real
     gate (out_idx > 0: the cells the operations count; the bucket's
     padding is never needed), the per-variable and root tables of every
-    query slot and the rows array read once, x in and out, found out,
+    query slot read once, x in and out, found out,
     over the HBM rate; against the 32-bit logic of the real gates and the
     root checks of every step and the final check over the CUDA-core rate
     (the walks, whose length depends on the data, are not counted: a
@@ -2492,8 +2509,7 @@ def _k3_bound(tensors, x, steps, walk_depth):
         tensors[key].numel() * 4
         for key in circuit_kernel.VAR_KEYS + circuit_kernel.ROOT_KEYS)
     rows = circuit_kernel.level_rows(tensors)
-    moved = tables + rows.numel() * 4 + q_count * lanes * v1 * 4 * 2 \
-        + q_count * lanes
+    moved = tables + q_count * lanes * v1 * 4 * 2 + q_count * lanes
     live_roots = int((tensors["root_mask"] == 1).sum())
     ops = lanes * (steps + 1) * (3 * gates + 2 * live_roots)
     byte_s, op_s = moved / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
@@ -2512,12 +2528,12 @@ def _keep_largest_k3(largest):
 
     real = circuit_kernel.run_round_circuit_kernel
 
-    def keep(tensors, x, seed, steps, walk_depth, rows=None):
+    def keep(tensors, x, seed, steps, walk_depth, *side, **side_kw):
         size = x.shape[0] * x.shape[1] * tensors["out_idx"][0].numel()
         if size > largest.get("size", -1):
             largest.update(size=size, tensors=tensors, x=x.clone(),
                            seed=seed, steps=steps, walk_depth=walk_depth)
-        return real(tensors, x, seed, steps, walk_depth, rows)
+        return real(tensors, x, seed, steps, walk_depth, *side, **side_kw)
 
     circuit_kernel.run_round_circuit_kernel = keep
     try:
@@ -2564,21 +2580,94 @@ def _ragged(on: bool):
             os.environ["MYTHRIL_GPU_RAGGED"] = saved
 
 
+def _k3_side_input(tensors):
+    """The round's per-batch side input, built once as the backend builds
+    it: circuit_layout, or level_rows in a checkout of the port from
+    before the layout (which this script may time)."""
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    if hasattr(circuit_kernel, "circuit_layout"):
+        return circuit_kernel.circuit_layout(tensors)
+    return circuit_kernel.level_rows(tensors)
+
+
+def _k3_shape(tensors, x) -> dict:
+    """The launch's tier, lanes a word and stream mode (launch_shape)."""
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    if not hasattr(circuit_kernel, "circuit_layout"):
+        return {}
+    layout = circuit_kernel.circuit_layout(tensors)
+    shape = circuit_kernel.launch_shape(x.shape[2], layout.stride)
+    return {"tier": shape.tier, "lanes_per_word": shape.lanes_per_word,
+            "stream_resident": shape.resident,
+            "stream_steps": int(layout.stream_steps.max()),
+            "smem_bytes": shape.smem_bytes}
+
+
+def _k3_split(device, batch, repeats=5) -> dict:
+    """K3's ms a launch on `batch` under CUDA events at three settings:
+    its own steps and walk depth ("full"), steps=0 (one simulate and the
+    check) and walk_depth=0 (every simulate and root pick, no walk),
+    the side input built once outside the timing. Launches made here
+    are not counted."""
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    launches = circuit_kernel.launches
+    tensors, x, seed = batch["tensors"], batch["x"], batch["seed"]
+    side = _k3_side_input(tensors)
+    out = {}
+    for name, steps, walk in (("full", batch["steps"], batch["walk_depth"]),
+                              ("steps0", 0, batch["walk_depth"]),
+                              ("walk0", batch["steps"], 0)):
+        out[f"{name}_ms"] = _time_ms(
+            lambda: circuit_kernel.run_round_circuit_kernel(
+                tensors, x, seed, steps, walk, side), repeats=repeats)
+    circuit_kernel.launches = launches
+    return out
+
+
+def _k3_walks(walks, group=32) -> dict:
+    """The plain run's walk lengths (gates descended) over the (step,
+    lane) pairs that walked: mean and largest, and the mean over (step,
+    query, group of `group` lanes) of the group's longest, the length a
+    bit-sliced warp's walk runs in lockstep."""
+    import torch
+
+    lengths = torch.stack([length for length, _ in walks]).float()
+    walked = torch.stack([mask for _, mask in walks])
+    if not bool(walked.any()):
+        return {"walked": 0, "mean": 0.0, "max": 0, "group_max_mean": 0.0}
+    steps, q_count, lanes = lengths.shape
+    pad = -lanes % group
+    grouped = torch.nn.functional.pad(lengths * walked, (0, pad)).reshape(
+        steps, q_count, -1, group)
+    any_walk = torch.nn.functional.pad(walked, (0, pad)).reshape(
+        steps, q_count, -1, group).any(dim=3)
+    return {"walked": int(walked.sum()),
+            "mean": float(lengths[walked].mean()),
+            "max": int(lengths[walked].max()),
+            "group_max_mean": float(grouped.amax(dim=3)[any_walk].mean())}
+
+
 def _hold_k3(device, batch, window, counts, timed=False):
     """K3 bit for bit against its plain version on a kept launch (its
-    plain run timed), K3 itself timed there when `timed`; launches made
-    here are not counted. Emits one record."""
+    plain run timed), K3 itself timed there when `timed`, with its split
+    (_k3_split) and the plain run's walk lengths; launches made here are
+    not counted. Emits one record."""
     from mythril_tpu_torch.gpu import circuit_kernel
 
     launches = circuit_kernel.launches
     tensors, x = batch["tensors"], batch["x"]
     args = (batch["seed"], batch["steps"], batch["walk_depth"])
-    err, plain_ms = _compare_k3(device, tensors, x, *args)
-    ms = None
-    if timed:
-        ms = _time_ms(lambda: circuit_kernel.run_round_circuit_kernel(
-            tensors, x, *args), repeats=5)
+    walks = [] if timed else None
+    err, plain_ms = _compare_k3(device, tensors, x, *args, walks=walks)
     circuit_kernel.launches = launches
+    timing = {"ms": None}
+    if timed:
+        split = _k3_split(device, batch)
+        timing = {"ms": split["full_ms"], "split": split,
+                  "walks": _k3_walks(walks)}
     bound_ms, bound_by, moved, ops, chain = _k3_bound(
         tensors, x, batch["steps"], batch["walk_depth"])
     q_count, lanes, v1 = x.shape
@@ -2586,11 +2675,11 @@ def _hold_k3(device, batch, window, counts, timed=False):
     emit({"phase": "bucketed", "window": window, "queries": q_count,
           "lanes": lanes, "levels": levels, "width": width, "v1": v1,
           "steps": batch["steps"], "walk_depth": batch["walk_depth"],
-          "smem_path": circuit_kernel.launch_shape(q_count, lanes, v1)[1],
-          **counts, "bit_identical": True, "max_abs_err": err, "ms": ms,
-          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-          "bytes": moved, "ops": ops, "serial_chain_phases": chain})
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+          **_k3_shape(tensors, x), **counts, "bit_identical": True,
+          "max_abs_err": err, **timing, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+          "ops": ops, "serial_chain_phases": chain})
+    return {"max_abs_err": err, **timing, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "serial_chain_phases": chain}
 
@@ -2598,8 +2687,8 @@ def _hold_k3(device, batch, window, counts, timed=False):
 def _k3_random_holds(device):
     """K3 against its plain version on BUCKETED_RUNS seeded random batches
     of 1-16 queries (support/workloads.circuit_batch: padding slots,
-    1-4 roots, spare variables), BUCKETED_GLOBAL_RUNS of them with a row
-    past the shared-memory cap, and the graft entry's batch."""
+    1-4 roots, spare variables), BUCKETED_GLOBAL_RUNS of them with x past
+    shared memory (the global tier), and the graft entry's batch."""
     import torch
 
     from mythril_tpu_torch import graft
@@ -2608,13 +2697,12 @@ def _k3_random_holds(device):
 
     launches = circuit_kernel.launches
     err, start = 0, time.monotonic()
-    shapes = {"smem": 0, "global": 0}
+    tiers = {}
     for run in range(BUCKETED_RUNS):
         rng = random.Random(SEED + 100 + run)
         wide = run < BUCKETED_GLOBAL_RUNS
         batch = circuit_batch(rng, max_queries=4 if wide else 16,
-                              min_v1=circuit_kernel.SMEM_X_CAP + 16
-                              if wide else 0)
+                              min_v1=GLOBAL_TIER_V1 + 16 if wide else 0)
         tensors = circuit_kernel.device_batch(batch, device)
         q_count, levels = batch["out_idx"].shape[:2]
         lanes = rng.randint(1, 16)
@@ -2625,8 +2713,8 @@ def _k3_random_holds(device):
         walk = rng.choice((levels + 4, rng.randint(0, levels + 4)))
         err = max(err, _compare_k3(device, tensors, x, rng.getrandbits(31),
                                    rng.randint(0, 12), walk)[0])
-        shapes["smem" if circuit_kernel.launch_shape(
-            q_count, lanes, batch["ga_var"].shape[1])[1] else "global"] += 1
+        tier = _k3_shape(tensors, x).get("tier", "?")
+        tiers[tier] = tiers.get(tier, 0) + 1
     fn, args = graft.entry(None if device.type == "cuda" else device)
     err = max(err, _compare_k3(device, args[0], args[1], args[2],
                                graft.STEPS_PER_ROUND,
@@ -2634,8 +2722,68 @@ def _k3_random_holds(device):
     fn(*args)  # the entry's own step runs too
     circuit_kernel.launches = launches
     emit({"phase": "bucketed", "window": "random-batches",
-          "batches": BUCKETED_RUNS, "paths": shapes, "graft_entry": True,
+          "batches": BUCKETED_RUNS, "tiers": tiers, "graft_entry": True,
           "bit_identical": True, "max_abs_err": err,
+          "seconds": time.monotonic() - start})
+    return err
+
+
+# K3's layout tiers on deep synthetic batches (support/workloads.deep_batch:
+# three cones and a padding slot): (name, deep_cone arguments, least V1,
+# the tier launch_shape must pick, its lanes a word, every lane count?)
+K3_TIER_CASES = (
+    ("shared32", {"gates": 6000, "reach": 128}, 0, "shared32", 32, False),
+    ("shared32-ring", {"gates": 20000, "reach": 12}, 0, "shared32", 32,
+     True),
+    ("shared16", {"gates": 40000, "reach": 48}, 0, "shared16", 16, True),
+    ("xshared32", {"gates": 12000, "reach": 32}, 40000, "xshared", 32, True),
+    ("xshared16", {"gates": 12000, "reach": 32}, 80000, "xshared", 16,
+     False),
+    ("xshared8", {"gates": 12000, "reach": 32}, 150000, "xshared", 8, False),
+    ("global", {"gates": 12000, "reach": 32}, 213000, "global", 32, True),
+)
+K3_TIER_LANES = (64, 1, 31, 33, 96)
+K3_TIER_STEPS = 6
+GLOBAL_TIER_V1 = 196608  # past it x leaves shared memory (launch_shape)
+
+
+def _k3_tier_holds(device):
+    """K3 bit for bit against its plain version on a deep synthetic batch
+    of each layout tier, at every lane count of K3_TIER_LANES (64 alone for
+    the variants), K3_TIER_STEPS steps and the full walk depth. Returns the
+    largest error."""
+    import torch
+
+    from mythril_tpu_torch.gpu import circuit_kernel
+    from mythril_tpu_torch.support.workloads import deep_batch
+
+    launches = circuit_kernel.launches
+    err, start, cases = 0, time.monotonic(), []
+    for index, (name, cone, min_v1, tier, width, all_lanes) in enumerate(
+            K3_TIER_CASES):
+        batch = deep_batch(random.Random(SEED + index), min_v1=min_v1,
+                           **cone)
+        tensors = circuit_kernel.device_batch(batch, device)
+        q_count, levels = batch["out_idx"].shape[:2]
+        v1 = batch["ga_var"].shape[1]
+        for lanes in K3_TIER_LANES if all_lanes else K3_TIER_LANES[:1]:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(SEED + lanes)
+            x = torch.randint(0, 2, (q_count, lanes, v1), generator=gen,
+                              device=device, dtype=torch.int32)
+            shape = _k3_shape(tensors, x)
+            if (shape["tier"], shape["lanes_per_word"]) != (tier, width):
+                raise AssertionError(f"K3 tier case {name}: launch_shape "
+                                     f"gave {shape}")
+            case_err, plain_ms = _compare_k3(device, tensors, x, SEED + index,
+                                             K3_TIER_STEPS, levels + 4)
+            err = max(err, case_err)
+            cases.append({"case": name, "lanes": lanes, "v1": v1,
+                          "levels": levels, **shape, "max_abs_err": case_err,
+                          "plain_ms": plain_ms})
+    circuit_kernel.launches = launches
+    emit({"phase": "bucketed", "window": "tiers", "steps": K3_TIER_STEPS,
+          "cases": cases, "bit_identical": True, "max_abs_err": err,
           "seconds": time.monotonic() - start})
     return err
 
@@ -2713,7 +2861,7 @@ def phase_bucketed(device, ragged_records=None):
     from mythril_tpu_torch.gpu import circuit_kernel, ragged_kernel
     from mythril_tpu_torch.gpu import router as router_mod
 
-    err = _k3_random_holds(device)
+    err = max(_k3_random_holds(device), _k3_tier_holds(device))
     sibling_launches, sibling_err = _bucketed_sibling(device)
     err = max(err, sibling_err)
     inputs = {name: (code, tx, timeout)
@@ -2788,6 +2936,60 @@ def bucketed_only(device) -> int:
     """Env, build and the bucketed phase alone (see the module note)."""
     phase_build()
     phase_bucketed(device)
+    return 0
+
+
+def k3_split(device, path) -> int:
+    """K3's split (_k3_split) on the largest batch of the bucketed analyze
+    runs, kept in `path` (a torch.save file): read from it when it exists,
+    else captured from the two runs (device backend alone) and written
+    there. It calls only the round's interface, so a copy of this script
+    placed in a checkout of an earlier version of the port times that
+    version's K3 on the same batch. Where the plain version counts walks,
+    it is held bit for bit and its walk lengths printed."""
+    import inspect
+
+    import torch
+
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    phase_build()
+    if os.path.exists(path):
+        saved = torch.load(path)
+        batch = {**saved, "tensors": {key: value.to(device) for key, value
+                                      in saved["tensors"].items()},
+                 "x": saved["x"].to(device)}
+    else:
+        inputs = {name: (code, tx, timeout)
+                  for name, code, tx, timeout, _c in _analyze_inputs()
+                  if name in BUCKETED_CONTRACTS}
+        batch = {}
+        for name in BUCKETED_CONTRACTS:
+            code, tx_count, timeout = inputs[name]
+            largest = {}
+            with _keep_largest_k3(largest):
+                _analyze_once(device, code, tx_count, timeout, "gpu", {},
+                              engine={"no_ragged": True})
+            if largest.get("size", -1) > batch.get("size", -1):
+                batch = largest
+        torch.save({**batch, "tensors": {key: value.cpu() for key, value
+                                         in batch["tensors"].items()},
+                    "x": batch["x"].cpu()}, path)
+    record = {"phase": "k3-split", "batch": path,
+              "shape": list(batch["x"].shape),
+              "levels": int(batch["tensors"]["out_idx"].shape[1]),
+              "width": int(batch["tensors"]["out_idx"].shape[2]),
+              "steps": batch["steps"], "walk_depth": batch["walk_depth"],
+              **_k3_shape(batch["tensors"], batch["x"]),
+              **_k3_split(device, batch)}
+    if "walks" in inspect.signature(
+            circuit_kernel.run_round_circuit_plain).parameters:
+        walks = []
+        record["max_abs_err"], record["plain_ms"] = _compare_k3(
+            device, batch["tensors"], batch["x"], batch["seed"],
+            batch["steps"], batch["walk_depth"], walks=walks)
+        record["walks"] = _k3_walks(walks)
+    emit(record)
     return 0
 
 
@@ -2871,6 +3073,10 @@ def main() -> int:
             return 0
         if "--bucketed-only" in sys.argv[1:]:
             bucketed_only(device)
+            print(smi, flush=True)
+            return 0
+        if "--k3-split" in sys.argv[1:]:
+            k3_split(device, sys.argv[sys.argv.index("--k3-split") + 1])
             print(smi, flush=True)
             return 0
         phase_build()
@@ -2974,13 +3180,16 @@ def main() -> int:
                              "bucketed_sibling":
                                  bucketed["sibling_launches"]},
         "max_abs_err": bucketed["max_abs_err"],
-        # one round on the largest batch the analyze runs launched
+        # one round on the largest batch the analyze runs launched; its
+        # split (steps=0, walk_depth=0) and the plain run's walk lengths
         "ms": bucketed["ms"],
         "plain_ms": bucketed["plain_ms"],
         "bound_ms": bucketed["bound_ms"],
         "bound_by": bucketed["bound_by"],
         "library_ms": None,
         "serial_chain_phases": bucketed["serial_chain_phases"],
+        "split": bucketed["split"],
+        "walks": bucketed["walks"],
     }]})
     with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w") as fd:
         fd.write("\n".join(_lines) + "\n")

@@ -9,38 +9,73 @@
 // counter hash, keyed by seed, query slot, restart lane, step and walk
 // depth).
 //
-// What bounds it. A step is a serial chain: one barrier per level of the
-// simulate, a root reduction, then the walk, a chain of dependent loads one
-// gate long each (up to walk_depth). The bytes are few (each query's tables
-// read once, x in and out): on the analyze path's batches the bound by bytes
-// is far below the chain's latency, so the chain bounds it.
+// What bounds it. A step is a serial chain: each level of the simulate
+// reads what the levels before it wrote, the root check reads the last,
+// and the walk is a chain of dependent reads one gate long each (up to
+// walk_depth). The bytes are few (each query's tables read once, x in and
+// out): on the analyze path's batches the bound by bytes is far below the
+// chain's latency, so the length of one link of the chain, and the
+// instructions the warp issues per link, bound it.
 //
-// Design (a simple kernel that is right; no wgmma, TMA or warp
-// specialisation). The grid is (group of restart lanes, query slot). A
-// block of 256 threads owns up to 8 lanes of one query and keeps their x
-// rows in dynamic shared memory as a byte per variable while they fit
-// SMEM_X_CAP (224 KB: three lanes at 65,536 variables); a query whose one
-// row does not fit keeps x in global memory, in x_out itself. The level and
-// gate tables are read from global memory and L2, shared by every block of
-// the query. A step runs in three parts:
-//   - simulate: thread t sweeps cell t of each level for every lane of the
-//     block (cells past 256 in a loop), a barrier after each level that
-//     writes; level l + 1's cell descriptors are loaded while level l
-//     computes, so the barrier chain does not wait on L2 each level. A
-//     cell whose out_idx is 0 is padding and is skipped (the reference
-//     writes 0 into var 0, which is already 0);
-//   - the root check and the pick: warp w reduces lane w's roots (violated
-//     or not, the maximal hash key, the lowest root on a tie);
-//   - the walk: thread 0 of warp w walks lane w's chain and flips its end,
-//     unless the lane has found a model.
+// What the design does about it: every link is a shared-memory round trip
+// and a handful of instructions.
+//  - Bit-sliced lanes. One warp serves (query, up to 32 restart lanes):
+//    lane k of the group is bit k of one word per variable, in shared
+//    memory. A gate is one AND of two XOR-masked words for every lane at
+//    once, so the warp's 32 threads take 32 gates at a time, and the steps
+//    are separated by __syncwarp(), not by a block barrier.
+//  - Two levels a step (K1's trick). The query's tables come from
+//    gpu/circuit_kernel.circuit_layout, built on the device once per
+//    batch: the real-gate stream, the levels that hold a live cell paired
+//    in order and each pair's cells in steps of 32 (the bucket's padding
+//    is never read), each slot a whole gate in 32 bytes. A gate on the
+//    second level of a pair reads a first-level child's own two inputs in
+//    its place, so a step reads only what earlier steps wrote and the
+//    chain is half the depth; the simulate reads one slot a step and
+//    nothing else but x. Beside it, a record per variable (its two child
+//    literals; a variable that is not a gate points at itself) for the
+//    walk: 16-bit literals in shared memory up to V1 = 32,768, 32-bit ones
+//    in global memory past it.
+//  - One TMA bulk copy on an mbarrier brings the records (and a stream
+//    that fits) into shared memory while the block's 16 warps pack x
+//    (coalesced reads of 32 variables of each lane's row, one
+//    __ballot_sync a lane). A stream that does not fit is staged through
+//    a ring of kRing chunks of 8 steps (16-byte cp.async, kRing - 1
+//    chunks in flight), as K1's global-table path does.
+//  - The simulate runs a chunk's steps unrolled and reads the next step's
+//    slot before this step's x reads, so only the x reads, the logic, the
+//    store and the __syncwarp() stay on the chain. Thread k checks lane
+//    k's roots on its own bit and walks lane k's chain over shared memory
+//    alone, every thread of the warp in step and without branches until
+//    the last walk ends, reading both children's records before it knows
+//    which one it takes (K1's trick again). The flips are atomicOr /
+//    atomicAnd on the word, since two lanes may flip one variable. A
+//    group whose lanes have all found a model stops: no later step would
+//    change its x.
+//  - Tiers (circuit_kernel.launch_shape), each with the same code:
+//      shared32  V1 <= 16,384: 32 lanes a word, records and x in shared
+//                memory;
+//      shared16  V1 <= 32,768: 16 lanes a word (x as 16-bit words);
+//      xshared   x alone in shared memory at 32, 16 or 8 lanes a word
+//                (the widest that fits), the walk's records in global
+//                memory;
+//      global    x too large for shared memory even at 8 lanes a word:
+//                x's words in global memory (x_work).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kLanesMax = kThreads / 32;
+constexpr int kThreads = 512;       // circuit_kernel.THREADS
+constexpr int kChunkBytes = 8192;   // circuit_kernel.CHUNK_BYTES
+constexpr int kRing = 4;            // circuit_kernel.RING
+constexpr int kSlotQuads = 2;       // circuit_kernel.ENTRY_BYTES / 16
+constexpr int kStepQuads = 32 * kSlotQuads;
+constexpr int kChunkSteps = kChunkBytes / (16 * kStepQuads);
+constexpr unsigned kFull = 0xFFFFFFFFu;
+// circuit_kernel.TIERS
+enum { kShared32 = 0, kShared16 = 1, kXShared = 2, kGlobal = 3 };
 
 constexpr uint32_t kStep = 0x9E3779B9u, kLane = 0x85EBCA6Bu,
                    kQuery = 0xC2B2AE35u, kRoot = 0x27D4EB2Fu,
@@ -52,280 +87,466 @@ __device__ __forceinline__ uint32_t hash32(uint32_t v) {
   return v ^ (v >> 16);
 }
 
-struct Tables {
-  const int* out_idx;
-  const int* a_var;
-  const int* a_neg;
-  const int* b_var;
-  const int* b_neg;
-  const int* ga_var;
-  const int* ga_neg;
-  const int* gb_var;
-  const int* gb_neg;
-  const int* is_gate;
-  const int* root_var;
-  const int* root_neg;
-  const int* root_mask;
-  const int* rows;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+struct Params {
+  const void* records;      // narrow: u32 [Q][v1p]; wide: uint2 [Q][v1]
+  const uint4* stream;      // [Q][stride][2][32] (circuit_layout)
+  const int* stream_steps;  // [Q] steps of each query's stream
+  const uint32_t* roots;    // [Q][nr] var << 2 | neg << 1 | live
+  const int* x_in;          // [Q][lanes][v1]
+  int* x_out;
+  uint8_t* found;           // [Q][lanes]
+  uint32_t* x_work;         // global tier: [Q][groups][v1p] words
+  int lanes, v1, v1p, stride, nr, steps, walk_depth;
+  uint32_t seed;
+  int resident;             // the whole stream in shared memory
 };
 
-// One query's slice of every table.
-struct Query {
-  const int* __restrict__ out_idx;
-  const int* __restrict__ a_var;
-  const int* __restrict__ a_neg;
-  const int* __restrict__ b_var;
-  const int* __restrict__ b_neg;
-  const int* __restrict__ ga_var;
-  const int* __restrict__ ga_neg;
-  const int* __restrict__ gb_var;
-  const int* __restrict__ gb_neg;
-  const int* __restrict__ is_gate;
-  const int* __restrict__ root_var;
-  const int* __restrict__ root_neg;
-  const int* __restrict__ root_mask;
-  const int* __restrict__ rows;
-  int levels, width, roots;
+// A variable's record, its two child literals (var << 1 | neg): 16-bit
+// each in one word in shared memory (narrow), or a pair in global memory.
+template <bool kSharedRecords>
+struct Records;
+
+template <>
+struct Records<true> {
+  const uint32_t* recs;
+  __device__ __forceinline__ uint2 operator()(uint32_t v) const {
+    const uint32_t r = recs[v];
+    return make_uint2(r & 0xFFFFu, r >> 16);
+  }
 };
 
-// x[:, 0] = 0, then every level in order (see the note above).
-template <typename T>
-__device__ __forceinline__ void simulate(const Query& t, T* base,
-                                         size_t stride, int nl) {
-  const int tid = threadIdx.x;
-  if (tid < nl) base[(size_t)tid * stride] = 0;
-  __syncthreads();
-  const bool has = tid < t.width;
-  int o = 0, a = 0, an = 0, b = 0, bn = 0;
-  int r_next = __ldg(t.rows);
-  if (has) {
-    o = __ldg(t.out_idx + tid);
-    a = __ldg(t.a_var + tid);
-    an = __ldg(t.a_neg + tid);
-    b = __ldg(t.b_var + tid);
-    bn = __ldg(t.b_neg + tid);
+template <>
+struct Records<false> {
+  const uint2* recs;
+  __device__ __forceinline__ uint2 operator()(uint32_t v) const {
+    return __ldg(recs + v);
   }
-  for (int l = 0; l < t.levels; ++l) {
-    const int r = r_next;
-    const int co = o, ca = a, can = an, cb = b, cbn = bn;
-    if (l + 1 < t.levels) {
-      r_next = __ldg(t.rows + l + 1);
-      if (has) {
-        const size_t i = (size_t)(l + 1) * t.width + tid;
-        o = __ldg(t.out_idx + i);
-        a = __ldg(t.a_var + i);
-        an = __ldg(t.a_neg + i);
-        b = __ldg(t.b_var + i);
-        bn = __ldg(t.b_neg + i);
+};
+
+// 16 bytes global -> shared, asynchronously.
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// The query's real-gate stream, as the warp reads it, in chunks of
+// kChunkSteps steps: resident in shared memory, or a ring of kRing
+// chunks. The ring runs over every simulate of the launch as one sequence
+// of chunks (each simulate reads all of the query's chunks in order);
+// chunk n is one cp.async group per thread, and kRing - 1 chunks are in
+// flight.
+struct Stream {
+  const uint4* global;  // this query's steps, [stride][2][32]
+  uint4* smem;          // resident: [stride][2][32]; ring: [kRing][chunk]
+  bool resident;
+  int chunks;           // of one simulate
+  uint32_t total;       // chunks of every simulate the launch may run
+  uint32_t begun;       // chunks begun so far
+
+  __device__ void fetch(uint32_t n, int t) {
+    if (n < total) {
+      const uint4* src = global + (n % chunks) * (kChunkSteps * kStepQuads);
+      uint4* dst = smem + (n % kRing) * (kChunkSteps * kStepQuads);
+#pragma unroll
+      for (int i = t; i < kChunkSteps * kStepQuads; i += 32)
+        copy_async16(dst + i, src + i);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  __device__ void start(int t) {
+    begun = 0;
+    if (resident) return;
+    for (int n = 0; n < kRing - 1; ++n) fetch(n, t);
+  }
+  // Chunk c of this simulate; called for c = 0, 1, ... in order by every
+  // thread of the warp.
+  __device__ __forceinline__ const uint4* chunk(int c, int t) {
+    if (resident) return smem + c * (kChunkSteps * kStepQuads);
+    __syncwarp();  // every read of the slot chunk begun - 1 left is done
+    fetch(begun + kRing - 1, t);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 1) : "memory");
+    __syncwarp();  // the other threads' parts of chunk `begun` landed
+    return smem + (begun++ % kRing) * (kChunkSteps * kStepQuads);
+  }
+  __device__ void finish() {
+    if (!resident) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+};
+
+// x's word at byte offset `off` (circuit_layout's offsets).
+template <class Word>
+__device__ __forceinline__ Word word_at(const Word* x, uint32_t off) {
+  return *reinterpret_cast<const Word*>(
+      reinterpret_cast<const uint8_t*>(x) + off);
+}
+
+// Byte k of `masks` in every byte of a word.
+__device__ __forceinline__ uint32_t mask_byte(uint32_t masks, int k) {
+  return __byte_perm(masks, 0, 0x1111 * k);
+}
+
+// One step of the simulate: thread t's gate for every lane at once. `p`
+// is (out | flags, a0, a1, a) and `q` (masks, b0, b1, b)
+// (circuit_layout): each child's value is the AND of two literals (the
+// child's own inputs on the pair's first level, else the child twice),
+// then its negation. A slot of padding is var 0 := x[0] & x[0].
+template <class Word>
+__device__ __forceinline__ void gate(Word* x, uint4 p, uint4 q) {
+  const Word va = ((word_at(x, p.y) ^ static_cast<Word>(mask_byte(q.x, 0))) &
+                   (word_at(x, p.z) ^ static_cast<Word>(mask_byte(q.x, 1)))) ^
+                  static_cast<Word>(0u - (p.w & 1u));
+  const Word vb = ((word_at(x, q.y) ^ static_cast<Word>(mask_byte(q.x, 2))) &
+                   (word_at(x, q.z) ^ static_cast<Word>(mask_byte(q.x, 3)))) ^
+                  static_cast<Word>(0u - (q.w & 1u));
+  *reinterpret_cast<Word*>(reinterpret_cast<uint8_t*>(x) +
+                           (p.x & 0x3FFFFFFFu)) = static_cast<Word>(va & vb);
+  __syncwarp();
+}
+
+// One simulate of the warp's lanes: x[0] = 0, then every step of the
+// stream in order (two levels a step), thread t taking slot t. The next
+// step's slot is read before this step's x reads, and a whole chunk runs
+// unrolled.
+template <class Word>
+__device__ __forceinline__ void simulate(Word* x, Stream& st, int num_steps,
+                                         int t) {
+  if (t == 0) x[0] = 0;
+  __syncwarp();
+  for (int c = 0; c * kChunkSteps < num_steps; ++c) {
+    const uint4* steps = st.chunk(c, t) + t;
+    const int n = min(kChunkSteps, num_steps - c * kChunkSteps);
+    uint4 a = steps[0], b = steps[32];
+    if (n == kChunkSteps) {
+#pragma unroll
+      for (int k = 0; k < kChunkSteps; ++k) {
+        const int next = min(k + 1, kChunkSteps - 1) * kStepQuads;
+        const uint4 na = steps[next], nb = steps[next + 32];
+        gate(x, a, b);
+        a = na;
+        b = nb;
+      }
+    } else {
+      for (int k = 0; k < n; ++k) {
+        const int next = min(k + 1, n - 1) * kStepQuads;
+        const uint4 na = steps[next], nb = steps[next + 32];
+        gate(x, a, b);
+        a = na;
+        b = nb;
       }
     }
-    if (r == 0) continue;  // padding alone: nothing written, no barrier
-    if (tid < r && co != 0) {
-      for (int k = 0; k < nl; ++k) {
-        T* xr = base + (size_t)k * stride;
-        xr[co] = (T)((((int)xr[ca]) ^ can) & (((int)xr[cb]) ^ cbn));
-      }
-    }
-    for (int c = tid + kThreads; c < r; c += kThreads) {
-      const size_t i = (size_t)l * t.width + c;
-      const int o2 = __ldg(t.out_idx + i);
-      if (o2 == 0) continue;
-      const int a2 = __ldg(t.a_var + i), an2 = __ldg(t.a_neg + i);
-      const int b2 = __ldg(t.b_var + i), bn2 = __ldg(t.b_neg + i);
-      for (int k = 0; k < nl; ++k) {
-        T* xr = base + (size_t)k * stride;
-        xr[o2] = (T)((((int)xr[a2]) ^ an2) & (((int)xr[b2]) ^ bn2));
-      }
-    }
-    __syncthreads();
   }
 }
 
-// Warp-wide root check of one lane: whether a root is violated, and the
-// violated root of maximal key (the lowest on a tie; root 0 when none).
-template <typename T>
-__device__ __forceinline__ void pick_root(const Query& t, const T* xr,
-                                          uint32_t step_key, uint32_t salt,
-                                          bool* violated, int* choice) {
-  const int lane = threadIdx.x & 31;
-  int best_key = -1, best = lane < t.roots ? lane : 0x7FFFFFFF;
-  bool any = false;
-  for (int j = lane; j < t.roots; j += 32) {
-    const int rv = __ldg(t.root_var + j);
-    const int viol = ((((int)xr[rv]) ^ __ldg(t.root_neg + j)) == 0)
-                     && __ldg(t.root_mask + j) == 1;
-    any |= viol;
-    const int key =
-        viol ? (int)(hash32(step_key ^ salt ^ ((uint32_t)j * kRoot)) >> 1)
-             : -1;
-    if (key > best_key) {
-      best_key = key;
-      best = j;
+// Lane t's root check on its own bit: true when a root is violated, with
+// `choice` the violated root of maximal key (hash >> 1), the lowest on a
+// tie.
+template <class Word>
+__device__ __forceinline__ bool check(const Word* x,
+                                      const uint32_t* __restrict__ roots,
+                                      int nr, uint32_t key_base, int t,
+                                      int& choice) {
+  int best_key = -1, best = 0;
+#pragma unroll 4
+  for (int j = 0; j < nr; ++j) {
+    const uint32_t r = __ldg(roots + j);
+    const uint32_t bit = (static_cast<uint32_t>(x[r >> 2]) >> t) & 1u;
+    // live (not masked) and its literal false
+    if ((r & 1u) && bit == ((r >> 1) & 1u)) {
+      const int key = static_cast<int>(
+          hash32(key_base ^ (static_cast<uint32_t>(j) * kRoot)) >> 1);
+      if (key > best_key) {
+        best_key = key;
+        best = j;
+      }
     }
   }
-  for (int off = 16; off; off >>= 1) {
-    const int k2 = __shfl_down_sync(0xFFFFFFFFu, best_key, off);
-    const int b2 = __shfl_down_sync(0xFFFFFFFFu, best, off);
-    if (k2 > best_key || (k2 == best_key && b2 < best)) {
-      best_key = k2;
-      best = b2;
-    }
-  }
-  *violated = __any_sync(0xFFFFFFFFu, any);
-  *choice = best;
+  choice = best;
+  return best_key >= 0;
 }
 
-// The justification walk from `var`, wanting variable value `want`: returns
-// the variable to flip and sets `want` to the value it must take.
-template <typename T>
-__device__ __forceinline__ int walk(const Query& t, const T* xr, int var,
-                                    int* want_io, int depth,
-                                    uint32_t coin_base) {
-  int cur = var, want = *want_io;
-  for (int d = 0; d < depth; ++d) {
-    if (__ldg(t.is_gate + cur) != 1) break;
-    const int av_i = __ldg(t.ga_var + cur), an = __ldg(t.ga_neg + cur);
-    const int bv_i = __ldg(t.gb_var + cur), bn = __ldg(t.gb_neg + cur);
-    const int av = ((int)xr[av_i]) ^ an;
-    const int bv = ((int)xr[bv_i]) ^ bn;
-    if ((av & bv) == want) break;  // justified
-    const bool coin = hash32(coin_base ^ ((uint32_t)d * kDepth)) & 1u;
-    const bool choose_b =
-        want == 1 ? ((av == 1 && bv == 0) || (av == 0 && bv == 0 && coin))
-                  : ((av == 0 && bv == 1) || (av == 1 && bv == 1 && coin));
-    cur = choose_b ? bv_i : av_i;
-    want ^= choose_b ? bn : an;
-  }
-  *want_io = want;
-  return cur;
+// Set bit t of x[v] to `want`; other lanes may flip bits of the same word.
+template <class Word>
+__device__ __forceinline__ void flip(Word* x, uint32_t v, int t,
+                                     uint32_t want) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(x + v);
+  unsigned int* word = reinterpret_cast<unsigned int*>(at & ~uintptr_t(3));
+  const unsigned int mask = 1u << (8 * (at & 3) + t);
+  if (want)
+    atomicOr(word, mask);
+  else
+    atomicAnd(word, ~mask);
 }
 
-template <typename T>
+// Lane t's justification walk from the violated root `r` (when `walking`),
+// then its flip. The whole warp runs the loop in step, without branches,
+// until the last walk has ended. Every read is of shared memory (the
+// records of the xshared and global tiers excepted).
+template <class Word, class Recs>
+__device__ __forceinline__ void walk_and_flip(Word* x, const Recs& rec_of,
+                                              bool walking, uint32_t r,
+                                              int walk_depth,
+                                              uint32_t coin_base, int t) {
+  uint32_t cur = r >> 2, want = 1u ^ ((r >> 1) & 1u);
+  uint2 rec = rec_of(cur);
+  bool active = walking;
+  for (int depth = 0; depth < walk_depth; ++depth) {
+    const uint32_t coin =
+        hash32(coin_base ^ (static_cast<uint32_t>(depth) * kDepth)) & 1u;
+    const uint32_t a = rec.x >> 1, b = rec.y >> 1;
+    // both children's records before the choice is known
+    const uint2 ra = rec_of(a), rb = rec_of(b);
+    const uint32_t av = ((static_cast<uint32_t>(x[a]) >> t) ^ rec.x) & 1u;
+    const uint32_t bv = ((static_cast<uint32_t>(x[b]) >> t) ^ rec.y) & 1u;
+    // a variable that is not a gate, or a justified gate, ends the walk
+    active = active && a != cur && (av & bv) != want;
+    if (!__any_sync(kFull, active)) break;
+    // want 1 descends into a false child, want 0 into a true one: b when
+    // only b is such a child, the coin when both are
+    const uint32_t fa = av ^ want, fb = bv ^ want;
+    const bool choose_b = active && (fb & ((fa ^ 1u) | coin));
+    const bool choose_a = active && !choose_b;
+    cur = choose_b ? b : (choose_a ? a : cur);
+    want ^= choose_b ? rec.y & 1u : (choose_a ? rec.x & 1u : 0u);
+    rec = choose_b ? rb : (choose_a ? ra : rec);
+  }
+  if (walking) flip(x, cur, t, want);
+}
+
+// x_in's rows of the group's lanes into bit-sliced words, every warp of
+// the block on its own columns of 32 variables: thread t reads variable
+// v0 + t of each lane's row (coalesced, the group's loads all in flight),
+// one __ballot_sync a lane gives that lane's bits of the 32 variables,
+// and thread t gathers bit t of each into its variable's word. Lanes past
+// the group's `nl` are 0.
+template <class Word>
+__device__ void pack_x(Word* x, const int* __restrict__ row0, int v1,
+                       int nl) {
+  constexpr int kLaneBits = 8 * sizeof(Word);
+  const int t = threadIdx.x & 31;
+  for (int v0 = (threadIdx.x >> 5) * 32; v0 < v1; v0 += kThreads) {
+    const int v = v0 + t;
+    int bits[kLaneBits];
+#pragma unroll
+    for (int r = 0; r < kLaneBits; ++r)
+      bits[r] = r < nl && v < v1
+                    ? __ldg(row0 + static_cast<size_t>(r) * v1 + v)
+                    : 0;
+    uint32_t word = 0;
+#pragma unroll
+    for (int r = 0; r < kLaneBits; ++r)
+      word |= ((__ballot_sync(kFull, bits[r] != 0) >> t) & 1u) << r;
+    if (v < v1) x[v] = static_cast<Word>(word);
+  }
+}
+
+// The words back into x_out's rows, coalesced: thread t writes variable
+// v0 + t of each of the group's lanes.
+template <class Word>
+__device__ void unpack_x(const Word* x, int* row0, int v1, int nl) {
+  constexpr int kLaneBits = 8 * sizeof(Word);
+  for (int v = threadIdx.x; v < v1; v += kThreads) {
+    const uint32_t word = x[v];
+#pragma unroll
+    for (int r = 0; r < kLaneBits; ++r)
+      if (r < nl) row0[static_cast<size_t>(r) * v1 + v] = (word >> r) & 1u;
+  }
+}
+
+// Wait for the first phase of the mbarrier (the table copy) to complete.
+__device__ __forceinline__ void wait_tables(uint32_t bar) {
+  const uint32_t parity = 0;
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+template <class Word, bool kSharedRecords, bool kXInShared>
 __global__ void __launch_bounds__(kThreads)
-    circuit_round_kernel(Tables tables, const int* __restrict__ x_in,
-                         int* x_out, bool* __restrict__ found_out,
-                         int lanes, int levels, int width, int v1, int roots,
-                         int steps, int walk_depth, uint32_t seed,
-                         int per_block) {
-  extern __shared__ __align__(16) unsigned char smem[];
+    circuit_round_kernel(Params p) {
+  constexpr int kLaneBits = 8 * sizeof(Word);
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ __align__(8) uint64_t tables_ready;
   const int q = blockIdx.y;
-  const int lane0 = blockIdx.x * per_block;
-  const int nl = min(per_block, lanes - lane0);
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int lane0 = blockIdx.x * kLaneBits;
+  const int nl = min(kLaneBits, p.lanes - lane0);
+  const int t = threadIdx.x & 31;
+  const int num_steps = p.stream_steps[q];
+  const int chunks = (num_steps + kChunkSteps - 1) / kChunkSteps;
 
-  Query t;
-  const size_t qlw = (size_t)q * levels * width;
-  const size_t qv = (size_t)q * v1, qr = (size_t)q * roots;
-  t.out_idx = tables.out_idx + qlw;
-  t.a_var = tables.a_var + qlw;
-  t.a_neg = tables.a_neg + qlw;
-  t.b_var = tables.b_var + qlw;
-  t.b_neg = tables.b_neg + qlw;
-  t.ga_var = tables.ga_var + qv;
-  t.ga_neg = tables.ga_neg + qv;
-  t.gb_var = tables.gb_var + qv;
-  t.gb_neg = tables.gb_neg + qv;
-  t.is_gate = tables.is_gate + qv;
-  t.root_var = tables.root_var + qr;
-  t.root_neg = tables.root_neg + qr;
-  t.root_mask = tables.root_mask + qr;
-  t.rows = tables.rows + (size_t)q * levels;
-  t.levels = levels;
-  t.width = width;
-  t.roots = roots;
+  // shared memory: [records (narrow)] [stream: resident or ring] [x]
+  size_t off = 0;
+  const uint32_t* recs_shared = reinterpret_cast<const uint32_t*>(smem);
+  if (kSharedRecords) off += static_cast<size_t>(p.v1p) * 4;
+  uint4* stream_shared = reinterpret_cast<uint4*>(smem + off);
+  off += p.resident
+             ? static_cast<size_t>(p.stride) * kStepQuads * sizeof(uint4)
+             : static_cast<size_t>(kRing) * kChunkBytes;
+  Word* x = kXInShared
+                ? reinterpret_cast<Word*>(smem + off)
+                : reinterpret_cast<Word*>(
+                      p.x_work + (static_cast<size_t>(q) * gridDim.x +
+                                  blockIdx.x) * p.v1p);
+  const uint4* stream_global =
+      p.stream + static_cast<size_t>(q) * p.stride * kStepQuads;
 
-  // the block's x rows: bytes in shared memory, or x_out's own rows
-  const size_t first = ((size_t)q * lanes + lane0) * v1;
-  T* base;
-  size_t stride;
-  if (sizeof(T) == 1) {
-    base = reinterpret_cast<T*>(smem);
-    stride = ((size_t)v1 + 15) & ~(size_t)15;
-  } else {
-    base = reinterpret_cast<T*>(x_out + first);
-    stride = v1;
-  }
-  for (int k = 0; k < nl; ++k)
-    for (int v = tid; v < v1; v += kThreads)
-      base[(size_t)k * stride + v] = (T)x_in[first + (size_t)k * v1 + v];
-  __syncthreads();
-
-  const bool owner = warp < nl;  // warp w serves lane lane0 + w
-  T* my_row = base + (size_t)(owner ? warp : 0) * stride;
-  const uint32_t salt =
-      ((uint32_t)q * kQuery) ^ ((uint32_t)(lane0 + warp) * kLane);
-  bool found = false;
-  for (int step = 0; step < steps; ++step) {
-    simulate(t, base, stride, nl);
-    const uint32_t step_key = hash32(seed ^ ((uint32_t)step * kStep));
-    if (owner) {
-      bool violated;
-      int choice;
-      pick_root(t, my_row, step_key, salt, &violated, &choice);
-      found |= !violated;
-      if (!found && (tid & 31) == 0) {
-        int want = 1 ^ __ldg(t.root_neg + choice);
-        const int var = walk(t, my_row, __ldg(t.root_var + choice), &want,
-                             walk_depth, (step_key ^ kCoin) ^ salt);
-        my_row[var] = (T)want;
-      }
+  // the tables into shared memory by one TMA bulk copy, under the packing
+  const uint32_t rec_bytes = kSharedRecords ? p.v1p * 4u : 0u;
+  const uint32_t stream_bytes =
+      p.resident ? static_cast<uint32_t>(chunks) * kChunkBytes : 0u;
+  const uint32_t bar = smem_u32(&tables_ready);
+  if (rec_bytes + stream_bytes) {
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              bar),
+          "r"(rec_bytes + stream_bytes)
+          : "memory");
+      if (rec_bytes)
+        bulk_copy(smem,
+                  reinterpret_cast<const uint8_t*>(p.records) +
+                      static_cast<size_t>(q) * rec_bytes,
+                  rec_bytes, bar);
+      if (stream_bytes)
+        bulk_copy(stream_shared, stream_global, stream_bytes, bar);
+    }
   }
-  simulate(t, base, stride, nl);
-  if (owner) {
-    bool violated;
-    int choice;
-    pick_root(t, my_row, 0u, salt, &violated, &choice);
-    found |= !violated;
-    if ((tid & 31) == 0) found_out[(size_t)q * lanes + lane0 + warp] = found;
+  const size_t row0 =
+      (static_cast<size_t>(q) * p.lanes + lane0) * static_cast<size_t>(p.v1);
+  pack_x(x, p.x_in + row0, p.v1, nl);
+  __syncthreads();
+
+  if (threadIdx.x < 32) {  // warp 0 runs the round
+    if (rec_bytes + stream_bytes) wait_tables(bar);
+    Records<kSharedRecords> rec_of;
+    if constexpr (kSharedRecords) {
+      rec_of.recs = recs_shared;
+    } else {
+      rec_of.recs = reinterpret_cast<const uint2*>(p.records) +
+                    static_cast<size_t>(q) * p.v1;
+    }
+    Stream st{stream_global, stream_shared, p.resident != 0, chunks,
+              static_cast<uint32_t>(chunks) * (p.steps + 1), 0};
+    st.start(t);
+    const uint32_t* roots = p.roots + static_cast<size_t>(q) * p.nr;
+    const uint32_t salt = static_cast<uint32_t>(q) * kQuery ^
+                          static_cast<uint32_t>(lane0 + t) * kLane;
+    bool found = t >= nl;  // no lane: nothing to find
+    bool final_pass = true;
+    for (int step = 0; step < p.steps; ++step) {
+      simulate(x, st, num_steps, t);
+      const uint32_t step_key =
+          hash32(p.seed ^ (static_cast<uint32_t>(step) * kStep));
+      int choice = 0;
+      const bool violated =
+          !found && check(x, roots, p.nr, step_key ^ salt, t, choice);
+      found = found || !violated;
+      // a lane that found a model never flips: when all have, x is final
+      if (__all_sync(kFull, found)) {
+        final_pass = false;
+        break;
+      }
+      walk_and_flip(x, rec_of, violated, __ldg(roots + choice),
+                    p.walk_depth, step_key ^ kCoin ^ salt, t);
+      __syncwarp();
+    }
+    if (final_pass) {
+      simulate(x, st, num_steps, t);
+      int choice;
+      found = found || !check(x, roots, p.nr, salt, t, choice);
+    }
+    if (t < nl)
+      p.found[static_cast<size_t>(q) * p.lanes + lane0 + t] = found ? 1 : 0;
+    st.finish();
   }
-  if (sizeof(T) == 1) {
-    __syncthreads();
-    for (int k = 0; k < nl; ++k)
-      for (int v = tid; v < v1; v += kThreads)
-        x_out[first + (size_t)k * v1 + v] = (int)base[(size_t)k * stride + v];
-  }
+  __syncthreads();
+  unpack_x(x, p.x_out + row0, p.v1, nl);
+}
+
+template <class Word, bool kSharedRecords, bool kXInShared>
+int launch(const Params& p, int queries, int smem_bytes,
+           cudaStream_t stream) {
+  constexpr int kLaneBits = 8 * sizeof(Word);
+  auto kernel = circuit_round_kernel<Word, kSharedRecords, kXInShared>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.lanes + kLaneBits - 1) / kLaneBits, queries);
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Launch one round on `stream` (a cudaStream_t passed as a pointer); the
+// tier and the lanes a word come from circuit_kernel.launch_shape.
+// Returns cudaGetLastError() after the launch: 0 when it was accepted.
 extern "C" int circuit_round_launch(
-    const void* out_idx, const void* a_var, const void* a_neg,
-    const void* b_var, const void* b_neg, const void* ga_var,
-    const void* ga_neg, const void* gb_var, const void* gb_neg,
-    const void* is_gate, const void* root_var, const void* root_neg,
-    const void* root_mask, const void* rows, const void* x_in, void* x_out,
-    void* found, int queries, int lanes, int levels, int width, int v1,
-    int roots, int steps, int walk_depth, unsigned seed, int per_block,
-    int smem_path, void* stream) {
-  if (per_block < 1 || per_block > kLanesMax)
-    return (int)cudaErrorInvalidValue;
-  Tables tables = {
-      (const int*)out_idx, (const int*)a_var,   (const int*)a_neg,
-      (const int*)b_var,   (const int*)b_neg,   (const int*)ga_var,
-      (const int*)ga_neg,  (const int*)gb_var,  (const int*)gb_neg,
-      (const int*)is_gate, (const int*)root_var, (const int*)root_neg,
-      (const int*)root_mask, (const int*)rows};
-  const dim3 grid((lanes + per_block - 1) / per_block, queries);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (smem_path) {
-    const size_t smem = (size_t)per_block * (((size_t)v1 + 15) & ~(size_t)15);
-    cudaError_t err = cudaFuncSetAttribute(
-        circuit_round_kernel<uint8_t>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    circuit_round_kernel<uint8_t><<<grid, kThreads, smem, s>>>(
-        tables, (const int*)x_in, (int*)x_out, (bool*)found, lanes, levels,
-        width, v1, roots, steps, walk_depth, seed, per_block);
-  } else {
-    circuit_round_kernel<int><<<grid, kThreads, 0, s>>>(
-        tables, (const int*)x_in, (int*)x_out, (bool*)found, lanes, levels,
-        width, v1, roots, steps, walk_depth, seed, per_block);
+    const void* records, const void* stream_table, const void* stream_steps,
+    const void* roots, const void* x_in, void* x_out, void* found,
+    void* x_work, int queries, int lanes, int v1, int v1p, int stride,
+    int nr, int steps, int walk_depth, unsigned seed, int tier,
+    int lanes_per_word, int resident, int smem_bytes, void* stream) {
+  if (queries < 1 || lanes < 1 || v1 < 1 || smem_bytes < 0 ||
+      smem_bytes > 227 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{records,
+           static_cast<const uint4*>(stream_table),
+           static_cast<const int*>(stream_steps),
+           static_cast<const uint32_t*>(roots),
+           static_cast<const int*>(x_in),
+           static_cast<int*>(x_out),
+           static_cast<uint8_t*>(found),
+           static_cast<uint32_t*>(x_work),
+           lanes, v1, v1p, stride, nr, steps, walk_depth, seed, resident};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tier) {
+    case kShared32:
+      return launch<uint32_t, true, true>(p, queries, smem_bytes, s);
+    case kShared16:
+      return launch<uint16_t, true, true>(p, queries, smem_bytes, s);
+    case kXShared:
+      if (lanes_per_word == 32)
+        return launch<uint32_t, false, true>(p, queries, smem_bytes, s);
+      if (lanes_per_word == 16)
+        return launch<uint16_t, false, true>(p, queries, smem_bytes, s);
+      if (lanes_per_word == 8)
+        return launch<uint8_t, false, true>(p, queries, smem_bytes, s);
+      break;
+    case kGlobal:
+      if (!x_work) break;
+      return launch<uint32_t, false, false>(p, queries, smem_bytes, s);
   }
-  return (int)cudaGetLastError();
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* circuit_round_error_string(int status) {
-  return cudaGetErrorString((cudaError_t)status);
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

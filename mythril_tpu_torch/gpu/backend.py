@@ -368,7 +368,8 @@ class DeviceSolverBackend:
             # batch assembly of resident tables, on the device
             tensors = {key: torch.cat([entry[key] for entry in padded])
                        for key in circuit.TENSOR_KEYS}
-            rows = circuit_kernel.level_rows(tensors)
+            # the kernel's records and real-gate stream, once per batch
+            layout = circuit_kernel.circuit_layout(tensors)
         solve_start = time.monotonic()
 
         generator = torch.Generator(device=self.device)
@@ -388,7 +389,7 @@ class DeviceSolverBackend:
                 x, found = circuit_kernel.run_round_circuit_kernel(
                     tensors, x,
                     seed=(self._seed * 1000003 + rounds) & 0x7FFFFFFF,
-                    steps=steps, walk_depth=walk_depth, rows=rows)
+                    steps=steps, walk_depth=walk_depth, layout=layout)
                 rounds += 1
                 self.flips += q * num_restarts * steps
                 # the calibration's cell unit: each step resimulates the

@@ -24,9 +24,15 @@ axis's padding) report found at step 0.
 
   run_round_circuit_kernel  the wrapper: checks its operands and, for CUDA
                   tensors, launches csrc/circuit_round.cu (built with nvcc
-                  at first use into mythril_tpu_torch/_build/). For CPU
-                  tensors, and only for those, it runs
+                  at first use into mythril_tpu_torch/_build/) on the
+                  batch's circuit_layout. For CPU tensors, and only for
+                  those, it runs
   run_round_circuit_plain   the same round written with torch tensor ops.
+  circuit_layout  the kernel's side input, built on the device once per
+                  batch: a record per variable and the real-gate stream
+                  (see its note); it raises on a batch the kernel would
+                  not compute exactly.
+  launch_shape    the kernel's tier and lanes a word for a V1 and stream.
 
 Operands: `tensors` holds every TENSOR_KEYS table with a leading query
 axis, int32 and contiguous on x's device: out_idx, a_var, a_neg, b_var,
@@ -40,6 +46,7 @@ import ctypes
 import os
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -64,34 +71,70 @@ ROOT_KEYS = ("root_var", "root_neg", "root_mask")
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SOURCE = os.path.join(_PACKAGE_DIR, "csrc", "circuit_round.cu")
 
-# The kernel's launch shape, mirrored in csrc/circuit_round.cu: a block of
-# THREADS threads serves one query and up to LANES_MAX restart lanes (a
-# warp each for the root check and the walk). A lane's x row lives in
-# shared memory as a byte per variable while lanes x align16(V1) bytes fit
-# SMEM_X_CAP (three lanes at V1 = 65,536); a query whose single row does
-# not fit (V1 > 229,376) keeps x in global memory, in x_out itself.
-THREADS = 256
-LANES_MAX = THREADS // 32
-SMEM_X_CAP = 224 * 1024
-SM_COUNT = 132  # an H100 SXM's SMs; sizes the lane groups of a launch
+# The kernel's launch, mirrored in csrc/circuit_round.cu: a block of
+# THREADS threads (its 16 warps pack x in and out, warp 0 runs the round)
+# serves one query and one group of restart lanes, bit-sliced into a word
+# per variable. A stream slot is a whole gate of two levels' step (32
+# bytes); a stream that does not fit shared memory beside x and the
+# records streams through RING chunks of CHUNK_BYTES.
+THREADS = 512
+SMEM_CAP = 224 * 1024
+CHUNK_BYTES = 8192
+RING = 4
+STEP_GATES = 32        # a stream step: one gate a thread of the warp
+ENTRY_BYTES = 32       # a slot: the gate and its first-level children
+CHUNK_STEPS = CHUNK_BYTES // (STEP_GATES * ENTRY_BYTES)
+NARROW_V1 = 1 << 15    # 16-bit literals: records in shared memory
+SHARED32_V1 = 1 << 14  # x and the records at 32 lanes a word fit
+TIERS = ("shared32", "shared16", "xshared", "global")
 
 # kernel launches since the last reset (the plain version never counts)
 launches = 0
 
 
-def _align16(n: int) -> int:
-    return (n + 15) & ~15
+def _align(n: int, to: int) -> int:
+    return -(-n // to) * to
 
 
-def launch_shape(queries: int, lanes: int, v1: int):
-    """(lanes per block, shared-memory path?) of one launch. Fewer lanes a
-    block when the batch is small, so the grid still spans the card; the
-    result never depends on it (every lane is independent)."""
-    fit = SMEM_X_CAP // _align16(max(v1, 1))
-    if fit == 0:
-        return min(LANES_MAX, lanes), False
-    spread = -(-queries * lanes // (2 * SM_COUNT))
-    return max(1, min(LANES_MAX, fit, lanes, spread)), True
+class LaunchShape(NamedTuple):
+    tier: str             # one of TIERS
+    lanes_per_word: int   # restart lanes bit-sliced into one x word
+    resident: bool        # the whole stream in shared memory (else a ring)
+    smem_bytes: int       # dynamic shared memory of a block
+
+
+def launch_shape(v1: int, stream_steps: int) -> LaunchShape:
+    """The kernel's tier for a batch of V1 variables whose longest query
+    stream has `stream_steps` steps (a multiple of CHUNK_STEPS):
+
+      shared32  V1 <= 16,384: 32 lanes a word; x and the 16-bit records
+                in shared memory (8 bytes a variable);
+      shared16  V1 <= 32,768: 16 lanes a word (6 bytes a variable);
+      xshared   wider: x alone in shared memory at the widest of 32, 16 or
+                8 lanes a word that fits beside the ring (V1 up to 49,152,
+                98,304 and 196,608), the records in global memory;
+      global    wider still: x's words in global memory.
+
+    The stream is resident when it fits beside them, else it streams
+    through the ring (RING x CHUNK_BYTES). The result never depends on
+    the tier: every lane is independent."""
+    v1p = _align(max(v1, 1), 4)
+    ring = RING * CHUNK_BYTES
+    stream = stream_steps * STEP_GATES * ENTRY_BYTES
+    if v1 <= NARROW_V1:
+        tier, lanes = ("shared32", 32) if v1 <= SHARED32_V1 \
+            else ("shared16", 16)
+        fixed = 4 * v1p + _align(v1p * lanes // 8, 16)
+    else:
+        tier, lanes, fixed = "global", 32, 0
+        for width in (32, 16, 8):
+            x_bytes = _align(v1p * width // 8, 16)
+            if x_bytes + ring <= SMEM_CAP:
+                tier, lanes, fixed = "xshared", width, x_bytes
+                break
+    resident = fixed + stream <= SMEM_CAP
+    return LaunchShape(tier, lanes, resident,
+                       fixed + (stream if resident else ring))
 
 
 def stack_padded(pcs, shape=None, slots=None) -> dict:
@@ -123,9 +166,9 @@ def device_batch(arrays: dict, device) -> dict:
 
 def level_rows(tensors: dict) -> torch.Tensor:
     """[Q, L] int32: one past the last live cell (out_idx > 0) of each
-    level, 0 for a level of padding alone. The kernel sweeps only these
-    cells; the cells past them write nothing (padding), so the bound
-    changes no result."""
+    level, 0 for a level of padding alone. The plain version sweeps only
+    these cells; the cells past them write nothing (padding), so the
+    bound changes no result."""
     live = tensors["out_idx"] > 0
     width = live.shape[2]
     col = torch.arange(1, width + 1, device=live.device, dtype=torch.int32)
@@ -134,15 +177,210 @@ def level_rows(tensors: dict) -> torch.Tensor:
             live.shape[:2], dtype=torch.int32, device=live.device)
 
 
+# -- the kernel's layout ------------------------------------------------------
+
+
+class CircuitLayout(NamedTuple):
+    """circuit_layout's tables, on the batch's device."""
+    records: torch.Tensor       # narrow int32 [Q, V1p]; wide int32 [Q, V1, 2]
+    stream: torch.Tensor        # int32 [Q, S, 2, 32, 4]
+    stream_steps: torch.Tensor  # int32 [Q]: each query's steps
+    roots: torch.Tensor         # int32 [Q, NR]
+    v1: int
+    stride: int                 # S: the longest stream, in whole chunks
+
+
+def _signed(values: torch.Tensor, bits: int) -> torch.Tensor:
+    """int64 bit patterns in [0, 2^bits) as the signed values of a
+    `bits`-wide integer, so they convert without overflow."""
+    return values - ((values >> (bits - 1)) & 1) * (1 << bits)
+
+
+def _require(checks) -> None:
+    """Raise ValueError on the first of (message, bool tensor) pairs whose
+    tensor is not all true; one device sync for all of them."""
+    ok = torch.stack([cond.all() for _message, cond in checks]).tolist()
+    for good, (message, _cond) in zip(ok, checks):
+        if not good:
+            raise ValueError(f"circuit_layout: {message}")
+
+
+def circuit_layout(tensors: dict) -> CircuitLayout:
+    """The kernel's tables of a batch, built on its device. Per query:
+
+      records  a record per variable for the walk: its two child literals
+               (var << 1 | neg), 16-bit each packed in an int32 when V1 <=
+               NARROW_V1 (narrow: in shared memory; padded to V1p, a
+               multiple of 4), int32 pairs past it (wide). A variable whose
+               is_gate is not 1 points at itself (literal 2v), which the
+               walk reads as "not a gate": is_gate is folded in.
+      stream   the real-gate stream for the simulate, two levels a step:
+               the query's levels that hold a live cell (out_idx > 0),
+               paired in order, each pair's live cells (the first level's,
+               then the second's) in steps of STEP_GATES slots, a pair
+               taking ceil(cells / 32) steps. A slot is the whole gate in
+               two int32 quads, (out | flags, a0, a1, a) and (masks, b0,
+               b1, b): a and b are the children's literals, and the AND of
+               the literals a0 and a1 is a's variable's value: on a
+               second-level cell whose child lies on the pair's first
+               level, that child's own two inputs (its record), so a step
+               reads only what earlier steps wrote; else the child's
+               variable twice. out, a0, a1, b0 and b1 are byte offsets of
+               the variable's word in x (V1's tier sets the word: 4, 2 or
+               1 bytes), and masks holds the negations of a0, a1, b0, b1
+               as bytes 0xFF. flags: bit 30 on the pair's last step, bit
+               31 on a second-level cell. The spare slots are zero (var 0
+               := var 0 & var 0); queries are padded with empty steps to
+               `stride`, a whole number of CHUNK_STEPS.
+      roots    var << 2 | neg << 1 | live, 0 for a masked root.
+
+    The simulate reads the cells and the walk the records, so the layout
+    holds the batch to agreeing on both, and raises ValueError where it
+    fails: every variable index in [0, V1) and every negation 0 or 1; a
+    live cell's out variable is a gate whose record equals the cell; each
+    out variable has one live cell; a cell reads only variables of lower
+    levels (a step reads only what earlier steps wrote); a gate's first
+    child is not itself."""
+    out_idx = tensors["out_idx"]
+    device = out_idx.device
+    q_count, levels, _width = out_idx.shape
+    v1 = tensors["is_gate"].shape[1]
+    if v1 > 1 << 27:
+        raise ValueError(f"circuit_layout: V1 {v1} is past 2^27 (the "
+                         f"stream's byte offsets)")
+    wide = v1 > NARROW_V1
+    qi, li, wi = (out_idx > 0).nonzero(as_tuple=True)
+    qi, li = qi.long(), li.long()
+    cell = {key: tensors[key][qi, li, wi].long() for key in LEVEL_KEYS}
+    o, a, b = cell["out_idx"], cell["a_var"], cell["b_var"]
+    an, bn = cell["a_neg"], cell["b_neg"]
+    is_gate = tensors["is_gate"] == 1
+    ga, gb = tensors["ga_var"].long(), tensors["gb_var"].long()
+    gan, gbn = tensors["ga_neg"].long(), tensors["gb_neg"].long()
+    root_live = tensors["root_mask"] == 1
+    root_var = tensors["root_var"].long()
+    root_neg = tensors["root_neg"].long()
+
+    def in_range(t):
+        return (t >= 0) & (t < v1)
+
+    def is_bit(t):
+        return (t == 0) | (t == 1)
+
+    # the ranges first: the gathers below index with these values
+    _require([
+        ("a live cell's variables lie in [0, V1)",
+         in_range(o) & in_range(a) & in_range(b)),
+        ("a live cell's negations are 0 or 1", is_bit(an) & is_bit(bn)),
+        ("a gate's children lie in [0, V1), its negations are 0 or 1",
+         ~is_gate | (in_range(ga) & in_range(gb) & is_bit(gan)
+                     & is_bit(gbn))),
+        ("a live root's variable lies in [0, V1), its negation is 0 or 1",
+         ~root_live | (in_range(root_var) & is_bit(root_neg))),
+    ])
+    flat = qi * v1 + o
+
+    def of_out(table):
+        return table.reshape(-1)[flat]
+
+    level_of = torch.full((q_count * v1,), -1, dtype=torch.long,
+                          device=device)
+    level_of[flat] = li
+    var_ids = torch.arange(v1, device=device)
+    _require([
+        ("a live cell's out variable is a gate (is_gate 1)", of_out(is_gate)),
+        ("a live cell's children equal its out variable's gate record",
+         (of_out(ga) == a) & (of_out(gan) == an) & (of_out(gb) == b)
+         & (of_out(gbn) == bn)),
+        ("an out variable has one live cell",
+         torch.bincount(flat, minlength=q_count * v1) <= 1),
+        ("a cell reads only variables of lower levels",
+         (level_of[qi * v1 + a] < li) & (level_of[qi * v1 + b] < li)),
+        ("a gate's first child is not itself", ~is_gate | (ga != var_ids)),
+    ])
+
+    # the records: a gate's two literals, a non-gate pointing at itself
+    self_lit = 2 * var_ids
+    lit_a = torch.where(is_gate, 2 * ga + gan, self_lit)
+    lit_b = torch.where(is_gate, 2 * gb + gbn, self_lit)
+
+    # the stream: the query's levels with a live cell paired in order,
+    # (0, 1), (2, 3), ...; a cell's rank within its pair -> (step, slot)
+    has = torch.zeros((q_count, levels), dtype=torch.bool, device=device)
+    has[qi, li] = True
+    real = torch.cumsum(has.long(), 1) - 1  # rank among the live levels
+    own = real[qi, li]
+    pair, second = own // 2, own % 2
+    group = qi * levels + pair  # nonzero's order: by query, level, cell
+    counts = torch.bincount(group, minlength=q_count * levels)
+    rank = torch.arange(len(group), device=device) \
+        - (torch.cumsum(counts, 0) - counts)[group]
+    per_pair = ((counts + STEP_GATES - 1) // STEP_GATES).reshape(
+        q_count, levels)
+    ends = torch.cumsum(per_pair, 1)
+    stream_steps = ends[:, -1]
+    step = (ends - per_pair).reshape(-1)[group] + rank // STEP_GATES
+    slot = rank % STEP_GATES
+
+    def operand(child):
+        """The two literals whose AND is the child's variable's value: its
+        gate's own inputs where the child lies on the first level of this
+        second-level cell's pair, else the child's variable twice."""
+        at = level_of[qi * v1 + child]
+        first = (second == 1) & (at >= 0) \
+            & (real[qi, at.clamp(min=0)] == own - 1)
+        return (torch.where(first, lit_a[qi, child], 2 * child),
+                torch.where(first, lit_b[qi, child], 2 * child))
+
+    # a literal as the kernel reads it: the byte offset of its variable's
+    # word in x, and its negation as a byte mask
+    word_bytes = launch_shape(v1, 0).lanes_per_word // 8
+    (a0, a1), (b0, b1) = operand(a), operand(b)
+    masks = sum(((lit & 1) * 0xFF) << (8 * k)
+                for k, lit in enumerate((a0, a1, b0, b1)))
+    flags = second << 31
+    stride = max(_align(int(stream_steps.max()), CHUNK_STEPS), CHUNK_STEPS)
+    stream = torch.zeros((q_count, stride, 2, STEP_GATES, 4),
+                         dtype=torch.long, device=device)
+    stream[qi, step, 0, slot] = torch.stack(
+        (word_bytes * o | flags, word_bytes * (a0 >> 1),
+         word_bytes * (a1 >> 1), 2 * a + an), 1)
+    stream[qi, step, 1, slot] = torch.stack(
+        (masks, word_bytes * (b0 >> 1), word_bytes * (b1 >> 1),
+         2 * b + bn), 1)
+    has = per_pair > 0
+    stream[torch.arange(q_count, device=device)[:, None]
+           .expand(q_count, levels)[has], (ends - 1)[has], 0, :, 0] |= 1 << 30
+    stream = _signed(stream, 32).to(torch.int32)
+
+    if wide:
+        records = torch.stack((lit_a, lit_b), 2).to(torch.int32)
+    else:
+        v1p = _align(v1, 4)
+        pad = 2 * torch.arange(v1, v1p, device=device)
+        lit_a = torch.cat((lit_a, pad.expand(q_count, -1)), 1)
+        lit_b = torch.cat((lit_b, pad.expand(q_count, -1)), 1)
+        records = _signed(lit_a | (lit_b << 16), 32).to(torch.int32)
+    roots = torch.where(root_live, (root_var << 2) | (root_neg << 1) | 1,
+                        torch.zeros_like(root_var)).to(torch.int32)
+    return CircuitLayout(records.contiguous(), stream.contiguous(),
+                         stream_steps.to(torch.int32).contiguous(),
+                         roots.contiguous(), v1, stride)
+
+
 # -- the plain PyTorch version ----------------------------------------------
 
 
 def run_round_circuit_plain(tensors: dict, x: torch.Tensor, seed: int,
-                            steps: int, walk_depth: int):
+                            steps: int, walk_depth: int, walks=None):
     """The round written with torch tensor ops on x's device, over the
     query axis: `steps` iterations of simulate, root check and pick,
     justification walk and one flip per (query, lane); then a final
-    simulate and check. Returns (x [Q, R, V1] int32, found [Q, R] bool)."""
+    simulate and check. Returns (x [Q, R, V1] int32, found [Q, R] bool).
+
+    `walks`, when a list, gets one (gates descended [Q, R] int64, walked
+    [Q, R] bool) pair a step: the length of each lane's walk, and whether
+    the lane walked (it had not found a model). Nothing else changes."""
     q_count, lanes, v1 = x.shape
     device = x.device
     rows = level_rows(tensors).amax(dim=0).tolist() if q_count else []
@@ -206,6 +444,7 @@ def run_round_circuit_plain(tensors: dict, x: torch.Tensor, seed: int,
             2, choice)[..., 0]
         # a lane that has found a model flips nothing: its walk is moot
         done = found.clone()
+        length = torch.zeros_like(cur)
         coin_base = (step_key ^ _C_COIN) ^ lane_q_salt
         for depth in range(walk_depth):
             is_g = (at(is_gate, cur) == 1) & ~done
@@ -221,6 +460,7 @@ def run_round_circuit_plain(tensors: dict, x: torch.Tensor, seed: int,
                                                    & coin)
             choose_b = torch.where(want == 1, choose_b1, choose_b0)
             active = is_g & ~justified
+            length += active
             cur = torch.where(active, torch.where(choose_b, bv_i, av_i), cur)
             want = torch.where(active,
                                want ^ torch.where(choose_b, bn, an), want)
@@ -228,6 +468,8 @@ def run_round_circuit_plain(tensors: dict, x: torch.Tensor, seed: int,
             # every walk has ended: later depths change nothing
             if depth % 8 == 7 and bool(done.all()):
                 break
+        if walks is not None:
+            walks.append((length, ~found))
         new_val = torch.where(found, x.gather(2, cur[..., None])[..., 0],
                               want)
         x.scatter_(2, cur[..., None], new_val[..., None])
@@ -255,15 +497,15 @@ def build_kernel() -> dict:
             ptr = ctypes.c_void_p
             lib.circuit_round_launch.restype = ctypes.c_int
             lib.circuit_round_launch.argtypes = (
-                [ptr] * (len(TENSOR_KEYS) + 4) + [ctypes.c_int] * 8
-                + [ctypes.c_uint] + [ctypes.c_int] * 2 + [ptr])
+                [ptr] * 8 + [ctypes.c_int] * 8 + [ctypes.c_uint]
+                + [ctypes.c_int] * 4 + [ptr])
             lib.circuit_round_error_string.restype = ctypes.c_char_p
             lib.circuit_round_error_string.argtypes = [ctypes.c_int]
             _lib = lib
         return {"seconds": time.monotonic() - start, "ptxas": ptxas}
 
 
-def _check_operands(tensors: dict, x: torch.Tensor, rows):
+def _check_operands(tensors: dict, x: torch.Tensor, layout):
     if x.dtype != torch.int32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous int32 [Q, R, V1] tensor, "
                          f"got {x.dtype} {tuple(x.shape)}")
@@ -290,47 +532,57 @@ def _check_operands(tensors: dict, x: torch.Tensor, rows):
                         (tensors["out_idx"].numel(), "out_idx")):
         if count >= 1 << 31:
             raise ValueError(f"{name} of {count} cells is too large")
-    if rows is not None and (
-            not isinstance(rows, torch.Tensor) or rows.device != x.device
-            or rows.dtype != torch.int32 or not rows.is_contiguous()
-            or tuple(rows.shape) != (q_count, levels)):
-        raise ValueError(f"rows must be a contiguous int32 "
-                         f"({q_count}, {levels}) tensor (level_rows)")
+    if layout is not None and (
+            not isinstance(layout, CircuitLayout) or layout.v1 != v1
+            or layout.records.device != x.device
+            or tuple(layout.roots.shape) != (q_count, roots)):
+        raise ValueError(f"layout must be the circuit_layout of these "
+                         f"tables ({q_count} queries, V1 {v1}, {roots} "
+                         f"roots) on {x.device}")
 
 
 def run_round_circuit_kernel(tensors: dict, x: torch.Tensor, seed: int,
-                             steps: int, walk_depth: int, rows=None):
+                             steps: int, walk_depth: int, layout=None):
     """Advance the restart lanes of a batch of padded cones by `steps`
     sim+flip iterations. Returns (x [Q, R, V1] int32, found [Q, R] bool).
-    `rows` is level_rows(tensors), computed here when None (the backend
+    `layout` is circuit_layout(tensors), built here when None (the backend
     passes it once per batch).
 
     CPU tensors run run_round_circuit_plain; CUDA tensors launch the CUDA
     kernel on the current stream, and a kernel that fails to build or to
     launch raises."""
     global launches
-    _check_operands(tensors, x, rows)
+    _check_operands(tensors, x, layout)
     if x.device.type == "cpu":
         return run_round_circuit_plain(tensors, x, seed, steps, walk_depth)
     if x.device.type != "cuda":
         raise ValueError(f"no circuit round for device {x.device}")
     if _lib is None:
         build_kernel()
-    if rows is None:
-        rows = level_rows(tensors)
+    if layout is None:
+        layout = circuit_layout(tensors)
     q_count, lanes, v1 = x.shape
-    levels, width = tensors["out_idx"].shape[1:]
-    per_block, in_smem = launch_shape(q_count, lanes, v1)
+    shape = launch_shape(v1, layout.stride)
+    v1p = _align(v1, 4)
     x_out = torch.empty_like(x)
     found = torch.empty((q_count, lanes), dtype=torch.bool, device=x.device)
+    x_work = None
+    if shape.tier == "global":
+        x_work = torch.empty(
+            (q_count, -(-lanes // shape.lanes_per_word), v1p),
+            dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = _lib.circuit_round_launch(
-            *(tensors[key].data_ptr() for key in TENSOR_KEYS),
-            rows.data_ptr(), x.data_ptr(), x_out.data_ptr(),
-            found.data_ptr(), q_count, lanes, levels, width, v1,
-            tensors["root_var"].shape[1], int(steps), int(walk_depth),
-            int(seed) & 0x7FFFFFFF, per_block, int(in_smem), stream)
+            layout.records.data_ptr(), layout.stream.data_ptr(),
+            layout.stream_steps.data_ptr(), layout.roots.data_ptr(),
+            x.data_ptr(), x_out.data_ptr(), found.data_ptr(),
+            None if x_work is None else x_work.data_ptr(), q_count, lanes,
+            v1, v1p, layout.stride, layout.roots.shape[1],
+            max(int(steps), 0), max(int(walk_depth), 0),
+            int(seed) & 0x7FFFFFFF, TIERS.index(shape.tier),
+            shape.lanes_per_word, int(shape.resident), shape.smem_bytes,
+            stream)
     if status != 0:
         raise RuntimeError("circuit_round launch failed: "
                            + _lib.circuit_round_error_string(status).decode())

@@ -459,12 +459,12 @@ class QueryRouter:
         x = torch.randint(0, 2, (1, self._profile_restarts(), pc.v1),
                           generator=generator, device=device,
                           dtype=torch.int32)
-        rows = circuit_kernel.level_rows(tensors)
+        layout = circuit_kernel.circuit_layout(tensors)
         walk = pc.num_levels + 4
 
         def launch(seed):
             return circuit_kernel.run_round_circuit_kernel(
-                tensors, x, seed, CAL_STEPS, walk, rows)
+                tensors, x, seed, CAL_STEPS, walk, layout)
 
         launch(1)  # warm-up: the first launch pays the build and setup
         if device.type == "cuda":

@@ -176,6 +176,57 @@ def big_cone(rng: random.Random, gates: int = 30000, inputs: int = 64,
             return pc
 
 
+def deep_cone(rng: random.Random, gates: int = 24000, reach: int = 48,
+              inputs: int = 64, roots: int = 16):
+    """big_cone's deeper twin: at the defaults a packed cone of some 13,000
+    variables over about 1,000 levels (the depth of the bucketed analyze
+    runs' largest batches). Each gate reads one of the `reach` literals
+    before it and one from anywhere before it, never one variable twice;
+    a gate that folds to a constant is dropped, so the circuit does not
+    collapse. The last `roots` gates are asserted, each negated at
+    random."""
+    from mythril_tpu_torch.gpu.circuit import PackedCircuit
+    from mythril_tpu_torch.smt.bitblast import AIG
+
+    aig = AIG()
+    lits = [aig.lit_of_var(aig.new_var()) for _ in range(inputs)]
+    for _ in range(gates):
+        while True:
+            a = lits[rng.randrange(max(0, len(lits) - reach), len(lits))] \
+                ^ rng.randint(0, 1)
+            b = lits[rng.randrange(len(lits))] ^ rng.randint(0, 1)
+            if a >> 1 != b >> 1:
+                break
+        gate = aig.and_gate(a, b)
+        if gate > 1:
+            lits.append(gate)
+    pc = PackedCircuit(aig, [lit ^ rng.randint(0, 1)
+                             for lit in lits[-roots:]])
+    if not pc.ok:
+        raise ValueError(f"deep_cone({gates}, reach {reach}) is past the "
+                         f"device caps")
+    return pc
+
+
+def deep_batch(rng: random.Random, cones: int = 3, min_v1: int = 0,
+               **cone_args) -> dict:
+    """A numpy batch of K3's round of `cones` deep_cone cones (cone_args
+    passed on), padded to their largest shape and at least `min_v1`
+    variables, the query axis to a power of two whose spare slots are all
+    zeros."""
+    from mythril_tpu_torch.gpu.circuit_kernel import stack_padded
+
+    pcs = [deep_cone(rng, **cone_args) for _ in range(cones)]
+    shape = (max(pc.num_levels for pc in pcs),
+             max(pc.max_width for pc in pcs),
+             max(max(pc.v1 for pc in pcs), min_v1),
+             max(pc.num_roots for pc in pcs))
+    slots = 1
+    while slots < len(pcs):
+        slots *= 2
+    return stack_padded(pcs, shape, slots)
+
+
 # -- straight-line frontier programs -------------------------------------------
 
 FRONTIER_BIN_BYTES = {

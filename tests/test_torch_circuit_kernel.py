@@ -180,9 +180,10 @@ def test_wrapper_checks_its_operands():
     with pytest.raises(ValueError, match="is_gate"):
         circuit_kernel.run_round_circuit_kernel(
             {**tensors, "is_gate": tensors["is_gate"][:, :-1]}, x, 1, 1, 8)
-    with pytest.raises(ValueError, match="rows"):
+    with pytest.raises(ValueError, match="layout"):
         circuit_kernel.run_round_circuit_kernel(
-            tensors, x, 1, 1, 8, rows=torch.zeros((4, 1), dtype=torch.int32))
+            tensors, x, 1, 1, 8, layout=torch.zeros((4, 1),
+                                                    dtype=torch.int32))
     launches = circuit_kernel.launches
     circuit_kernel.run_round_circuit_kernel(tensors, x, 1, 1, 8)
     assert circuit_kernel.launches == launches, "the plain version counts none"
@@ -198,9 +199,10 @@ def test_level_rows_bound_each_level_and_launch_shape():
             cells = np.nonzero(live[q, level])[0]
             assert rows[q, level] == (cells.max() + 1 if len(cells) else 0)
     assert rows[3].sum() == 0, "a padding slot has no live cell"
-    # three lanes of 65,536 variables fit the shared-memory cap, a row
-    # past it takes the global path, and a small batch spreads its lanes
-    assert circuit_kernel.launch_shape(64, 64, 1 << 16) == (3, True)
-    assert circuit_kernel.launch_shape(1, 64, 4096) == (1, True)
+    # 32 lanes a word below 16,384 variables, 8 past 98,304, and x in
+    # global memory past 196,608 (tests/test_torch_circuit_layout.py
+    # holds every tier's threshold)
+    assert circuit_kernel.launch_shape(4096, 64)[:2] == ("shared32", 32)
+    assert circuit_kernel.launch_shape(1 << 17, 8)[:2] == ("xshared", 8)
     assert circuit_kernel.launch_shape(
-        1, 4, circuit_kernel.SMEM_X_CAP + 1) == (4, False)
+        circuit_kernel.SMEM_CAP, 8)[:2] == ("global", 32)

@@ -15,7 +15,7 @@ import torch
 
 from mythril_tpu_torch import graft
 from mythril_tpu_torch.gpu import circuit_kernel
-from mythril_tpu_torch.support.workloads import circuit_batch
+from mythril_tpu_torch.support.workloads import circuit_batch, deep_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -63,13 +63,43 @@ def test_cuda_circuit_round_bit_identical_to_plain(cuda_device, seed, lanes,
 
 
 def test_cuda_circuit_round_global_x_path(cuda_device):
-    """A query whose one x row passes the shared-memory cap keeps x in
-    global memory: the same results."""
-    batch = circuit_batch(random.Random(7), max_queries=3,
-                          min_v1=circuit_kernel.SMEM_X_CAP + 64)
-    assert not circuit_kernel.launch_shape(
-        len(batch["out_idx"]), 4, batch["ga_var"].shape[1])[1]
+    """A batch whose x passes shared memory even at 8 lanes a word keeps
+    x's words in global memory (the global tier): the same results."""
+    batch = circuit_batch(random.Random(7), max_queries=3, min_v1=200000)
+    layout = circuit_kernel.circuit_layout(
+        circuit_kernel.device_batch(batch, "cpu"))
+    assert circuit_kernel.launch_shape(
+        batch["ga_var"].shape[1], layout.stride).tier == "global"
     _assert_kernel_matches_plain(cuda_device, batch, 7, 4, 16)
+
+
+# (deep_cone arguments, least V1, tier, lanes a word): every layout tier,
+# the shared32 stream both resident and in the ring
+TIERS = {
+    "shared32": ({"gates": 4000, "reach": 256}, 0, "shared32", 32),
+    "shared32-ring": ({"gates": 4000, "reach": 16}, 0, "shared32", 32),
+    "shared16": ({"gates": 4000, "reach": 16}, 20000, "shared16", 16),
+    "xshared32": ({"gates": 4000, "reach": 16}, 40000, "xshared", 32),
+    "xshared16": ({"gates": 4000, "reach": 16}, 80000, "xshared", 16),
+    "xshared8": ({"gates": 4000, "reach": 16}, 150000, "xshared", 8),
+    "global": ({"gates": 4000, "reach": 16}, 213000, "global", 32),
+}
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 33, 64, 96])
+@pytest.mark.parametrize("case", sorted(TIERS))
+def test_cuda_circuit_round_tiers_bit_identical(cuda_device, case, lanes):
+    cone, min_v1, tier, width = TIERS[case]
+    batch = deep_batch(random.Random(len(case)), min_v1=min_v1, **cone)
+    layout = circuit_kernel.circuit_layout(
+        circuit_kernel.device_batch(batch, "cpu"))
+    shape = circuit_kernel.launch_shape(batch["ga_var"].shape[1],
+                                        layout.stride)
+    assert (shape.tier, shape.lanes_per_word) == (tier, width)
+    if case.startswith("shared32"):
+        assert shape.resident == (case == "shared32")
+    found = _assert_kernel_matches_plain(cuda_device, batch, lanes, lanes, 6)
+    assert bool(found[-1].all()), "the padding slot is found at step 0"
 
 
 def test_graft_entry_runs_on_the_card(cuda_device):

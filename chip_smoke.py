@@ -9,15 +9,17 @@
     python3 chip_smoke.py --resilience-only  # env, build, the resilience phase
     python3 chip_smoke.py --bucketed-only  # env, build, the bucketed phase
     python3 chip_smoke.py --k3-split PATH  # env, build, K3's split
+    python3 chip_smoke.py --xla-only     # env, build, the xla phase
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
 
   env     torch / CUDA versions, the card and its power limit;
   build   nvcc for the ragged round (mythril_tpu_torch/csrc/ragged_round.cu),
-          for the frontier step (csrc/frontier_step.cu) and for the
-          bucketed path's per-query round (csrc/circuit_round.cu), and g++
-          for the host CDCL (native/sat.cpp), all started together, into
+          for the frontier step (csrc/frontier_step.cu), for the
+          bucketed path's per-query round (csrc/circuit_round.cu) and for
+          the xla mode's round K2 (csrc/xla_round.cu), and g++ for the
+          host CDCL (native/sat.cpp), all started together, into
           mythril_tpu_torch/_build/;
   slice   get_models_batch with solver_backend="gpu" on a window of 64
           sibling-path queries at 256 bits (the coalescing window cap),
@@ -118,7 +120,8 @@ line):
           flightrec.dump_now after it. One "telemetry" record a run
           prints the roofline rows, the wall decomposition and the top
           gaps, and the run fails unless: completed is true; platform is
-          the card's name and kernel_backend "cuda"; the roofline has
+          the card's name and kernel_backend the kernel mode
+          ("pallas"); the roofline has
           every stage, with a calibrated ceiling on kernel, pack, ragged
           and settle; its wall terms sum to the solver wall (to their
           rounding) or attributed_frac is 1.0; kernel_launches equals
@@ -161,6 +164,32 @@ line):
           longest), beside its plain version's time, the bound and the
           serial chain of phases a lane's steps run (steps x (levels +
           walk depth));
+  xla     the xla kernel mode (MYTHRIL_GPU_KERNEL=xla) with K2, the
+          XLA-semantics ragged round (after the bucketed phase): (1) K2
+          against its plain version, bit for bit (x and found), on 300
+          seeded random streams padded to their shape bucket (1-40
+          support/workloads.random_cones, pinned inputs) at random lanes,
+          steps and walk depths, and on a stream past every K1 capacity
+          (three big_cone cones, one asserting 300 roots, and 140 small
+          ones: more than 65,536 variables and 128 cones); (2) KILLBILLY
+          (-t 2) and xc_dispatch_a.hex (-t 1) through MythrilAnalyzer on
+          the device backend in xla mode at the production profile (64
+          lanes, 64 steps): findings must equal the host backend's, K2
+          must run solve rounds (its calibration's launches counted
+          apart) and K1 must not launch, and K2 must have solved
+          components (aig_device_component_hits over the two); (3) the
+          fallback leg: xc_dispatch_a.hex (-t 1) in pallas mode with
+          MYTHRIL_GPU_RAGGED_VAR_CAP=32768, so its 37,381-variable cone
+          rides K2 in a stream of its own: K1 and K2 must both launch,
+          findings equal the host's, and K2 is held and timed on its
+          largest launch (K1's capacities are launch arguments: no
+          rebuild); (4)
+          K2 held and timed on the largest launch of (2) under CUDA
+          events, beside its plain version's time and its bound (the
+          real gates' level entries and the other tables and x read
+          once, x and found written once, against the real gates' and
+          roots' operations, as K3's). --xla-only runs the host legs of
+          (2) itself;
   telemetry-overhead  KILLBILLY (-t 2) and xc_dispatch_a.hex (-t 1) on
           the device backend with every telemetry artifact off
           (MYTHRIL_GPU_FLIGHTREC=0, nothing written) and on (the ring at
@@ -184,7 +213,8 @@ line):
           each of HOST_FAULTS: the run completes with the no-fault run's
           findings (issue granularity) and the site's events, and K1
           launches (except under aig.session:raise:*, whose un-rewritten
-          cones exceed K1's variable space; its n1 run launches), and K1
+          queries exceed the router's variable cap; its n1 run
+          launches), and K1
           is held bit for bit against its plain version on each run's
           largest stream (a fault changes the cones K1 is sent); the
           clean run records no deadline and prints the deadline runner's
@@ -234,7 +264,9 @@ K6's launches over the five compared analyze contracts and their times on
 the largest stream and frontier batch they launched; K1's router and slice
 streams and K6's 64-row, division and 1-row batches and its idle share
 beside them; K3's launches over the bucketed analyze runs and its time on
-their largest batch, with its split and the plain run's walk lengths), the
+their largest batch, with its split and the plain run's walk lengths;
+K2's launches over the xla-mode analyze runs, the fallback leg and the
+random streams, and its time on the xla runs' largest launch), the
 card's nvidia-smi line, and last {"ok": true, "device": {...}}. A copy of every
 JSON line goes to chiprun_out/chip_smoke.jsonl.
 """
@@ -324,6 +356,7 @@ def phase_build():
         circuit_kernel,
         frontier_kernel,
         ragged_kernel,
+        xla_kernel,
     )
     from mythril_tpu_torch.smt.solver import sat_backend
 
@@ -341,6 +374,7 @@ def phase_build():
                (("nvcc", ragged_kernel.build_kernel),
                 ("nvcc-frontier", frontier_kernel.build_kernel),
                 ("nvcc-circuit", circuit_kernel.build_kernel),
+                ("nvcc-xla", xla_kernel.build_kernel),
                 ("g++", sat_backend.get_native_lib))]
     for thread in threads:
         thread.start()
@@ -355,9 +389,11 @@ def phase_build():
     emit({"phase": "build", "nvcc_s": round(results["nvcc"][0], 3),
           "nvcc_frontier_s": round(results["nvcc-frontier"][0], 3),
           "nvcc_circuit_s": round(results["nvcc-circuit"][0], 3),
+          "nvcc_xla_s": round(results["nvcc-xla"][0], 3),
           "gxx_s": round(results["g++"][0], 3), "ptxas": ptxas("nvcc"),
           "ptxas_frontier": ptxas("nvcc-frontier"),
-          "ptxas_circuit": ptxas("nvcc-circuit")})
+          "ptxas_circuit": ptxas("nvcc-circuit"),
+          "ptxas_xla": ptxas("nvcc-xla")})
 
 
 def _prepared_window(queries):
@@ -1553,6 +1589,7 @@ def _check_telemetry(device, name, paths, record, ring, events, dump):
     failed check."""
     import torch
 
+    from mythril_tpu_torch.gpu import ragged_kernel
     from mythril_tpu_torch.observe import roofline
     from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
 
@@ -1563,7 +1600,7 @@ def _check_telemetry(device, name, paths, record, ring, events, dump):
         beats = [json.loads(line) for line in fd]
     platform = (torch.cuda.get_device_name(0) if device.type == "cuda"
                 else "cpu")
-    kernel_backend = "cuda" if device.type == "cuda" else "plain"
+    kernel_backend = ragged_kernel.kernel_mode()
     if stats["completed"] is not True:
         failures.append("completed is not true")
     if stats["platform"] != platform:
@@ -1649,15 +1686,16 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
                   telemetry=None):
     """One in-process analyze from fresh solve state, counted: (report,
     completed, record). `largest` keeps the largest stream (by gates) the
-    backend assembles (the calibration's own stream does not pass
-    there), `batches` the largest frontier batch K6 steps;
+    backend sends K1 (the calibration's own stream does not pass there,
+    nor a stream past K1's capacities, which runs on K2), `batches` the
+    largest frontier batch K6 steps;
     `frontier_backend` pins the frontier's step (None: auto, which is the
     host step for solver_backend "cpu" and K6 for "gpu"); `engine` adds
     CLI options (e.g. {"no_frontier_fork": True}); `telemetry` names the
     run's folder of telemetry artifacts, all on and checked (None: none
     written)."""
     from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
-    from mythril_tpu_torch.gpu import frontier_kernel, ragged_kernel
+    from mythril_tpu_torch.gpu import frontier_kernel, ragged_kernel, xla_kernel
     from mythril_tpu_torch.gpu.backend import get_device_backend
     from mythril_tpu_torch.observe import flightrec
     from mythril_tpu_torch.observe.tracer import get_tracer
@@ -1671,8 +1709,13 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
     clear_caches()  # a fresh router, scheduler, memos and engine state
     frontend._global_blaster = None
     backend = get_device_backend(device_arg)
+    caps = ragged_kernel.kernel_caps()
 
     def keep(stream, entries):
+        # K1's streams only: one past its capacities runs on K2
+        if (stream.v1 > caps.var_cap or stream.cone_slots > caps.cone_cap
+                or stream.max_roots > caps.root_cap):
+            return
         gates = sum(pc.num_gates for pc, _extra in entries)
         if gates > largest.get("gates", -1):
             largest.update(gates=gates, stream=stream, entries=entries)
@@ -1692,6 +1735,7 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
     logger.setLevel(logging.INFO)
     logger.addHandler(watch)
     launches_before = ragged_kernel.launches
+    k2_before = xla_kernel.launches
     frontier_kernel.reset_launches()  # K6's count for this run starts here
     cmd_args = SimpleNamespace(
         execution_timeout=timeout, transaction_count=tx_count,
@@ -1754,6 +1798,8 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
         "kernel_launches": ragged_kernel.launches - launches_before,
         # of them the router's calibration, not solve rounds
         "calibration_launches": calibration.get("launches", 0),
+        # K2's: the xla mode's rounds, or the pallas mode's fallback
+        "k2_launches": xla_kernel.launches - k2_before,
         "k6_launches": k6_launches,
         "frontier": {**{key: counters[key] for key in FRONTIER_KEYS},
                      "frontier_batch_occupancy":
@@ -1935,13 +1981,15 @@ def phase_analyze(device):
     and times on the largest stream they launched, and stress_dispatch's
     launches apart: its runs are cut by the clock, so their count depends
     on the host's speed; and K6's launches on the same runs, with its
-    comparison and times on the largest frontier batch."""
-    from mythril_tpu_torch.gpu import ragged_kernel
+    comparison and times on the largest frontier batch; and K2's launches
+    on either (a cone past K1's capacities runs on K2)."""
+    from mythril_tpu_torch.gpu import ragged_kernel, xla_kernel
 
     inputs = _analyze_inputs()
     largest, stress_largest, batches = {}, {}, {}
     hits = k1_hits = k6_launches = host_k6_launches = 0
     ragged_kernel.reset_launches()  # the compared runs' count starts here
+    xla_kernel.reset_launches()
     steps = []
     runner_calls, runner_s = 0, 0.0
     records = {}
@@ -1959,6 +2007,7 @@ def phase_analyze(device):
             runner_calls += found[4][0]
             runner_s += found[4][1]
     launches = ragged_kernel.launches  # ... and ends here
+    k2_launches = xla_kernel.launches
     # the deadline runner's cost over every guarded dispatch of the five
     emit({"phase": "analyze", "runner_calls": runner_calls,
           "runner_handoff_s": runner_s})
@@ -1971,6 +2020,7 @@ def phase_analyze(device):
     if k6_launches <= 0 or not batches:
         raise AssertionError("analyze: K6 was never launched")
     ragged_kernel.reset_launches()  # stress_dispatch's count starts here
+    xla_kernel.reset_launches()
     stress_k6 = 0
     for name, code, tx_count, timeout, compared in inputs:
         if not compared:
@@ -1978,6 +2028,7 @@ def phase_analyze(device):
                                            timeout, False, stress_largest,
                                            {})[2]
     stress_launches = ragged_kernel.launches  # ... and ends here
+    k2_stress = xla_kernel.launches
 
     held = _hold_stream(device, largest["stream"], "analyze-stream",
                         {"kernel_launches": launches,
@@ -1995,6 +2046,7 @@ def phase_analyze(device):
                          "k6_launches_stress": stress_k6})
     idle = _frontier_idle(device, steps) if steps else {}
     return {**held, "launches": launches, "stress_launches": stress_launches,
+            "k2_launches": k2_launches, "k2_stress": k2_stress,
             "max_abs_err": err, "k6": k6, "k6_launches": k6_launches,
             "k6_host_launches": host_k6_launches, "k6_stress": stress_k6,
             "frontier_idle": idle, "records": records}
@@ -2124,8 +2176,9 @@ DISK_CONTRACT = "xc_dispatch_a.hex"
 # host sites on the device backend (KILLBILLY -t 2): spec, the site's
 # events that must be counted, and whether K1 must launch in the run.
 # Under aig.session:raise:* every cone stays un-rewritten, and the
-# un-rewritten cones exceed K1's variable space: they are cap rejects
-# settled on the host, so the n1 run holds the site to K1 instead.
+# un-rewritten queries exceed the router's variable cap
+# (MYTHRIL_GPU_VAR_CAP): they are cap rejects settled on the host, so the
+# n1 run holds the site to K1 instead.
 HOST_FAULTS = (
     ("scheduler.flush:raise:n1", ("injected", "retry"), True),
     ("prepare.incremental:raise:*", ("injected", "degraded"), True),
@@ -2320,6 +2373,7 @@ def phase_resilience(device):
               "wall_s": round(record["wall_s"], 3),
               "k1_launches": record["kernel_launches"],
               "k1_calibration_launches": record["calibration_launches"],
+              "k2_launches": record["k2_launches"],
               "k6_launches": record["k6_launches"],
               "cap_rejects": record["cap_rejects"],
               "runner_calls": counters["deadline_runner_calls"],
@@ -2993,6 +3047,324 @@ def k3_split(device, path) -> int:
     return 0
 
 
+# -- the xla kernel mode: K2 -------------------------------------------------
+
+XLA_RUNS = 300  # random streams K2 is held against its plain version
+XLA_CONTRACTS = ("killbilly", "xc_dispatch_a.hex")
+# the fallback leg: xc_dispatch_a's 37,381-variable cone past K1's
+# variable capacity
+FALLBACK_CONTRACT = "xc_dispatch_a.hex"
+FALLBACK_VAR_CAP = 32768
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Environment variables set inside the block (None: unset); the
+    kernel mode's cached resolution dropped on entry and on exit."""
+    from mythril_tpu_torch.gpu import ragged_kernel
+
+    saved = {key: os.environ.get(key) for key in values}
+    for key, value in values.items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = str(value)
+    ragged_kernel.reset_kernel_mode()
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        ragged_kernel.reset_kernel_mode()
+
+
+@contextlib.contextmanager
+def _keep_largest_k2(largest):
+    """Keep the largest K2 launch (lanes x levels x width) inside the
+    block: largest gets "size", "xs", a copy of the launch's "x", its
+    "seed", "steps" and "walk_depth"."""
+    from mythril_tpu_torch.gpu import xla_kernel
+
+    real = xla_kernel.run_round_xla_kernel
+
+    def keep(xs, x, seed, steps, walk_depth):
+        size = x.shape[0] * xs.tensors["out_idx"].numel()
+        if size > largest.get("size", -1):
+            largest.update(size=size, xs=xs, x=x.clone(), seed=seed,
+                           steps=steps, walk_depth=walk_depth)
+        return real(xs, x, seed, steps, walk_depth)
+
+    xla_kernel.run_round_xla_kernel = keep
+    try:
+        yield largest
+    finally:
+        xla_kernel.run_round_xla_kernel = real
+
+
+def _compare_k2(device, xs, x, seed, steps, walk_depth):
+    """K2 against its plain version on one launch's inputs: (max abs
+    error, which must be 0, and the plain run's ms)."""
+    import torch
+
+    from mythril_tpu_torch.gpu import xla_kernel
+
+    got_x, got_found = xla_kernel.run_round_xla_kernel(xs, x, seed, steps,
+                                                       walk_depth)
+    (want_x, want_found), plain_ms = _timed_once(
+        device, lambda: xla_kernel.run_round_xla_plain(xs, x, seed, steps,
+                                                       walk_depth))
+    torch_sync(device)
+    if not (torch.equal(got_x, want_x) and torch.equal(got_found,
+                                                        want_found)):
+        raise AssertionError(
+            f"K2 disagrees with its plain version: "
+            f"{int((got_x != want_x).sum())} x cells, "
+            f"{int((got_found != want_found).sum())} found cells")
+    return max(int((got_x - want_x).abs().max()),
+               int((got_found.int() - want_found.int()).abs().max())), \
+        plain_ms
+
+
+def _k2_bound(xs, x, steps):
+    """Least time for one K2 round, counted as `_k3_bound` counts K3's:
+    the five level entries of each real gate (out_idx > 0; the bucket's
+    padding and the columns past a level's last row are never needed),
+    the per-variable and root tables and level_rows read once, x in and
+    out, found out, over the HBM rate; against the 32-bit logic of the
+    real gates and the root checks of every step and the final check over
+    the CUDA-core rate (the walks, whose length depends on the data, are
+    not counted: a lower bound). Returns (ms, by, bytes, ops)."""
+    from mythril_tpu_torch.gpu import xla_kernel
+
+    tensors = xs.tensors
+    lanes = x.shape[0]
+    cones = tensors["root_var"].shape[0]
+    gates = int((tensors["out_idx"] > 0).sum())
+    tables = gates * 4 * len(xla_kernel.LEVEL_KEYS) + sum(
+        tensors[key].numel() * 4
+        for key in xla_kernel.VAR_KEYS + xla_kernel.ROOT_KEYS)
+    moved = (tables + xs.level_rows.numel() * 4 + 2 * x.numel() * 4
+             + lanes * cones)
+    live_roots = int((tensors["root_mask"] == 1).sum())
+    ops = lanes * (steps + 1) * (3 * gates + 2 * live_roots)
+    byte_s, op_s = moved / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    return (max(byte_s, op_s) * 1e3,
+            "bytes" if byte_s >= op_s else "operations", moved, ops)
+
+
+def _hold_k2(device, launch, window, counts, timed=False):
+    """K2 bit for bit against its plain version on one kept launch, and
+    timed there (5 launches under CUDA events) when `timed`; launches made
+    here are not counted. Emits one record."""
+    from mythril_tpu_torch.gpu import xla_kernel
+
+    before = xla_kernel.launches
+    xs, x = launch["xs"], launch["x"]
+    args = (launch["seed"], launch["steps"], launch["walk_depth"])
+    err, plain_ms = _compare_k2(device, xs, x, *args)
+    ms = None
+    if timed and device.type == "cuda":
+        ms = _time_ms(lambda: xla_kernel.run_round_xla_kernel(xs, x, *args),
+                      repeats=5)
+    xla_kernel.launches = before
+    bound_ms, bound_by, moved, ops = _k2_bound(xs, x, args[1])
+    levels, width = xs.tensors["out_idx"].shape
+    cones, roots = xs.tensors["root_var"].shape
+    emit({"phase": "xla", "window": window, "lanes": x.shape[0],
+          "v1": x.shape[1], "levels": levels, "width": width,
+          "live_levels": int((xs.level_rows > 0).sum()),
+          "cone_slots": cones, "cones": xs.num_cones, "roots": roots,
+          "steps": args[1], "walk_depth": args[2], **counts,
+          "bit_identical": True, "max_abs_err": err,
+          "ms": ms if ms is not None else "not measured",
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "bytes": moved, "ops": ops})
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _k2_launch(device, stream, seed, lanes, steps, walk_depth=None):
+    """One kept-launch record of K2 on `stream` from a seeded x."""
+    import torch
+
+    from mythril_tpu_torch.gpu import circuit, xla_kernel
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x = circuit.init_inputs(gen, lanes, stream.v1, device)
+    if walk_depth is None:
+        walk_depth = min(stream.num_levels + 4, circuit.MAX_LEVELS)
+    return {"xs": xla_kernel.device_stream(stream, device), "x": x,
+            "seed": seed, "steps": steps, "walk_depth": walk_depth}
+
+
+def _k2_random_holds(device):
+    """K2 against its plain version on XLA_RUNS seeded random streams of
+    1-40 cones (support/workloads.random_cones, a third of them with a
+    pinned input) at 1-96 lanes, 0-32 steps and random walk depths.
+    Returns (max abs error, K2's launches)."""
+    from mythril_tpu_torch.gpu import circuit, xla_kernel
+    from mythril_tpu_torch.gpu.backend import shape_bucket
+    from mythril_tpu_torch.support.workloads import random_cones
+
+    rng = random.Random(SEED + 2)
+    err = 0
+    xla_kernel.reset_launches()
+    for run in range(XLA_RUNS):
+        cones = random_cones(rng, rng.randint(1, 40))
+        entries = [(pc, ((1, bool(i % 2)),) if i % 3 and pc.v1 > 1 else ())
+                   for i, pc in enumerate(cones)]
+        stream = circuit.RaggedStream(entries, bucket=shape_bucket)
+        launch = _k2_launch(device, stream, SEED + run, rng.randint(1, 96),
+                            rng.randint(0, 32),
+                            rng.choice((None, 0, 1, rng.randint(2, 40))))
+        err = max(err, _compare_k2(device, launch["xs"], launch["x"],
+                                   launch["seed"], launch["steps"],
+                                   launch["walk_depth"])[0])
+    launches = xla_kernel.launches
+    emit({"phase": "xla", "window": "random", "streams": XLA_RUNS,
+          "k2_launches": launches, "bit_identical": True,
+          "max_abs_err": err})
+    return err, launches
+
+
+def _k2_past_k1_stream():
+    """A stream past every K1 capacity: three big cones (one asserting 300
+    roots) and 140 small ones, more than 65,536 variables and more than
+    128 cones (support/workloads.big_cone, random_cones)."""
+    from mythril_tpu_torch.gpu import circuit, ragged_kernel
+    from mythril_tpu_torch.gpu.backend import shape_bucket
+    from mythril_tpu_torch.support.workloads import big_cone, random_cones
+
+    rng = random.Random(SEED + 3)
+    entries = [(big_cone(rng, roots=300), ())]
+    entries += [(big_cone(rng), ()) for _ in range(2)]
+    entries += [(pc, ()) for pc in random_cones(rng, 140)]
+    caps = ragged_kernel.kernel_caps()
+    combined = 1 + sum(pc.v1 - 1 for pc, _extra in entries)
+    most_roots = max(pc.num_roots for pc, _extra in entries)
+    if not (combined > caps.var_cap and len(entries) > caps.cone_cap
+            and most_roots > caps.root_cap):
+        raise AssertionError(f"xla: the stream ({combined} variables, "
+                             f"{len(entries)} cones, {most_roots} roots) "
+                             f"is inside K1's capacities {caps}")
+    return (circuit.RaggedStream(entries, bucket=shape_bucket),
+            {"combined_vars": combined, "most_roots": most_roots,
+             "k1_caps": list(caps[:3])})
+
+
+def phase_xla(device, records=None):
+    """The xla kernel mode with K2 and the pallas mode's fallback (see the
+    module note). `records` ({contract: {leg: record}}) are the analyze
+    phase's host runs; without them the phase runs them itself. Returns
+    K2's launches by path, its comparisons and times on the xla runs'
+    largest launch."""
+    from mythril_tpu_torch.gpu import ragged_kernel, xla_kernel
+    from mythril_tpu_torch.gpu.router import QueryRouter
+
+    err, random_launches = _k2_random_holds(device)
+    stream, sizes = _k2_past_k1_stream()
+    err = max(err, _hold_k2(device, _k2_launch(device, stream, SEED + 4, 64,
+                                               16), "past-k1", sizes)[
+        "max_abs_err"])
+    inputs = {name: (code, tx, timeout)
+              for name, code, tx, timeout, _c in _analyze_inputs()
+              if name in XLA_CONTRACTS}
+    host = {}
+    for name in XLA_CONTRACTS:
+        rec = (records or {}).get(name, {}).get("cpu")
+        if rec is None:
+            code, tx_count, timeout = inputs[name]
+            rec = _analyze_once(device, code, tx_count, timeout, "cpu", {})[2]
+        host[name] = rec
+
+    measure = QueryRouter._measure_xla_rate
+    calibration = {"launches": 0}
+
+    def counted(self, *args, **kwargs):
+        before = xla_kernel.launches
+        try:
+            return measure(self, *args, **kwargs)
+        finally:
+            calibration["launches"] += xla_kernel.launches - before
+
+    def run(name, leg, env, largest):
+        code, tx_count, timeout = inputs[name]
+        k1_before = ragged_kernel.launches
+        calibration["launches"] = 0
+        xla_kernel.reset_launches()  # this run's count starts here
+        QueryRouter._measure_xla_rate = counted
+        try:
+            with _env(**env), _keep_largest_k2(largest):
+                _report, done, record = _analyze_once(
+                    device, code, tx_count, timeout, "gpu", {})
+        finally:
+            QueryRouter._measure_xla_rate = measure
+        k2 = xla_kernel.launches  # ... and ends here
+        k1 = ragged_kernel.launches - k1_before
+        emit({"phase": "xla", "contract": name, "leg": leg, "tx": tx_count,
+              "k2_launches": k2,
+              "k2_calibration_launches": calibration["launches"],
+              "k1_launches": k1, "host_wall_s": host[name]["wall_s"],
+              **{key: record[key] for key in (
+                  "wall_s", "completed", "prepare_s", "router",
+                  "device_batch_queries", "device_batch_hits",
+                  "aig_device_components", "aig_device_component_hits",
+                  "router_device_found", "router_host_settled",
+                  "cap_rejects", "router_host_direct", "findings")}})
+        if not done:
+            raise AssertionError(f"xla: {name} ({leg}) did not complete")
+        if record["findings"] != host[name]["findings"]:
+            raise AssertionError(
+                f"xla: {name} ({leg}): findings {record['findings']} "
+                f"differ from the host backend's {host[name]['findings']}")
+        return k1, k2, record
+
+    largest, total, k2_hits = {}, 0, 0
+    for name in XLA_CONTRACTS:
+        k1, k2, record = run(name, "xla", {"MYTHRIL_GPU_KERNEL": "xla"},
+                             largest)
+        if k1:
+            raise AssertionError(f"xla: {name}: K1 launched {k1} times")
+        if k2 <= calibration["launches"]:
+            raise AssertionError(f"xla: {name}: K2 ran no solve round")
+        total += k2
+        k2_hits += record["aig_device_component_hits"]
+    if not k2_hits:
+        raise AssertionError("xla: K2 solved no component")
+    fallback = {}
+    k1, fallback_launches, record = run(
+        FALLBACK_CONTRACT, "pallas-fallback",
+        {"MYTHRIL_GPU_KERNEL": "pallas",
+         "MYTHRIL_GPU_RAGGED_VAR_CAP": FALLBACK_VAR_CAP}, fallback)
+    if not (k1 and fallback_launches):
+        raise AssertionError(f"xla: the fallback leg launched K1 {k1} and "
+                             f"K2 {fallback_launches} times")
+    err = max(err, _hold_k2(device, fallback, "fallback-largest",
+                            {"k2_launches": fallback_launches,
+                             "k1_launches": k1,
+                             # K1's capacities are launch arguments: the
+                             # leg's smaller var_cap needed no rebuild
+                             "k1_rebuilt": False}, timed=True)[
+                                 "max_abs_err"])
+    timed = _hold_k2(device, largest, "xla-analyze-largest-timed",
+                     {"k2_launches": total}, timed=True)
+    return {**timed, "launches": total, "max_abs_err": max(
+        err, timed["max_abs_err"]), "launches_by_path": {
+            "xla_analyze": total, "fallback": fallback_launches,
+            "random": random_launches}}
+
+
+def xla_only(device) -> int:
+    """Env, build and the xla phase alone (see the module note)."""
+    phase_build()
+    phase_xla(device)
+    return 0
+
+
 def _host_verdicts(device, queries):
     from mythril_tpu_torch.support.args import args
     from mythril_tpu_torch.support.model import get_models_batch
@@ -3075,6 +3447,10 @@ def main() -> int:
             bucketed_only(device)
             print(smi, flush=True)
             return 0
+        if "--xla-only" in sys.argv[1:]:
+            xla_only(device)
+            print(smi, flush=True)
+            return 0
         if "--k3-split" in sys.argv[1:]:
             k3_split(device, sys.argv[sys.argv.index("--k3-split") + 1])
             print(smi, flush=True)
@@ -3088,6 +3464,7 @@ def main() -> int:
         frontier = phase_frontier(device)
         analyze = phase_analyze(device)
         bucketed = phase_bucketed(device, analyze["records"])
+        xla = phase_xla(device, analyze["records"])
         phase_telemetry_overhead(device)
         resilience = phase_resilience(device)
         emit({"phase": "total", "seconds": time.monotonic() - start})
@@ -3190,6 +3567,30 @@ def main() -> int:
         "serial_chain_phases": bucketed["serial_chain_phases"],
         "split": bucketed["split"],
         "walks": bucketed["walks"],
+    }, {
+        "name": "xla_round",
+        "route": "cuda",
+        "source": "mythril_tpu_torch/csrc/xla_round.cu",
+        # an XLA program, not a Pallas kernel: run_round_ragged (with
+        # _walk_ragged :517 and _simulate :398)
+        "replaces": "mythril_tpu/tpu/circuit.py:557",
+        # the main path's launches: the xla mode's analyze runs, their
+        # calibration launches included; the pallas mode's fallback leg
+        # and the random streams' comparisons beside them
+        "launches": xla["launches"],
+        # beside them the default path's: the five compared contracts and
+        # stress_dispatch's clock-cut runs, where a cone past K1's
+        # capacities runs on K2
+        "launches_by_path": {**xla["launches_by_path"],
+                             "analyze": analyze["k2_launches"],
+                             "analyze_stress": analyze["k2_stress"]},
+        "max_abs_err": xla["max_abs_err"],
+        # one round on the largest launch of the xla analyze runs
+        "ms": xla["ms"],
+        "plain_ms": xla["plain_ms"],
+        "bound_ms": xla["bound_ms"],
+        "bound_by": xla["bound_by"],
+        "library_ms": None,
     }]})
     with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w") as fd:
         fd.write("\n".join(_lines) + "\n")

@@ -37,20 +37,25 @@ ANALYSIS_ADDRESS = 0x901D12EBE1B195E5AA8748E62BD7734AE19B51F  # well-known probe
 
 
 def build_device_kernels() -> None:
-    """Build every kernel the run's device path launches: K1 on the ragged
-    path or K3 on the bucketed one (--no-ragged), and K6 with the frontier
-    on. A build is slow the first time (nvcc), so it happens here, before
-    the first window, and never inside a dispatch's hard deadline."""
+    """Build every kernel the run's device path launches: on the ragged
+    path K2 (the xla mode's round, and the pallas mode's fallback past
+    K1's capacities) and, in the pallas mode, K1; K3 on the bucketed path
+    (--no-ragged); and K6 with the frontier on. A build is slow the first
+    time (nvcc), so it happens here, before the first window, and never
+    inside a dispatch's hard deadline."""
     from mythril_tpu_torch.gpu import (
         circuit_kernel,
         frontier_kernel,
         ragged_kernel,
+        xla_kernel,
     )
     from mythril_tpu_torch.gpu.router import ragged_enabled
     from mythril_tpu_torch.laser import frontier
 
     if ragged_enabled():
-        ragged_kernel.build_kernel()
+        if ragged_kernel.kernel_mode() == "pallas":
+            ragged_kernel.build_kernel()
+        xla_kernel.build_kernel()
     else:
         circuit_kernel.build_kernel()
     if frontier.enabled():

@@ -4,9 +4,12 @@ try_solve_batch_ragged() solves one chunk of a window: the router
 (gpu/router.py) levelizes each admitted cone through pack_cone (cached by
 circuit structure), chunks the window, and hands each chunk here; the
 chunk is packed into ONE ragged flat stream (circuit.RaggedStream) and
-rounds of the ragged round (ragged_kernel.py) run until every cone is
-solved or the search stalls, with the cube second pass on the cones the
-plain rounds miss.
+rounds run until every cone is solved or the search stalls, with the cube
+second pass on the cones the plain rounds miss. The round is the kernel
+mode's (ragged_kernel.kernel_mode(), MYTHRIL_GPU_KERNEL): in "pallas" mode
+K1 (ragged_kernel.py) over the exact stream, falling back to K2 for a
+stream past one of K1's capacities; in "xla" mode K2 (xla_kernel.py), which
+has none, over the stream padded to its shape bucket.
 
 try_solve_batch_circuit() is the bucketed path (--no-ragged): one level
 bucket of queries, each cone padded to the bucket's shape and the query
@@ -16,8 +19,8 @@ single-query form.
 
 Found models are checked against the CNF on the host; None entries are
 left to the caller's CDCL, which alone proves UNSAT. A kernel that fails
-to build or to launch, a device error, or a chunk past a kernel capacity
-raises: nothing here drops the device path silently.
+to build or to launch, or a device error, raises: nothing here drops the
+device path silently.
 """
 
 import logging
@@ -28,7 +31,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mythril_tpu_torch.gpu import circuit, circuit_kernel, ragged_kernel
+from mythril_tpu_torch.gpu import (
+    circuit,
+    circuit_kernel,
+    ragged_kernel,
+    xla_kernel,
+)
 from mythril_tpu_torch.gpu.device import resolve_device
 from mythril_tpu_torch.observe.tracer import span as trace_span
 from mythril_tpu_torch.preanalysis import cubes
@@ -460,8 +468,8 @@ class DeviceSolverBackend:
         gate/root tables, so a single kernel launch per round covers the
         whole window regardless of per-cone shape. Returns per-query model
         bits or None. `extra_roots[qi]`: (local var, want) pins asserted
-        as additional roots of that query's cone. Raises when the window
-        exceeds a kernel capacity (the router chunks to them).
+        as additional roots of that query's cone. In pallas mode a window
+        past one of K1's capacities runs on K2.
 
         Cones the plain rounds miss get a cube-and-conquer second pass
         when `cube_vars` > 0: the cone is replicated onto a fresh stream
@@ -505,7 +513,8 @@ class DeviceSolverBackend:
 
         cubes_shipped = cube_refutes = 0
         if cube_vars > 0 and len(solved) < len(packed):
-            caps = ragged_kernel.kernel_caps()
+            caps = (ragged_kernel.kernel_caps()
+                    if ragged_kernel.kernel_mode() == "pallas" else None)
             if stream_budget is None:
                 stream_budget = RAGGED_STREAM_BYTES_DEFAULT
             for i, (_qi, _nv, pc, _dense, extra) in enumerate(packed):
@@ -557,19 +566,27 @@ class DeviceSolverBackend:
         self.device_seconds += time.monotonic() - call_start
         return results
 
-    def cube_entries(self, pc, extra, cube_vars: int,
-                     caps: ragged_kernel.KernelCaps, stream_budget: int):
+    def cube_entries(self, pc, extra, cube_vars: int, caps,
+                     stream_budget: int):
         """The cube second pass's stream entries for one missed cone: the
         cone replicated once per cube of its plan, each replica asserting
-        the cube's pins as extra roots; [] when no plan fits the root
-        capacity or the replica budget (the replicated pages must fit the
-        kernel's var capacity and the per-stream byte budget)."""
+        the cube's pins as extra roots; [] when no plan fits. With K1's
+        KernelCaps the replica stream must fit K1: the root capacity, the
+        var capacity and the cone slots. With `caps` None (K2, which has
+        no capacities) the replicated pages must fit circuit.MAX_VARS, as
+        in mythril_tpu. Either way the per-stream byte budget holds."""
+        replica_bytes = max(stream_budget // max(
+            self.ragged_entry_bytes(pc), 1), 1)
+        if caps is None:
+            max_cubes = min((circuit.MAX_VARS - 1) // max(pc.v1 - 1, 1),
+                            replica_bytes)
+            plan = cubes.plan_cubes(pc, cube_vars, max_cubes)
+            return [(pc, tuple(extra) + tuple(cube)) for cube in plan]
         if pc.num_roots + len(extra) + cube_vars > caps.root_cap:
             return []
         max_cubes = min(
             (caps.var_cap - 1) // max(pc.v1 - 1, 1),
-            caps.cone_cap,
-            max(stream_budget // max(self.ragged_entry_bytes(pc), 1), 1))
+            caps.cone_cap, replica_bytes)
         plan = cubes.plan_cubes(pc, cube_vars, max_cubes)
         return [(pc, tuple(extra) + tuple(cube)) for cube in plan]
 
@@ -580,20 +597,36 @@ class DeviceSolverBackend:
         passes (`stop_at_first`: until any entry is solved — one cube's
         model settles its cone). Returns ({entry index: local cone
         assignment}, stream bytes, completed): completed is False when
-        the deadline cut the search."""
+        the deadline cut the search. The kernel mode picks the round: K1
+        in "pallas" mode, and K2 for a stream past one of K1's capacities
+        or in "xla" mode."""
+        if ragged_kernel.kernel_mode() == "pallas":
+            out = self._solve_ragged_stream_k1(entries, deadline,
+                                               num_restarts, steps,
+                                               stop_at_first)
+            if out is not None:
+                return out
+            log.debug("ragged stream exceeds a K1 capacity; it runs on K2")
+        return self._solve_ragged_stream_xla(entries, deadline,
+                                             num_restarts, steps,
+                                             stop_at_first)
+
+    def _solve_ragged_stream_k1(self, entries, deadline, num_restarts: int,
+                                steps: int, stop_at_first: bool):
+        """The stream on K1, at its fixed capacities over the exact
+        stream; None when the stream exceeds one of them."""
         caps = ragged_kernel.kernel_caps()
         ship_start = time.monotonic()
         stream = circuit.RaggedStream(entries)
         if not stream.ok:
             self.ragged_seconds += time.monotonic() - ship_start
             return {}, 0, False
-        if self.on_stream is not None:
-            self.on_stream(stream, entries)
         flat = ragged_kernel.flatten_stream(stream, caps)
         if flat is None:
-            raise ValueError(
-                f"ragged window of {stream.num_cones} cones ({stream.v1} "
-                f"vars) exceeds a kernel capacity {caps}")
+            self.ragged_seconds += time.monotonic() - ship_start
+            return None
+        if self.on_stream is not None:
+            self.on_stream(stream, entries)
         upload_start = time.monotonic()
         flat = ragged_kernel.device_flat(flat, self.device)
         if self.device.type == "cuda":
@@ -604,16 +637,70 @@ class DeviceSolverBackend:
                                    for t in flat.arrays.values()))
         self.ragged_seconds += now - ship_start
         lanes = ragged_kernel.pad_lanes(num_restarts, caps)
-        walk_depth = min(stream.num_levels + 4, circuit.MAX_LEVELS)
-        self._seed += 1
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(self._seed)
-        x = circuit.init_inputs(generator, lanes, caps.var_cap, self.device)
-        n = stream.num_cones
         # a launch steps the block-aligned real-gate stream twice per
         # step (sim + walk)
         cells_per_round = steps * 2 * flat.padded_cells
+        walk_depth = min(stream.num_levels + 4, circuit.MAX_LEVELS)
         stats = SolverStatistics()
+
+        def launch(x, seed):
+            x, found = ragged_kernel.run_round_ragged_kernel(
+                flat, x, seed=seed, steps=steps, walk_depth=walk_depth,
+                caps=caps)
+            self.kernel_launches += 1
+            self.kernel_cells_stepped += cells_per_round
+            stats.add_kernel_launch(cells_per_round)
+            return x, found
+
+        return self._round_loop(stream, launch, lanes, caps.var_cap,
+                                cells_per_round, deadline, steps,
+                                stop_at_first)
+
+    def _solve_ragged_stream_xla(self, entries, deadline, num_restarts: int,
+                                 steps: int, stop_at_first: bool):
+        """The stream on K2 over the stream padded to its shape bucket, as
+        mythril_tpu's XLA round takes it: K2 has no capacities."""
+        ship_start = time.monotonic()
+        stream = circuit.RaggedStream(entries, bucket=shape_bucket)
+        if not stream.ok:
+            self.ragged_seconds += time.monotonic() - ship_start
+            return {}, 0, False
+        if self.on_stream is not None:
+            self.on_stream(stream, entries)
+        upload_start = time.monotonic()
+        xs = xla_kernel.device_stream(stream, self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.monotonic()
+        self.ship_seconds += now - upload_start
+        self.ship_bytes += xs.nbytes
+        self.ragged_seconds += now - ship_start
+        walk_depth = min(stream.num_levels + 4, circuit.MAX_LEVELS)
+
+        def launch(x, seed):
+            return xla_kernel.run_round_xla_kernel(
+                xs, x, seed=seed, steps=steps, walk_depth=walk_depth)
+
+        # mythril_tpu's cell unit for its XLA round: the bucketed
+        # levels x width rectangle, sim + walk per step
+        cells_per_round = steps * 2 * stream.num_levels * stream.width
+        return self._round_loop(stream, launch, num_restarts, stream.v1,
+                                cells_per_round, deadline, steps,
+                                stop_at_first)
+
+    def _round_loop(self, stream, launch, lanes: int, width: int,
+                    cells_per_round: int, deadline, steps: int,
+                    stop_at_first: bool):
+        """Rounds of `launch(x, seed) -> (x, found)` over one uploaded
+        stream from a seeded x of [lanes, width] until every cone is
+        solved, STALL_ROUNDS rounds pass without a new one, `stop_at_first`
+        is met, or the deadline passes; between rounds the first half of
+        the lanes is re-drawn. Returns the _solve_ragged_stream triple."""
+        self._seed += 1
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(self._seed)
+        x = circuit.init_inputs(generator, lanes, width, self.device)
+        n = stream.num_cones
         solved = {}
         rounds = stall = 0
         solve_start = time.monotonic()
@@ -621,16 +708,11 @@ class DeviceSolverBackend:
                         levels=stream.num_levels, width=stream.width,
                         restarts=lanes) as kernel_span:
             while True:
-                x, found = ragged_kernel.run_round_ragged_kernel(
-                    flat, x,
-                    seed=(self._seed * 1000003 + rounds) & 0x7FFFFFFF,
-                    steps=steps, walk_depth=walk_depth, caps=caps)
+                x, found = launch(
+                    x, (self._seed * 1000003 + rounds) & 0x7FFFFFFF)
                 rounds += 1
-                self.kernel_launches += 1
-                self.kernel_cells_stepped += cells_per_round
                 self.cells_stepped += cells_per_round
                 self.flips += n * lanes * steps
-                stats.add_kernel_launch(cells_per_round)
                 found_host = found[:, :n].cpu().numpy()  # [lanes, cones]
                 newly = [ci for ci in range(n)
                          if ci not in solved and found_host[:, ci].any()]
@@ -655,7 +737,7 @@ class DeviceSolverBackend:
                 half = lanes // 2
                 if half:
                     x[:half] = circuit.init_inputs(
-                        generator, half, caps.var_cap, self.device)
+                        generator, half, width, self.device)
             kernel_span.set(rounds=rounds)
         self.solve_seconds += time.monotonic() - solve_start
         return solved, stream.nbytes, completed
@@ -714,10 +796,12 @@ class DeviceSolverBackend:
             "cube_device_refutes": self.cube_device_refutes,
             "kernel_launches": self.kernel_launches,
             "kernel_cells_stepped": self.kernel_cells_stepped,
-            # one compiled kernel serves every window shape: never recompiles
+            # K1, K2 and K3 each build once and take every window shape
+            # at run time: nothing recompiles
             "kernel_recompiles": 0,
-            "kernel_backend": ("cuda" if self.device.type == "cuda"
-                               else "plain"),
+            # the kernel mode (MYTHRIL_GPU_KERNEL), as mythril_tpu stamps
+            # it; the device is the stats JSON's "device" section
+            "kernel_backend": ragged_kernel.kernel_mode(),
             "pack_seconds": round(self.pack_seconds, 4),
             "ship_seconds": round(self.ship_seconds, 4),
             "solve_seconds": round(self.solve_seconds, 4),

@@ -29,6 +29,12 @@ Device side:
                   tensors — and only for those — it runs
   run_round_ragged_plain   the same round written with torch tensor ops.
 
+The kernel knob: kernel_mode() resolves MYTHRIL_GPU_KERNEL (pallas | xla |
+auto) once per process. "pallas" runs this round (K1) with K2 as the
+fallback for a stream past a capacity; "xla" runs every stream on K2
+(gpu/xla_kernel.py), which has no capacities. "auto" is "pallas" on every
+device: the card stands where the TPU stood.
+
 Env summary (same defaults as MYTHRIL_TPU_PALLAS_*):
   MYTHRIL_GPU_RAGGED_VAR_CAP    combined-variable (and gate-stream)
                                 capacity (default 65536)
@@ -42,6 +48,7 @@ or the plain version depends on them.
 """
 
 import ctypes
+import logging
 import os
 import shutil
 import subprocess
@@ -53,9 +60,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from mythril_tpu_torch.support.env import env_int
+from mythril_tpu_torch.support.env import env_int, env_str
+
+log = logging.getLogger(__name__)
 
 LEVEL_CAP = 4096  # mirror of circuit.MAX_LEVELS
+KERNEL_MODES = ("pallas", "xla")
 
 # operand order shared by flatten_stream and the kernel call
 GATE_KEYS = ("g_out", "g_a", "g_an", "g_b", "g_bn")
@@ -74,6 +84,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel launches since the last reset (the plain version never counts)
 launches = 0
+_MODE = None
+
+
+def kernel_mode() -> str:
+    """The resolved MYTHRIL_GPU_KERNEL: "pallas" (K1, falling back to K2
+    past a capacity) or "xla" (K2 for every stream). "auto", the default,
+    is "pallas" on every device (mythril_tpu resolves it to its XLA round
+    off a TPU); an unknown value warns and means auto. Cached per process;
+    reset_kernel_mode() drops the cache."""
+    global _MODE
+    if _MODE is None:
+        raw = (env_str("MYTHRIL_GPU_KERNEL", None) or "auto").strip().lower()
+        if raw in KERNEL_MODES:
+            _MODE = raw
+        else:
+            if raw not in ("", "auto"):
+                log.warning("unknown MYTHRIL_GPU_KERNEL=%r; using auto", raw)
+            _MODE = "pallas"
+    return _MODE
+
+
+def reset_kernel_mode() -> None:
+    """Drop the cached kernel_mode() resolution (tests)."""
+    global _MODE
+    _MODE = None
 
 
 class KernelCaps(NamedTuple):

@@ -5,13 +5,19 @@ get_models_batch hands each window of prepared queries to dispatch(),
 which decides per cone where it is solved and ships the device-bound ones
 to the ragged round (backend.try_solve_batch_ragged):
 
-  admission   the JAX package's rules for its Pallas round, of which K1 is
-              the port: a cone at most MYTHRIL_GPU_HOST_DIRECT_LEVELS deep
-              (default 24) goes straight to the host CDCL ("tiny"); one
-              whose estimated stream bytes alone bust
-              MYTHRIL_GPU_RAGGED_STREAM_BYTES (default 48 MiB), or that
-              exceeds a kernel capacity, is a cap reject; every other cone
-              rides the device. There is no per-cone cost veto.
+  admission   the JAX package's rules for its kernel mode
+              (ragged_kernel.kernel_mode(), MYTHRIL_GPU_KERNEL): a query
+              with more CNF variables than MYTHRIL_GPU_VAR_CAP is a cap
+              reject before packing; a cone at most
+              MYTHRIL_GPU_HOST_DIRECT_LEVELS deep (default 24) goes
+              straight to the host CDCL ("tiny"); one whose estimated
+              stream bytes alone bust MYTHRIL_GPU_RAGGED_STREAM_BYTES
+              (default 48 MiB) is a cap reject. In "pallas" mode every
+              other cone rides the device, with no per-cone cost veto: one
+              past K1's variable space or root slots rides K2 in a chunk
+              of its own. In "xla" mode a cone outside the 640-level,
+              2^20-cell floor whose one round plus the stream prep busts
+              the chunk budget is a cost reject, counted as a cap reject.
   components  a query whose rewritten AIG splits into variable-disjoint
               components (preanalysis/aig_partition.py) dispatches each
               component as its own unit; trivial components settle inline,
@@ -23,17 +29,23 @@ to the ragged round (backend.try_solve_batch_ragged):
               cone; each side pins the fork literal as an extra root.
   chunking    admitted units (level-bucket order) chunk greedily into
               streams: a chunk closes when the next cone would bust the
-              stream's byte budget, the kernel's variable space or cone
-              slots, or push the estimated round past the chunk budget
-              (0.8 x min(round budget, dispatch deadline)). The estimate
-              charges the calibrated kernel rate over the bucketed
+              stream's byte budget or push the estimated round past the
+              chunk budget (0.8 x min(round budget, dispatch deadline)),
+              and in "pallas" mode K1's variable space or cone slots; in
+              "xla" mode the combined space past circuit.MAX_VARS, and in
+              evidence mode a window of two or more origins at
+              MIXED_CHUNK_CONES_CPU (2) cones a chunk. The estimate
+              charges the live kernel's calibrated rate over the bucketed
               combined rectangle.
-  calibration once per process (persisted under solve_cache "disk"): K1
-              on a two-cone calibration stream, timed with CUDA events
-              over CAL_STEPS after one warm-up launch (perf_counter for
-              the plain round on the CPU) — kernel_cells_s; plus pack,
-              stream assembly + upload and host-CDCL settle rates.
-              MYTHRIL_GPU_CALIBRATE=0 skips it.
+  calibration once per process and kernel mode (persisted under
+              solve_cache "disk"): the live kernel (K1, or K2 in "xla"
+              mode) on a two-cone calibration stream, timed with CUDA
+              events over CAL_STEPS after one warm-up launch (perf_counter
+              for the plain round on the CPU) — kernel_cells_s, or
+              xla_cells_s; plus pack, stream assembly + upload and
+              host-CDCL settle rates. MYTHRIL_GPU_CALIBRATE=0 skips it,
+              and the cost model then charges mythril_tpu's constants
+              (1e-7 s a cell in evidence mode, 1e-9 on a card).
   breaker     zero-hit device seconds charge a waste budget
               (MYTHRIL_GPU_DEVICE_MAX_WASTE; 20 s on a card, 8 s on the
               CPU); past it the device path is off until a cooldown admits
@@ -89,7 +101,11 @@ device.calibrate, and a dispatch past its hard deadline propagate to the
 caller as a recorded DeviceFault (no host fallback; the breaker sees only
 zero-hit waste), on either path. The JAX package calibrates K3 in every
 process (it resolves its caps on every dispatch); the port only where the
-bucketed mode is live, and K1 only where the ragged one is.
+bucketed mode is live, K1 only where the ragged one is in "pallas" mode,
+and K2 only in "xla" mode (mythril_tpu charges its XLA round's per-cell
+latency, K3's). In "pallas" mode the chunker keeps K1's capacities (the
+JAX package chunks by its byte, round and MAX_VARS budgets alone and falls
+back to its XLA round past a capacity).
 """
 
 import contextlib
@@ -101,7 +117,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mythril_tpu_torch.gpu import circuit, circuit_kernel, ragged_kernel
+from mythril_tpu_torch.gpu import (
+    circuit,
+    circuit_kernel,
+    ragged_kernel,
+    xla_kernel,
+)
 from mythril_tpu_torch.gpu.backend import (
     CUBE_MIN_LEVELS_DEFAULT,
     CUBE_VARS_DEFAULT,
@@ -135,6 +156,10 @@ DEFAULT_LEVEL_CAP_DEVICE = 1024
 DEFAULT_CELL_CAP = 1 << 22
 DEFAULT_VAR_CAP_CPU = 1 << 15
 DEFAULT_VAR_CAP_DEVICE = 1 << 16
+# "xla" mode on the CPU: cones a stream of a window of two or more origins
+# (mythril_tpu's auto value when it measured no XLA compile; no cap on a
+# card, as there)
+MIXED_CHUNK_CONES_CPU = 2
 
 
 def ragged_enabled() -> bool:
@@ -208,7 +233,8 @@ class QueryRouter:
         # until calibrated or when calibration is off
         self._rates = {}
         self.calibration_seconds = 0.0
-        self._calibrated = False
+        # the kernel modes calibrated in this process
+        self._calibrated = set()
         # the bucketed path: its (level, cell, var) caps once resolved, and
         # K3's calibration (per_cell_s in _rates)
         self._caps = None
@@ -288,27 +314,40 @@ class QueryRouter:
 
     # -- calibration ----------------------------------------------------------
 
+    def _rate_key(self) -> str:
+        """The live kernel's rate key: K1's kernel_cells_s in "pallas"
+        mode, K2's xla_cells_s in "xla" mode."""
+        from mythril_tpu_torch.service.calibration import (
+            KERNEL_RATE_KEY,
+            XLA_RATE_KEY,
+        )
+
+        return (XLA_RATE_KEY if ragged_kernel.kernel_mode() == "xla"
+                else KERNEL_RATE_KEY)
+
     def _calibrate(self) -> None:
-        """Measure the rates once per process, or load the persisted entry
-        (service/calibration.py). A kernel, build or device error raises:
-        the measurement times K1 itself."""
-        if self._calibrated:
+        """Measure the rates once per process and kernel mode, or load the
+        persisted entry (service/calibration.py). A kernel, build or
+        device error raises: the measurement times the live kernel
+        itself."""
+        mode = ragged_kernel.kernel_mode()
+        if mode in self._calibrated:
             return
-        self._calibrated = True
+        self._calibrated.add(mode)
         if os.environ.get("MYTHRIL_GPU_CALIBRATE", "") == "0":
             return
         from mythril_tpu_torch.service.calibration import (
-            KERNEL_RATE_KEY,
             STAGE_RATE_KEYS,
             load_profile,
             save_profile,
         )
 
+        rate_key = self._rate_key()
         platform = self._platform()
         restarts, steps = self._profile_restarts(), self._profile_steps()
         cached = load_profile(platform, restarts, steps) or {}
-        if KERNEL_RATE_KEY in cached:
-            own = {key: cached[key] for key in (KERNEL_RATE_KEY,)
+        if rate_key in cached:
+            own = {key: cached[key] for key in (rate_key,)
                    + STAGE_RATE_KEYS if key in cached}
             self._rates.update(own)
             if any(key not in cached for key in STAGE_RATE_KEYS):
@@ -332,20 +371,25 @@ class QueryRouter:
         save_profile(platform, restarts, steps, rates)
 
     def _measure_rates(self) -> dict:
-        """The stage rates and K1's rate on their calibration stream."""
-        rates, flat = self._measure_stage_rates()
-        if flat is not None:
-            rates["kernel_cells_s"] = self._measure_kernel_rate(*flat)
+        """The stage rates and the live kernel's rate on their calibration
+        stream."""
+        rates, uploaded = self._measure_stage_rates()
+        if uploaded is not None:
+            measure = (self._measure_xla_rate
+                       if ragged_kernel.kernel_mode() == "xla"
+                       else self._measure_kernel_rate)
+            rates[self._rate_key()] = measure(*uploaded)
         return rates
 
     def _measure_stage_rates(self):
         """(rates, calibration stream) on a small blasted comparison cone
         (the production query shape at 1/4 width, two entries paged onto
         disjoint variable ranges like a window): pack bytes/s (the timed
-        levelization), ragged bytes/s (assembly + upload) and settle
-        clauses/s (repeated cold CDCL solves of the same CNF). The stream
-        is (flat on the device, stream), or None when it exceeds the
-        kernel's capacities."""
+        levelization), ragged bytes/s (the live kernel's stream assembly
+        + upload) and settle clauses/s (repeated cold CDCL solves of the
+        same CNF). The stream is (K1's flat stream on the device, stream),
+        or None when it exceeds K1's capacities; in "xla" mode (K2's
+        stream on the device, the stream padded to its shape bucket)."""
         device = self.backend.device
         prep, pc, pack_elapsed = self._calibration_circuit()
         rates = {}
@@ -353,23 +397,28 @@ class QueryRouter:
             rates["pack_bytes_s"] = pc.nbytes / pack_elapsed
         rates.update(self._settle_rate(prep))
 
-        caps = ragged_kernel.kernel_caps()
         ragged_start = time.perf_counter()
-        stream = circuit.RaggedStream([(pc, ()), (pc, ())])
-        flat = ragged_kernel.flatten_stream(stream, caps)
-        if flat is None:
-            # capacities set below the calibration stream: the cost model
-            # keeps its constant
-            log.warning("calibration stream exceeds the kernel capacities "
-                        "%s; kernel rate not measured", caps)
-            return rates, None
-        flat = ragged_kernel.device_flat(flat, device)
+        if ragged_kernel.kernel_mode() == "xla":
+            stream = circuit.RaggedStream([(pc, ()), (pc, ())],
+                                          bucket=shape_bucket)
+            uploaded = xla_kernel.device_stream(stream, device)
+        else:
+            caps = ragged_kernel.kernel_caps()
+            stream = circuit.RaggedStream([(pc, ()), (pc, ())])
+            flat = ragged_kernel.flatten_stream(stream, caps)
+            if flat is None:
+                # capacities set below the calibration stream: the cost
+                # model keeps its constant
+                log.warning("calibration stream exceeds the kernel "
+                            "capacities %s; kernel rate not measured", caps)
+                return rates, None
+            uploaded = ragged_kernel.device_flat(flat, device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         ragged_elapsed = time.perf_counter() - ragged_start
         if ragged_elapsed > 0 and stream.nbytes:
             rates["ragged_bytes_s"] = stream.nbytes / ragged_elapsed
-        return rates, (flat, stream)
+        return rates, (uploaded, stream)
 
     @staticmethod
     def _calibration_circuit():
@@ -466,20 +515,7 @@ class QueryRouter:
             return circuit_kernel.run_round_circuit_kernel(
                 tensors, x, seed, CAL_STEPS, walk, layout)
 
-        launch(1)  # warm-up: the first launch pays the build and setup
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-            begin = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            begin.record()
-            launch(2)
-            end.record()
-            end.synchronize()
-            elapsed = begin.elapsed_time(end) / 1e3
-        else:
-            kernel_start = time.perf_counter()
-            launch(2)
-            elapsed = time.perf_counter() - kernel_start
+        elapsed = self._time_launch(launch)
         cells = pc.num_levels * max(pc.max_width, 1)
         rates["per_cell_s"] = max(elapsed / (CAL_STEPS * 2 * cells), 1e-12)
         return rates
@@ -504,12 +540,19 @@ class QueryRouter:
         cell = _env_cap("MYTHRIL_GPU_CELL_CAP")
         if cell is None:
             cell = DEFAULT_CELL_CAP
-        var = _env_cap("MYTHRIL_GPU_VAR_CAP")
-        if var is None:
-            var = DEFAULT_VAR_CAP_CPU if on_cpu else DEFAULT_VAR_CAP_DEVICE
-        self._caps = (level, cell, var)
+        self._caps = (level, cell, self.var_cap())
         log.info("bucketed caps: levels<=%d cells<=%d vars<=%d", *self._caps)
         return self._caps
+
+    def var_cap(self) -> int:
+        """The most CNF variables a query may have to be packed for either
+        path (MYTHRIL_GPU_VAR_CAP; 2^16 on a card, 2^15 on the CPU), as
+        mythril_tpu's var cap is."""
+        var = _env_cap("MYTHRIL_GPU_VAR_CAP")
+        if var is None:
+            var = (DEFAULT_VAR_CAP_CPU if self._evidence_mode()
+                   else DEFAULT_VAR_CAP_DEVICE)
+        return var
 
     def _calibrated_level_cap(self) -> Optional[int]:
         """The level cap at which a production round (profile steps, sim
@@ -540,6 +583,34 @@ class QueryRouter:
                 flat, x, seed=seed, steps=CAL_STEPS, walk_depth=walk,
                 caps=caps)
 
+        kernel_s = self._time_launch(launch)
+        # the kernel's cell unit: block-aligned real gates, sim + walk
+        return CAL_STEPS * 2 * flat.padded_cells / max(kernel_s, 1e-9)
+
+    def _measure_xla_rate(self, xs, stream) -> float:
+        """K2's cells per second on the calibration stream, timed like
+        K1's (_measure_kernel_rate); its cell unit is mythril_tpu's for
+        the XLA round: the bucketed levels x width rectangle, sim + walk
+        per step."""
+        device = self.backend.device
+        generator = torch.Generator(device=device)
+        generator.manual_seed(2)
+        x = circuit.init_inputs(generator, self._profile_restarts(),
+                                stream.v1, device)
+        walk = stream.num_levels + 4
+
+        def launch(seed):
+            return xla_kernel.run_round_xla_kernel(
+                xs, x, seed=seed, steps=CAL_STEPS, walk_depth=walk)
+
+        kernel_s = self._time_launch(launch)
+        return (CAL_STEPS * 2 * stream.num_levels * stream.width
+                / max(kernel_s, 1e-9))
+
+    def _time_launch(self, launch) -> float:
+        """Seconds of launch(2) after a warm-up launch(1): CUDA events on a
+        card, perf_counter for a plain round on the CPU."""
+        device = self.backend.device
         launch(1)  # warm-up: the first launch pays the build and setup
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -549,13 +620,10 @@ class QueryRouter:
             launch(2)
             end.record()
             end.synchronize()
-            kernel_s = begin.elapsed_time(end) / 1e3
-        else:
-            kernel_start = time.perf_counter()
-            launch(2)
-            kernel_s = time.perf_counter() - kernel_start
-        # the kernel's cell unit: block-aligned real gates, sim + walk
-        return CAL_STEPS * 2 * flat.padded_cells / max(kernel_s, 1e-9)
+            return begin.elapsed_time(end) / 1e3
+        kernel_start = time.perf_counter()
+        launch(2)
+        return time.perf_counter() - kernel_start
 
     @staticmethod
     def _settle_rate(prep) -> dict:
@@ -584,15 +652,20 @@ class QueryRouter:
         kernel_cells_s, pack_bytes_s, ragged_bytes_s, settle_clauses_s and
         ship_bytes_s, measured this process or loaded from the persisted
         entry; a rate never measured is absent. The kernel stage ranks
-        against K1's rate on the ragged path and K3's (1 / per_cell_s) on
-        the bucketed one. A pure read: it never measures, launches or
-        synchronizes."""
+        against the live kernel's rate: K1's on the ragged path, K2's in
+        "xla" mode, K3's (1 / per_cell_s) on the bucketed path. A pure
+        read: it never measures, launches or synchronizes."""
         out = dict(self._rates)
         per_cell = out.pop("per_cell_s", None)
+        xla_rate = out.pop("xla_cells_s", None)
         if not ragged_enabled():
             out.pop("kernel_cells_s", None)
             if per_cell:
                 out["kernel_cells_s"] = 1.0 / per_cell
+        elif ragged_kernel.kernel_mode() == "xla":
+            out.pop("kernel_cells_s", None)
+            if xla_rate:
+                out["kernel_cells_s"] = xla_rate
         return out
 
     # -- cost model -------------------------------------------------------------
@@ -620,9 +693,10 @@ class QueryRouter:
 
     def est_ragged_round_seconds(self, cells: int) -> float:
         """ONE ragged round over a stream whose bucketed combined
-        rectangle is `cells`: the calibrated kernel rate (sim + walk per
-        step), else a conservative platform constant."""
-        rate = self._rates.get("kernel_cells_s")
+        rectangle is `cells`: the live kernel's calibrated rate (sim +
+        walk per step; K1's, or K2's in "xla" mode), else a conservative
+        platform constant."""
+        rate = self._rates.get(self._rate_key())
         if rate:
             per_cell = 1.0 / rate
         else:
@@ -633,6 +707,14 @@ class QueryRouter:
         """Round time ONE chunk may cost: inside the dispatch deadline, with
         0.8 leaving room for the walk and the upload."""
         return 0.8 * min(self.round_budget_s, self.dispatch_deadline())
+
+    @staticmethod
+    def ragged_round_cells(pc) -> int:
+        """The bucketed levels x widest-real-row rectangle of a stream of
+        this cone alone (mythril_tpu's per-cone cost unit)."""
+        rows = pc.level_rows
+        widest = int(rows.max()) if len(rows) else 1
+        return shape_bucket(max(pc.num_levels, 1)) * shape_bucket(widest)
 
     def ragged_prep_overhead_seconds(self) -> float:
         """Amortized stream assembly + upload wall per ragged stream (the
@@ -755,8 +837,7 @@ class QueryRouter:
             # fork cones ride the stream even when "tiny": the fused
             # launch exists to put the branch's feasibility on the SAME
             # launch as the window's other cones
-            if self._admission_ragged(pc, caps, len(extra_taken)) \
-                    not in ("device", "tiny"):
+            if self._admission_ragged(pc) not in ("device", "tiny"):
                 continue  # the sides route individually below
             buckets.setdefault(shape_bucket(pc.num_levels), []).extend((
                 _Unit(qt, None, pc, problems[qt], extra=extra_taken,
@@ -780,13 +861,13 @@ class QueryRouter:
                     ragged=ragged)
                 continue
             pc = self.backend.pack_problem(
-                problem, caps.var_cap if ragged else caps[2])
+                problem, self.var_cap() if ragged else caps[2])
             if pc is None:  # pre-pack var-cap reject (counted by backend)
                 continue
             if not pc.ok:
                 continue  # trivially unsat roots: the CDCL proves it
             if ragged:
-                verdict = self._admission_ragged(pc, caps)
+                verdict = self._admission_ragged(pc)
                 if verdict == "tiny" and qi in fork_qis:
                     verdict = "device"  # fork feasibility rides the launch
             else:
@@ -834,33 +915,65 @@ class QueryRouter:
             return "cost"
         return "device"
 
-    def _admission_ragged(self, pc, caps, extra_roots: int = 0) -> str:
+    def _admission_ragged(self, pc) -> str:
         """The admission policy, shared by monolithic queries, projected
         components and fork cones: "tiny" (the host CDCL settles it by
         propagation), "cap" (its estimated stream bytes alone bust the
-        stream budget, or it exceeds the kernel's variable space or root
-        slots), else "device". The JAX package's Pallas rules: no per-cone
-        cost veto — the chunker's round budget still splits windows."""
+        stream budget), "cost" (in "xla" mode only: outside the level x
+        cell floor, one round over the cone alone plus the amortized
+        stream prep busts the chunk budget), else "device". In "pallas"
+        mode there is no per-cone cost veto (the chunker's round budget
+        still splits windows), and a cone past one of K1's capacities
+        rides K2 in a chunk of its own (_past_k1)."""
         if pc.num_levels <= self.host_direct_levels:
             return "tiny"
         if (DeviceSolverBackend.ragged_entry_bytes(pc)
-                > self.ragged_stream_budget
-                or pc.v1 > caps.var_cap
-                or pc.num_roots + extra_roots > caps.root_cap):
+                > self.ragged_stream_budget):
             return "cap"
+        if ragged_kernel.kernel_mode() == "pallas":
+            return "device"
+        under_floor = (pc.num_levels <= LEVEL_CAP_FLOOR
+                       and pc.num_levels * pc.max_width <= CELL_FLOOR)
+        if (not under_floor
+                and self.est_ragged_round_seconds(self.ragged_round_cells(pc))
+                + self.ragged_prep_overhead_seconds()
+                > self.ragged_chunk_budget_s()):
+            return "cost"
         return "device"
+
+    @staticmethod
+    def _past_k1(unit, caps) -> bool:
+        """True when K1 cannot take the unit's cone in any stream: its
+        variables or its roots (with the unit's extra roots) exceed K1's
+        capacities. In "pallas" mode such a unit rides K2 alone."""
+        return (unit.pc.v1 > caps.var_cap
+                or unit.pc.num_roots + len(unit.extra) > caps.root_cap)
 
     def _chunk_ragged(self, window: List[_Unit], caps) -> List[List[_Unit]]:
         """Greedy chunking of a window's admitted units into streams: a
         chunk closes when adding the next cone would bust the stream
-        memory budget, the kernel's combined variable space or cone slots,
-        or push the estimated round (plus the amortized stream prep) past
-        the chunk budget. The combined rectangle is tracked per level —
-        summed real rows, bucketed — so the estimate follows the cells the
-        stream carries. A cone over any bound alone was turned away at
-        admission, so every chunk is non-empty."""
+        memory budget or push the estimated round (plus the amortized
+        stream prep) past the chunk budget, and by the kernel mode's
+        bounds: in "pallas" mode K1's combined variable space and cone
+        slots (a unit K1 cannot take at all gets a chunk of its own at
+        its place in the window, which runs on K2); in "xla" mode
+        circuit.MAX_VARS and, in evidence mode, MIXED_CHUNK_CONES_CPU
+        cones a chunk of a window of two or more origins. The combined
+        rectangle is tracked per level — summed real rows, bucketed — so
+        the estimate follows the cells the stream carries. A cone over
+        any bound alone was turned away at admission, so every chunk is
+        non-empty."""
         budget_s = self.ragged_chunk_budget_s()
         prep_s = self.ragged_prep_overhead_seconds()
+        pallas = ragged_kernel.kernel_mode() == "pallas"
+        if pallas:
+            var_space, cone_cap = caps.var_cap, caps.cone_cap
+        else:
+            var_space, cone_cap = circuit.MAX_VARS, 0
+            if (self._evidence_mode()
+                    and len({unit.origin for unit in window
+                             if unit.origin is not None}) >= 2):
+                cone_cap = MIXED_CHUNK_CONES_CPU
         chunks: List[List[_Unit]] = [[]]
         chunk_bytes = 0
         chunk_vars = 0  # combined page space (var 0 shared)
@@ -875,13 +988,22 @@ class QueryRouter:
                 int(merged.max()))
 
         for unit in window:
+            if pallas and self._past_k1(unit, caps):
+                # K2's, alone: the cones beside it stay on K1
+                if chunks[-1]:
+                    chunks.append([])
+                chunks[-1].append(unit)
+                chunks.append([])
+                chunk_bytes = chunk_vars = 0
+                chunk_rows = np.zeros((0,), dtype=np.int64)
+                continue
             entry_bytes = DeviceSolverBackend.ragged_entry_bytes(unit.pc)
             unit_vars = max(unit.pc.v1 - 1, 0)
             merged, cells = combined_cells(chunk_rows, unit.pc)
             if chunks[-1] and (
                     chunk_bytes + entry_bytes > self.ragged_stream_budget
-                    or 1 + chunk_vars + unit_vars > caps.var_cap
-                    or len(chunks[-1]) >= caps.cone_cap
+                    or 1 + chunk_vars + unit_vars > var_space
+                    or (cone_cap and len(chunks[-1]) >= cone_cap)
                     or self.est_ragged_round_seconds(cells) + prep_s
                     > budget_s):
                 chunks.append([])
@@ -911,7 +1033,10 @@ class QueryRouter:
                 break
             remaining = deadline - time.monotonic()
             if remaining <= 0.1:
-                break  # the host settles the rest: the deadline guarantee
+                # the host settles the rest: the deadline guarantee
+                if stats is not None:
+                    stats.add_router_deadline_stop()
+                break
             t0 = time.monotonic()
             group_bits = self._ragged_dispatch(group, remaining, profile)
             elapsed = time.monotonic() - t0
@@ -952,7 +1077,10 @@ class QueryRouter:
                 group = group[:max_slots]
             remaining = deadline - time.monotonic()
             if remaining <= 0.1:
-                break  # the host settles the rest: the deadline guarantee
+                # the host settles the rest: the deadline guarantee
+                if stats is not None:
+                    stats.add_router_deadline_stop()
+                break
             t0 = time.monotonic()
             group_bits = self._guarded_dispatch(group, remaining, caps,
                                                 profile)
@@ -1127,7 +1255,7 @@ class QueryRouter:
             if not pc.ok:
                 verdict = "cap"
             elif ragged:
-                verdict = self._admission_ragged(pc, caps)
+                verdict = self._admission_ragged(pc)
                 if verdict == "tiny" and fork:
                     verdict = "device"
             else:

@@ -2,10 +2,10 @@
 measurement entries only).
 
 The router (gpu/router.py) measures its stage rates once per process —
-K1's cells per second on a small two-cone stream (kernel_cells_s), pack,
-stream assembly + upload and host-CDCL settle rates; and, where the
-bucketed path runs, K3's seconds per cell and step (per_cell_s) with the
-ship rate. Under solve_cache "disk" the measurement persists beside the
+the live ragged kernel's cells per second on a small two-cone stream (K1's
+kernel_cells_s, or K2's xla_cells_s in the xla kernel mode), pack, stream
+assembly + upload and host-CDCL settle rates; and, where the bucketed path
+runs, K3's seconds per cell and step (per_cell_s) with the ship rate. Under solve_cache "disk" the measurement persists beside the
 other service artifacts, keyed by (platform, restart lanes, round steps),
 so a later process skips it; a save merges into the entry, so the two
 kernels' measurements share it.
@@ -29,14 +29,15 @@ log = logging.getLogger(__name__)
 CALIBRATION_SCHEMA_VERSION = 1
 _FILENAME = "calibration.json"
 
-# kernel_cells_s (K1) or per_cell_s (K3) gates an entry (a cost model runs
-# off each); the others are best-effort stage rates
+# kernel_cells_s (K1), xla_cells_s (K2) or per_cell_s (K3) gates an entry
+# (a cost model runs off each); the others are best-effort stage rates
 KERNEL_RATE_KEY = "kernel_cells_s"
+XLA_RATE_KEY = "xla_cells_s"
 STAGE_RATE_KEYS = ("pack_bytes_s", "ragged_bytes_s", "settle_clauses_s")
 # K3's calibration: its latency and the ship rate measured beside it
 CIRCUIT_KEYS = ("per_cell_s", "ship_bytes_s")
-_GATES = (KERNEL_RATE_KEY, "per_cell_s")
-_KEYS = (KERNEL_RATE_KEY,) + STAGE_RATE_KEYS + CIRCUIT_KEYS
+_GATES = (KERNEL_RATE_KEY, XLA_RATE_KEY, "per_cell_s")
+_KEYS = (KERNEL_RATE_KEY, XLA_RATE_KEY) + STAGE_RATE_KEYS + CIRCUIT_KEYS
 
 
 def _path() -> str:
@@ -58,9 +59,9 @@ def _enabled() -> bool:
 def load_profile(platform: Optional[str], restarts: int,
                  steps: int) -> Optional[dict]:
     """The cached entry for this platform + cell profile — the positive
-    numbers among kernel_cells_s, per_cell_s, ship_bytes_s and the stage
-    rates, with kernel_cells_s or per_cell_s among them — or None
-    (measure)."""
+    numbers among kernel_cells_s, xla_cells_s, per_cell_s, ship_bytes_s
+    and the stage rates, with one of the three kernel rates among them —
+    or None (measure)."""
     if not platform or not _enabled():
         return None
     try:
@@ -83,7 +84,7 @@ def load_profile(platform: Optional[str], restarts: int,
 def save_profile(platform: Optional[str], restarts: int, steps: int,
                  profile: dict) -> None:
     """Merge a measurement into its entry (no-op unless solve_cache is
-    "disk", or without kernel_cells_s or per_cell_s in `profile`)."""
+    "disk", or without a kernel rate in `profile`)."""
     if not platform or not _enabled() \
             or not any(profile.get(key) for key in _GATES):
         return

@@ -25,6 +25,10 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _SOURCE = os.path.join(os.path.dirname(_PACKAGE_DIR), "native", "sat.cpp")
 BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
+# the host CDCL probe solve_cnf runs before the device: its conflict budget
+# (0 skips the probe) and its wall-clock bound
+PROBE_CONFLICTS = 20000
+PROBE_SECONDS = 0.5
 
 SAT, UNSAT, UNKNOWN = "sat", "unsat", "unknown"
 
@@ -192,8 +196,9 @@ def solve_cnf(
     or None unless SAT.
 
     With `args.solver_backend == "gpu"` a conflict-budgeted CDCL probe
-    settles the easy queries first, then the device circuit-SLS solver
-    (gpu/router.py) searches the rest. It can only return a model, which
+    (PROBE_CONFLICTS conflicts, at most PROBE_SECONDS) settles the easy
+    queries first, then the device circuit-SLS solver (gpu/router.py)
+    searches the rest. It can only return a model, which
     is re-checked on the host; the CDCL stays the UNSAT prover. A device
     error raises: the device is never silently skipped.
     """
@@ -202,11 +207,12 @@ def solve_cnf(
 
     if args.solver_backend == "gpu" and not conflict_budget and allow_device:
         start = time.monotonic()
-        if len(clauses) <= 200_000:
+        if PROBE_CONFLICTS > 0 and len(clauses) <= 200_000:
             probe_status, probe_model = solve_cnf(
                 num_vars, clauses, assumptions,
-                timeout_seconds=min(0.5, timeout_seconds or 0.5),
-                conflict_budget=20000,
+                timeout_seconds=min(PROBE_SECONDS,
+                                    timeout_seconds or PROBE_SECONDS),
+                conflict_budget=PROBE_CONFLICTS,
                 crosscheck=crosscheck,
                 session_ctx=session_ctx,
             )

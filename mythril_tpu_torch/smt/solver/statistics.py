@@ -34,6 +34,9 @@ class SolverStatistics:
         # cones the bucketed path's evidence slot cap trimmed from a
         # dispatch (big enough for the device; the evidence budget was not)
         "router_slot_overflow",
+        # dispatches whose loop stopped at the window's device budget with
+        # streams or buckets still to launch (the host CDCL settles those)
+        "router_deadline_stops",
         "device_dispatches",
         "device_dispatched_queries",
         "device_slots",
@@ -110,6 +113,9 @@ class SolverStatistics:
         # block-aligned gate cells they stepped
         "kernel_launches",
         "kernel_cells_stepped",
+        # distinct kernel builds after the process's first: 0 here, since
+        # K1, K2 and K3 each build once and take every shape at run time
+        "kernel_recompiles",
         # the fork lane: pairs the router tried to pack as one shared cone
         # and pairs it did, and launches that carried fork-side cones
         "fork_pair_pack_attempts",
@@ -258,6 +264,11 @@ class SolverStatistics:
         """A cone the router sent straight to the host CDCL (too shallow
         to be worth a device slot)."""
         self._add("router_host_direct", count)
+
+    def add_router_deadline_stop(self) -> None:
+        """A dispatch loop stopped at the window's device budget with
+        streams or buckets left, which the host CDCL then settles."""
+        self._add("router_deadline_stops", 1)
 
     def add_slot_overflow(self, count: int = 1) -> None:
         """Device-worthy cones trimmed from a bucketed dispatch by the
@@ -654,10 +665,12 @@ class SolverStatistics:
             "sites": sites,
             "faults_active": faults.active_spec(),
         }
-        # which K1 produced the device figures: "cuda" for the kernel,
-        # "plain" for its plain version on a CPU device, "none" when no
-        # router ran in this process
-        out["kernel_backend"] = device.get("kernel_backend", "none")
+        # the kernel mode that produced the device figures
+        # (MYTHRIL_GPU_KERNEL: "pallas" or "xla"), as mythril_tpu stamps
+        # it; the device itself is in the "device" section
+        from mythril_tpu_torch.gpu.ragged_kernel import kernel_mode
+
+        out["kernel_backend"] = kernel_mode()
         from mythril_tpu_torch.observe.tracer import Tracer
 
         tracer = Tracer._instance

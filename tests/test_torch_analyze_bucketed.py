@@ -77,28 +77,33 @@ def test_killbilly_findings_equal_the_reference(monkeypatch, bucketed_env):
     assert counters["device_batch_queries"] > 0
 
 
-@pytest.mark.parametrize("ragged", [False, True],
-                         ids=["bucketed", "ragged"])
-def test_kernels_build_before_the_first_guarded_dispatch(monkeypatch,
-                                                        ragged):
-    """On a card, fire_lasers builds the dispatch mode's own kernel (K3
-    with --no-ragged, K1 otherwise) before the first window: with the
-    calibration off nothing else builds it, and a build inside the
-    dispatch's hard deadline could turn a slow nvcc into a DeviceFault.
-    The card is stood in for: core sees a CUDA device, the builds are
-    recorded, and the windows run on the CPU."""
+@pytest.mark.parametrize("mode", ["bucketed", "ragged", "xla"])
+def test_kernels_build_before_the_first_guarded_dispatch(monkeypatch, mode):
+    """On a card, fire_lasers builds the dispatch mode's own kernels (K3
+    with --no-ragged; K2, and K1 unless the kernel mode is xla, on the
+    ragged path: K2 is the pallas mode's fallback past K1's capacities)
+    before the first window: with the calibration off nothing else builds
+    them, and a build inside the dispatch's hard deadline could turn a
+    slow nvcc into a DeviceFault. The card is stood in for: core sees a
+    CUDA device, the builds are recorded, and the windows run on the
+    CPU."""
     import torch
 
     from mythril_tpu_torch import core
-    from mythril_tpu_torch.gpu import frontier_kernel
+    from mythril_tpu_torch.gpu import frontier_kernel, xla_kernel
     from mythril_tpu_torch.gpu.router import QueryRouter
 
-    monkeypatch.setenv("MYTHRIL_GPU_RAGGED", "1" if ragged else "0")
+    monkeypatch.setenv("MYTHRIL_GPU_RAGGED", "0" if mode == "bucketed"
+                       else "1")
+    monkeypatch.setenv("MYTHRIL_GPU_KERNEL",
+                       "xla" if mode == "xla" else "pallas")
+    # a fresh resolution of the knob, dropped again after the test
+    monkeypatch.setattr(ragged_kernel, "_MODE", None)
     events = []
     monkeypatch.setattr(core, "resolve_device",
                         lambda device=None: torch.device("cuda"))
-    for name, module in (("K1", ragged_kernel), ("K3", circuit_kernel),
-                         ("K6", frontier_kernel)):
+    for name, module in (("K1", ragged_kernel), ("K2", xla_kernel),
+                         ("K3", circuit_kernel), ("K6", frontier_kernel)):
         monkeypatch.setattr(module, "build_kernel",
                             lambda name=name: events.append("build " + name))
     for method in ("_guarded_dispatch", "_ragged_dispatch"):
@@ -111,12 +116,14 @@ def test_kernels_build_before_the_first_guarded_dispatch(monkeypatch,
         monkeypatch.setattr(QueryRouter, method, recorded)
     run_analyze("mythril_tpu_torch", wrap_creation(KILLBILLY), 2, "gpu",
                 EXECUTION_TIMEOUT, device="cpu", pruning_factor=1)
-    own, other = ("build K1", "build K3") if ragged else ("build K3",
-                                                           "build K1")
+    own = {"bucketed": ["K3"], "ragged": ["K1", "K2"], "xla": ["K2"]}[mode]
     assert "dispatch" in events
     first = events.index("dispatch")
-    assert own in events[:first]
-    assert other not in events
+    for name in ("K1", "K2", "K3"):
+        if name in own:
+            assert "build " + name in events[:first]
+        else:
+            assert "build " + name not in events
 
 
 def test_a_finished_analysis_leaves_no_execution_budget(bucketed_env):

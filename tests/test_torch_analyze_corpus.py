@@ -94,18 +94,26 @@ def test_device_fault_stops_the_analysis(counted, monkeypatch, where):
     the fault.
 
     On the CPU the router stops launching after MYTHRIL_GPU_RAGGED_WINDOW_CAP
-    streams a process and cuts a window at its dispatch deadline; both are
-    lifted here, so no count of earlier streams and no host clock keeps
-    the detection window off K1. The test then checks first that a window
-    reached the router inside a detection context, and only then the
-    fault."""
+    streams a process, cuts a window at its dispatch deadline and opens its
+    breaker after MYTHRIL_GPU_DEVICE_MAX_WASTE zero-hit seconds; and before
+    the router, get_model's host CDCL probe (a 20,000-conflict budget cut
+    at 0.5 s) settles whatever it solves in time. ETHER_LEAK's ether-thief
+    candidate takes that probe 0.6-1.0 s, so the probe's clock alone
+    decided whether it reached K1. All four are lifted here (the probe by
+    sat_backend.PROBE_CONFLICTS = 0), so no count of earlier streams and no
+    host clock keeps the detection window off K1. The test then checks
+    first that a window reached the router inside a detection context, and
+    only then the fault."""
     from mythril_tpu_torch.gpu import ragged_kernel
     from mythril_tpu_torch.gpu import router as router_mod
     from mythril_tpu_torch.gpu.device import DeviceFault
+    from mythril_tpu_torch.smt.solver import sat_backend
     from mythril_tpu_torch.support import model
 
     monkeypatch.setenv("MYTHRIL_GPU_RAGGED_WINDOW_CAP", "1000")
     monkeypatch.setenv("MYTHRIL_GPU_DEVICE_DEADLINE", "600")
+    monkeypatch.setenv("MYTHRIL_GPU_DEVICE_MAX_WASTE", "600")
+    monkeypatch.setattr(sat_backend, "PROBE_CONFLICTS", 0)
     settles_at_fault = []
     dispatched = []  # the detection flag of every window the router takes
     plain_round = ragged_kernel.run_round_ragged_plain

@@ -90,7 +90,7 @@ def test_analyze_cli_device_hits_and_stats_json(tmp_path):
     assert stats["cap_rejects"] == 0
     assert stats["completed"] is True
     assert stats["platform"] == "cpu"
-    assert stats["kernel_backend"] == "plain"
+    assert stats["kernel_backend"] == "pallas"
     assert stats["kernel_launches"] > 0
     assert set(stats["roofline"]["stages"]) == set(roofline.STAGES)
     # no fault armed: the JAX package's empty spec

@@ -193,7 +193,7 @@ def test_roofline_emitted_in_stats_json_and_gap_ranking(monkeypatch):
         stages = out["roofline"]["stages"]
         assert set(stages) == set(roofline.STAGES)
         assert "trace_spans" in out
-        assert out["kernel_backend"] == "plain"
+        assert out["kernel_backend"] == "pallas"
         for stage, rate in (("kernel", 4e7), ("pack", 2e8),
                             ("ragged", 1e8), ("settle", 1e3)):
             assert stages[stage]["attainable"] == rate
@@ -233,7 +233,7 @@ def test_backend_reset_stats_zeroes_its_counters():
     stats = backend.stats()
     assert stats["pack_bytes"] == 0 and stats["solve_seconds"] == 0
     assert stats["kernel_launches"] == 0
-    assert stats["kernel_backend"] == "plain"
+    assert stats["kernel_backend"] == "pallas"
     assert backend._pack_cache is cache
 
 

@@ -71,14 +71,19 @@ def test_verdicts_equal_reference_query_by_query(backends):
 
 
 def test_cone_over_a_capacity_is_settled_by_the_cdcl(backends, monkeypatch):
+    """Cones past K1's variable capacity are no cap rejects: each rides
+    K2 in a stream of its own (K1 never launches), and the verdicts equal
+    the host CDCL's, which still settles the UNSAT one. (The name dates
+    from before K2, when the CDCL settled them all; it is kept so that the
+    test's history reads on.)"""
     monkeypatch.setenv("MYTHRIL_GPU_RAGGED_VAR_CAP", "1024")
     queries = sibling_window(port_smt, 4, seed=4)
     results = port_model.get_models_batch(queries)
     host = _host_verdicts(queries)
     assert [s for s, _m in results] == host
     counters = backends.as_dict()
-    assert counters["cap_rejects"] == 4
-    assert counters["device_batch_hits"] == 0
+    assert counters["cap_rejects"] == 0
+    assert counters["device_batch_hits"] > 0
     assert counters["kernel_launches"] == 0
 
 

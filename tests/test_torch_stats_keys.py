@@ -16,8 +16,6 @@ from tests.torch_helpers import run_analyze
 # keys of the JAX package's stats JSON whose surface the port has not
 # ported yet, with the ROADMAP.md §1 item that brings each
 NOT_PORTED = {
-    # 7: K2 and the kernel knob, whose per-shape compiles this counts
-    "kernel_recompiles": 7,
     # 8: corpus runs (--jobs workers, --corpus-interleave)
     "resilience_worker_requeues": 8, "xcontract_windows": 8,
     "xcontract_cones_packed": 8, "xcontract_dedup_hits": 8,
@@ -39,12 +37,13 @@ NOT_PORTED = {
 RENAMED = {"pallas_launches": "kernel_launches",
            "pallas_cells_stepped": "kernel_cells_stepped"}
 # the port's own counters: what K1 itself solved, how the router found a
-# model, cnf_prep's propagation rounds, and the deadline runner's calls and
-# their hand-off cost
+# model, cnf_prep's propagation rounds, the deadline runner's calls and
+# their hand-off cost, and the dispatch loops' stops at the window budget
 PORT_ONLY = {"aig_device_component_hits", "aig_host_components",
              "router_device_found", "router_host_settled",
              "router_trivial_settled", "cnf_prep_rounds",
-             "deadline_runner_calls", "deadline_handoff_wall"}
+             "deadline_runner_calls", "deadline_handoff_wall",
+             "router_deadline_stops"}
 
 
 @pytest.fixture(autouse=True)

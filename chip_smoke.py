@@ -9,6 +9,7 @@
     python3 chip_smoke.py --resilience-only  # env, build, the resilience phase
     python3 chip_smoke.py --bucketed-only  # env, build, the bucketed phase
     python3 chip_smoke.py --k3-split PATH  # env, build, K3's split
+    python3 chip_smoke.py --k2-split PATH  # env, build, K2's split
     python3 chip_smoke.py --xla-only     # env, build, the xla phase
 
 Phases, one JSON line each (any failure exits non-zero before the last
@@ -185,11 +186,14 @@ line):
           largest launch (K1's capacities are launch arguments: no
           rebuild); (4)
           K2 held and timed on the largest launch of (2) under CUDA
-          events, beside its plain version's time and its bound (the
+          events, with its split (steps=0, walk_depth=0), its launch
+          shape (each cone's tier) and the plain run's walk lengths,
+          beside its plain version's time and its bound (the
           real gates' level entries and the other tables and x read
           once, x and found written once, against the real gates' and
-          roots' operations, as K3's). --xla-only runs the host legs of
-          (2) itself;
+          roots' operations, as K3's); the fallback leg's largest launch
+          and the stream past every K1 capacity timed the same way.
+          --xla-only runs the host legs of (2) itself;
   telemetry-overhead  KILLBILLY (-t 2) and xc_dispatch_a.hex (-t 1) on
           the device backend with every telemetry artifact off
           (MYTHRIL_GPU_FLIGHTREC=0, nothing written) and on (the ring at
@@ -254,6 +258,17 @@ the two bucketed analyze runs, kept in the torch.save file PATH (captured
 and written there when it does not exist). It calls only the round's
 interface, so a copy of this script placed in a checkout of an earlier
 version of the port times that version's K3 on the same batch.
+--k2-split PATH times K2 the same way (full, steps=0, walk_depth=0) on
+three launches kept in the torch.save file PATH (captured and written
+there when it does not exist): the fallback leg's largest launch, the
+largest launch of the xla mode's two analyze runs and the stream past
+every K1 capacity; the fallback launch also at 16 and 8 lanes a word. It
+prints each launch's shape, its bound and serial chain and, where the
+plain version counts walks, the plain run's walk lengths (the mean
+longest walk of a group of 32 lanes and of 8), K2 held bit for bit. It
+uploads each stream through device_stream and calls only the round's
+interface, so a copy of this script placed in a checkout of an earlier
+version of the port times that version's K2 on the same launches.
 --forms-only times the same three streams with the host CDCL's verdicts
 and no other phase. It calls only the round's interface (flatten_stream,
 device_flat, run_round_ragged_kernel), so a copy of this script placed in
@@ -266,7 +281,8 @@ streams and K6's 64-row, division and 1-row batches and its idle share
 beside them; K3's launches over the bucketed analyze runs and its time on
 their largest batch, with its split and the plain run's walk lengths;
 K2's launches over the xla-mode analyze runs, the fallback leg and the
-random streams, and its time on the xla runs' largest launch), the
+random streams, and its time on the xla runs' largest launch with its
+split and walk lengths, then on the fallback's and the past-k1 stream), the
 card's nvidia-smi line, and last {"ok": true, "device": {...}}. A copy of every
 JSON line goes to chiprun_out/chip_smoke.jsonl.
 """
@@ -3084,38 +3100,50 @@ def _env(**values):
 @contextlib.contextmanager
 def _keep_largest_k2(largest):
     """Keep the largest K2 launch (lanes x levels x width) inside the
-    block: largest gets "size", "xs", a copy of the launch's "x", its
-    "seed", "steps" and "walk_depth"."""
+    block: largest gets "size", "xs", the stream's "pages", a copy of the
+    launch's "x", its "seed", "steps" and "walk_depth"."""
     from mythril_tpu_torch.gpu import xla_kernel
 
     real = xla_kernel.run_round_xla_kernel
+    upload = xla_kernel.device_stream
+    pages = {}
+
+    def uploaded(stream, device, *args):
+        xs = upload(stream, device, *args)
+        pages[id(xs)] = list(stream.pages)
+        return xs
 
     def keep(xs, x, seed, steps, walk_depth):
         size = x.shape[0] * xs.tensors["out_idx"].numel()
         if size > largest.get("size", -1):
-            largest.update(size=size, xs=xs, x=x.clone(), seed=seed,
-                           steps=steps, walk_depth=walk_depth)
+            largest.update(size=size, xs=xs, pages=pages.get(id(xs)),
+                           x=x.clone(), seed=seed, steps=steps,
+                           walk_depth=walk_depth)
         return real(xs, x, seed, steps, walk_depth)
 
     xla_kernel.run_round_xla_kernel = keep
+    xla_kernel.device_stream = uploaded
     try:
         yield largest
     finally:
         xla_kernel.run_round_xla_kernel = real
+        xla_kernel.device_stream = upload
 
 
-def _compare_k2(device, xs, x, seed, steps, walk_depth):
+def _compare_k2(device, xs, x, seed, steps, walk_depth, walks=None):
     """K2 against its plain version on one launch's inputs: (max abs
-    error, which must be 0, and the plain run's ms)."""
+    error, which must be 0, and the plain run's ms). `walks`, a list,
+    gets the plain run's walk lengths (run_round_xla_plain)."""
     import torch
 
     from mythril_tpu_torch.gpu import xla_kernel
 
     got_x, got_found = xla_kernel.run_round_xla_kernel(xs, x, seed, steps,
                                                        walk_depth)
+    extra = {} if walks is None else {"walks": walks}
     (want_x, want_found), plain_ms = _timed_once(
-        device, lambda: xla_kernel.run_round_xla_plain(xs, x, seed, steps,
-                                                       walk_depth))
+        device, lambda: xla_kernel.run_round_xla_plain(
+            xs, x, seed, steps, walk_depth, **extra))
     torch_sync(device)
     if not (torch.equal(got_x, want_x) and torch.equal(got_found,
                                                         want_found)):
@@ -3155,35 +3183,110 @@ def _k2_bound(xs, x, steps):
             "bytes" if byte_s >= op_s else "operations", moved, ops)
 
 
+def _k2_chain(xs, steps, walk_depth) -> int:
+    """The barrier phases a lane's steps run one after another on K2's
+    launch, counted as _k3_bound counts K3's: steps x (levels + walk
+    depth) plus the final simulate, levels being those with a real
+    gate."""
+    levels = int((xs.level_rows > 0).sum())
+    return steps * (levels + walk_depth) + levels
+
+
+def _k2_shape(xs) -> dict:
+    """The launch's shape from the stream's layout: the cones of each
+    (tier, lanes a word), the longest cone's stream steps and the shared
+    memory a block asks for; {} for a K2 without the per-cone layout
+    (which this script may time)."""
+    from mythril_tpu_torch.gpu import circuit_kernel, xla_kernel
+
+    layout = getattr(xs, "layout", None)
+    if layout is None:
+        return {}
+    field = {name: k for k, name in enumerate(xla_kernel.CONE_FIELDS)}
+    tiers = {}
+    for row in layout.header:
+        key = (f"{circuit_kernel.TIERS[row[field['tier']]]}/"
+               f"{row[field['lanes_per_word']]}")
+        tiers[key] = tiers.get(key, 0) + 1
+    return {"tiers": tiers,
+            "stream_steps": int(layout.header[:, field["stream_steps"]]
+                                .max()),
+            "largest_page_v1": int(layout.header[:, field["v1"]].max()),
+            "smem_bytes": layout.smem_bytes}
+
+
+def _k2_split(device, launch, repeats=5) -> dict:
+    """K2's ms a launch under CUDA events at three settings: its own steps
+    and walk depth ("full"), steps=0 (one simulate and the check) and
+    walk_depth=0 (every simulate and root pick, no walk), the stream
+    uploaded once outside the timing. Launches made here are not
+    counted."""
+    from mythril_tpu_torch.gpu import xla_kernel
+
+    launches = xla_kernel.launches
+    xs, x, seed = launch["xs"], launch["x"], launch["seed"]
+    out = {}
+    for name, steps, walk in (("full", launch["steps"], launch["walk_depth"]),
+                              ("steps0", 0, launch["walk_depth"]),
+                              ("walk0", launch["steps"], 0)):
+        out[f"{name}_ms"] = _time_ms(
+            lambda: xla_kernel.run_round_xla_kernel(xs, x, seed, steps,
+                                                    walk), repeats=repeats)
+    xla_kernel.launches = launches
+    return out
+
+
+def _k2_walks(walks) -> dict:
+    """The plain run's walk lengths (gates descended) over the (step, lane,
+    cone) triples that walked, as _k3_walks counts them, with the mean
+    longest walk of a group of 32 lanes (a warp's walk at 32 lanes a word)
+    and of 8."""
+    per_cone = [(length.t(), walked.t()) for length, walked in walks]
+    if not per_cone:
+        return {"walked": 0, "mean": 0.0, "max": 0, "group_max_mean": 0.0}
+    out = _k3_walks(per_cone)
+    if out["walked"]:
+        out["group8_max_mean"] = _k3_walks(per_cone, group=8)[
+            "group_max_mean"]
+    return out
+
+
 def _hold_k2(device, launch, window, counts, timed=False):
-    """K2 bit for bit against its plain version on one kept launch, and
-    timed there (5 launches under CUDA events) when `timed`; launches made
-    here are not counted. Emits one record."""
+    """K2 bit for bit against its plain version on one kept launch (its
+    plain run timed), and K2 timed there when `timed`, with its split
+    (_k2_split) and the plain run's walk lengths; launches made here are
+    not counted. Emits one record."""
     from mythril_tpu_torch.gpu import xla_kernel
 
     before = xla_kernel.launches
     xs, x = launch["xs"], launch["x"]
     args = (launch["seed"], launch["steps"], launch["walk_depth"])
-    err, plain_ms = _compare_k2(device, xs, x, *args)
-    ms = None
+    walks = [] if timed else None
+    err, plain_ms = _compare_k2(device, xs, x, *args, walks=walks)
+    timing = {"ms": None}
     if timed and device.type == "cuda":
-        ms = _time_ms(lambda: xla_kernel.run_round_xla_kernel(xs, x, *args),
-                      repeats=5)
+        split = _k2_split(device, launch)
+        timing = {"ms": split["full_ms"], "split": split}
+    if timed:
+        timing["walks"] = _k2_walks(walks)
     xla_kernel.launches = before
     bound_ms, bound_by, moved, ops = _k2_bound(xs, x, args[1])
+    chain = _k2_chain(xs, args[1], args[2])
     levels, width = xs.tensors["out_idx"].shape
     cones, roots = xs.tensors["root_var"].shape
     emit({"phase": "xla", "window": window, "lanes": x.shape[0],
           "v1": x.shape[1], "levels": levels, "width": width,
           "live_levels": int((xs.level_rows > 0).sum()),
           "cone_slots": cones, "cones": xs.num_cones, "roots": roots,
-          "steps": args[1], "walk_depth": args[2], **counts,
-          "bit_identical": True, "max_abs_err": err,
-          "ms": ms if ms is not None else "not measured",
+          "steps": args[1], "walk_depth": args[2], **_k2_shape(xs),
+          **counts, "bit_identical": True, "max_abs_err": err,
+          **{**timing, "ms": timing["ms"] if timing["ms"] is not None
+             else "not measured"},
           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-          "bytes": moved, "ops": ops})
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+          "bytes": moved, "ops": ops, "serial_chain_phases": chain})
+    return {"max_abs_err": err, **timing, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "serial_chain_phases": chain}
 
 
 def _k2_launch(device, stream, seed, lanes, steps, walk_depth=None):
@@ -3267,9 +3370,9 @@ def phase_xla(device, records=None):
 
     err, random_launches = _k2_random_holds(device)
     stream, sizes = _k2_past_k1_stream()
-    err = max(err, _hold_k2(device, _k2_launch(device, stream, SEED + 4, 64,
-                                               16), "past-k1", sizes)[
-        "max_abs_err"])
+    past_k1 = _hold_k2(device, _k2_launch(device, stream, SEED + 4, 64, 16),
+                       "past-k1", sizes, timed=True)
+    err = max(err, past_k1["max_abs_err"])
     inputs = {name: (code, tx, timeout)
               for name, code, tx, timeout, _c in _analyze_inputs()
               if name in XLA_CONTRACTS}
@@ -3343,25 +3446,137 @@ def phase_xla(device, records=None):
     if not (k1 and fallback_launches):
         raise AssertionError(f"xla: the fallback leg launched K1 {k1} and "
                              f"K2 {fallback_launches} times")
-    err = max(err, _hold_k2(device, fallback, "fallback-largest",
-                            {"k2_launches": fallback_launches,
-                             "k1_launches": k1,
-                             # K1's capacities are launch arguments: the
-                             # leg's smaller var_cap needed no rebuild
-                             "k1_rebuilt": False}, timed=True)[
-                                 "max_abs_err"])
+    fallback_held = _hold_k2(device, fallback, "fallback-largest",
+                             {"k2_launches": fallback_launches,
+                              "k1_launches": k1,
+                              # K1's capacities are launch arguments: the
+                              # leg's smaller var_cap needed no rebuild
+                              "k1_rebuilt": False}, timed=True)
+    err = max(err, fallback_held["max_abs_err"])
     timed = _hold_k2(device, largest, "xla-analyze-largest-timed",
                      {"k2_launches": total}, timed=True)
+
+    def brief(held):
+        return {key: held.get(key) for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "split",
+            "serial_chain_phases")}
+
     return {**timed, "launches": total, "max_abs_err": max(
         err, timed["max_abs_err"]), "launches_by_path": {
             "xla_analyze": total, "fallback": fallback_launches,
-            "random": random_launches}}
+            "random": random_launches},
+        "fallback": brief(fallback_held), "past_k1": brief(past_k1)}
 
 
 def xla_only(device) -> int:
     """Env, build and the xla phase alone (see the module note)."""
     phase_build()
     phase_xla(device)
+    return 0
+
+
+K2_SPLIT_WIDEST = (16, 8)  # narrower words timed on the fallback launch
+
+
+def _k2_capture(device) -> dict:
+    """The launches --k2-split times, kept as the xla phase keeps them:
+    "fallback" (the fallback leg's largest launch: xc_dispatch_a's
+    37,381-variable cone), "xla_largest" (the largest launch of the xla
+    mode's two analyze runs) and "past_k1" (the stream past every K1
+    capacity at 64 lanes and 16 steps), each with the stream's pages."""
+    inputs = {name: (code, tx, timeout)
+              for name, code, tx, timeout, _c in _analyze_inputs()
+              if name in XLA_CONTRACTS}
+    fallback, largest = {}, {}
+    code, tx_count, timeout = inputs[FALLBACK_CONTRACT]
+    with _env(MYTHRIL_GPU_KERNEL="pallas",
+              MYTHRIL_GPU_RAGGED_VAR_CAP=FALLBACK_VAR_CAP), \
+            _keep_largest_k2(fallback):
+        _analyze_once(device, code, tx_count, timeout, "gpu", {})
+    for name in XLA_CONTRACTS:
+        code, tx_count, timeout = inputs[name]
+        with _env(MYTHRIL_GPU_KERNEL="xla"), _keep_largest_k2(largest):
+            _analyze_once(device, code, tx_count, timeout, "gpu", {})
+    stream, _sizes = _k2_past_k1_stream()
+    past = {**_k2_launch(device, stream, SEED + 4, 64, 16),
+            "pages": list(stream.pages)}
+    out = {}
+    for name, launch in (("fallback", fallback), ("xla_largest", largest),
+                         ("past_k1", past)):
+        out[name] = {"tensors": {key: value.cpu() for key, value
+                                 in launch["xs"].tensors.items()},
+                     "num_cones": launch["xs"].num_cones,
+                     "pages": launch["pages"],
+                     "x": launch["x"].cpu(), "seed": launch["seed"],
+                     "steps": launch["steps"],
+                     "walk_depth": launch["walk_depth"]}
+    return out
+
+
+def k2_split(device, path) -> int:
+    """K2's split (_k2_split) on the launches of _k2_capture, kept in
+    `path` (a torch.save file): read from it when it exists, else captured
+    and written there. It uploads each stream through device_stream and
+    calls only the round's interface, so a copy of this script placed in a
+    checkout of an earlier version of the port times that version's K2 on
+    the same launches. Where device_stream takes a word width, the
+    fallback launch is also timed at K2_SPLIT_WIDEST lanes a word; where
+    the plain version counts walks, each launch is held bit for bit and
+    its walk lengths printed."""
+    import inspect
+
+    import torch
+
+    from mythril_tpu_torch.gpu import xla_kernel
+
+    phase_build()
+    if os.path.exists(path):
+        saved = torch.load(path)
+    else:
+        saved = _k2_capture(device)
+        torch.save(saved, path)
+    counts_walks = "walks" in inspect.signature(
+        xla_kernel.run_round_xla_plain).parameters
+    has_widest = "widest" in inspect.signature(
+        xla_kernel.device_stream).parameters
+    for name, kept in saved.items():
+        stream = SimpleNamespace(
+            tensors={key: value.numpy() for key, value
+                     in kept["tensors"].items()},
+            num_cones=kept["num_cones"], pages=kept["pages"])
+        launch = {**kept, "xs": xla_kernel.device_stream(stream, device),
+                  "x": kept["x"].to(device)}
+        xs, x = launch["xs"], launch["x"]
+        bound_ms, bound_by, _moved, _ops = _k2_bound(xs, x, kept["steps"])
+        record = {"phase": "k2-split", "launch": name, "file": path,
+                  "lanes": x.shape[0], "v1": x.shape[1],
+                  "cones": kept["num_cones"],
+                  "largest_page": max(size for _b, size in kept["pages"]),
+                  "levels": int(kept["tensors"]["out_idx"].shape[0]),
+                  "live_levels": int((xs.level_rows > 0).sum()),
+                  "steps": kept["steps"], "walk_depth": kept["walk_depth"],
+                  **_k2_shape(xs), **_k2_split(device, launch),
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "serial_chain_phases": _k2_chain(xs, kept["steps"],
+                                                   kept["walk_depth"])}
+        if counts_walks:
+            walks = []
+            record["max_abs_err"], record["plain_ms"] = _compare_k2(
+                device, xs, x, kept["seed"], kept["steps"],
+                kept["walk_depth"], walks=walks)
+            record["walks"] = _k2_walks(walks)
+        if has_widest and name == "fallback":
+            record["narrower_words"] = {}
+            for widest in K2_SPLIT_WIDEST:
+                narrow = {**launch, "xs": xla_kernel.device_stream(
+                    stream, device, widest)}
+                err, _plain = _compare_k2(device, narrow["xs"], x,
+                                          kept["seed"], kept["steps"],
+                                          kept["walk_depth"])
+                record["narrower_words"][widest] = {
+                    **_k2_shape(narrow["xs"]), "max_abs_err": err,
+                    **_k2_split(device, narrow)}
+        emit(record)
     return 0
 
 
@@ -3453,6 +3668,10 @@ def main() -> int:
             return 0
         if "--k3-split" in sys.argv[1:]:
             k3_split(device, sys.argv[sys.argv.index("--k3-split") + 1])
+            print(smi, flush=True)
+            return 0
+        if "--k2-split" in sys.argv[1:]:
+            k2_split(device, sys.argv[sys.argv.index("--k2-split") + 1])
             print(smi, flush=True)
             return 0
         phase_build()
@@ -3585,12 +3804,19 @@ def main() -> int:
                              "analyze": analyze["k2_launches"],
                              "analyze_stress": analyze["k2_stress"]},
         "max_abs_err": xla["max_abs_err"],
-        # one round on the largest launch of the xla analyze runs
+        # one round on the largest launch of the xla analyze runs; its
+        # split (steps=0, walk_depth=0) and the plain run's walk lengths,
+        # then the fallback leg's largest launch and the past-k1 stream
         "ms": xla["ms"],
         "plain_ms": xla["plain_ms"],
         "bound_ms": xla["bound_ms"],
         "bound_by": xla["bound_by"],
         "library_ms": None,
+        "serial_chain_phases": xla["serial_chain_phases"],
+        "split": xla["split"],
+        "walks": xla["walks"],
+        "fallback_launch": xla["fallback"],
+        "past_k1_stream": xla["past_k1"],
     }]})
     with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w") as fd:
         fd.write("\n".join(_lines) + "\n")

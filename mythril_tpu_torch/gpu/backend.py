@@ -667,6 +667,9 @@ class DeviceSolverBackend:
             return {}, 0, False
         if self.on_stream is not None:
             self.on_stream(stream, entries)
+        # the tables and K2's per-cone layout, built on the device once
+        # a stream: its bytes count as shipped, its build and syncs in
+        # the ship and ragged stages
         upload_start = time.monotonic()
         xs = xla_kernel.device_stream(stream, self.device)
         if self.device.type == "cuda":

@@ -33,6 +33,11 @@ axis's padding) report found at step 0.
                   (see its note); it raises on a batch the kernel would
                   not compute exactly.
   launch_shape    the kernel's tier and lanes a word for a V1 and stream.
+  launch_arguments  the kernel's arguments in its order, as the wrapper
+                  passes them (the CPU tests read them back the way the
+                  kernel does).
+  slot_quads      a stream slot's encoding, which K2's layout
+                  (xla_kernel.xla_layout) shares.
 
 Operands: `tensors` holds every TENSOR_KEYS table with a leading query
 axis, int32 and contiguous on x's device: out_idx, a_var, a_neg, b_var,
@@ -87,6 +92,13 @@ CHUNK_STEPS = CHUNK_BYTES // (STEP_GATES * ENTRY_BYTES)
 NARROW_V1 = 1 << 15    # 16-bit literals: records in shared memory
 SHARED32_V1 = 1 << 14  # x and the records at 32 lanes a word fit
 TIERS = ("shared32", "shared16", "xshared", "global")
+# the kernel's arguments, in order: the layout's tables, x in and out,
+# found, the global tier's x words, the sizes, the seed (an unsigned int),
+# the launch shape, then the cudaStream_t
+ARG_ORDER = ("records", "stream_table", "stream_steps", "roots", "x_in",
+             "x_out", "found", "x_work", "queries", "lanes", "v1", "v1p",
+             "stride", "nr", "steps", "walk_depth", "seed", "tier",
+             "lanes_per_word", "resident", "smem_bytes", "stream")
 
 # kernel launches since the last reset (the plain version never counts)
 launches = 0
@@ -196,13 +208,31 @@ def _signed(values: torch.Tensor, bits: int) -> torch.Tensor:
     return values - ((values >> (bits - 1)) & 1) * (1 << bits)
 
 
-def _require(checks) -> None:
+def _require(checks, layout: str = "circuit_layout") -> None:
     """Raise ValueError on the first of (message, bool tensor) pairs whose
-    tensor is not all true; one device sync for all of them."""
+    tensor is not all true, naming `layout`; one device sync for all of
+    them."""
     ok = torch.stack([cond.all() for _message, cond in checks]).tolist()
     for good, (message, _cond) in zip(ok, checks):
         if not good:
-            raise ValueError(f"circuit_layout: {message}")
+            raise ValueError(f"{layout}: {message}")
+
+
+def slot_quads(word_bytes, out, a, b, a_operands, b_operands, second):
+    """Each cell's stream slot as the kernel reads it: the quads (out |
+    flags, a0, a1, a) and (masks, b0, b1, b) as int64 bit patterns, the
+    variables out, a0, a1, b0 and b1 as byte offsets of their word in x
+    (`word_bytes` a word), the operands' negations as bytes 0xFF in masks,
+    flag bit 31 on a second-level cell; a and b are the children's
+    literals."""
+    (a0, a1), (b0, b1) = a_operands, b_operands
+    masks = sum(((lit & 1) * 0xFF) << (8 * k)
+                for k, lit in enumerate((a0, a1, b0, b1)))
+    return (torch.stack((word_bytes * out | second << 31,
+                         word_bytes * (a0 >> 1), word_bytes * (a1 >> 1), a),
+                        1),
+            torch.stack((masks, word_bytes * (b0 >> 1),
+                         word_bytes * (b1 >> 1), b), 1))
 
 
 def circuit_layout(tensors: dict) -> CircuitLayout:
@@ -332,22 +362,12 @@ def circuit_layout(tensors: dict) -> CircuitLayout:
         return (torch.where(first, lit_a[qi, child], 2 * child),
                 torch.where(first, lit_b[qi, child], 2 * child))
 
-    # a literal as the kernel reads it: the byte offset of its variable's
-    # word in x, and its negation as a byte mask
-    word_bytes = launch_shape(v1, 0).lanes_per_word // 8
-    (a0, a1), (b0, b1) = operand(a), operand(b)
-    masks = sum(((lit & 1) * 0xFF) << (8 * k)
-                for k, lit in enumerate((a0, a1, b0, b1)))
-    flags = second << 31
     stride = max(_align(int(stream_steps.max()), CHUNK_STEPS), CHUNK_STEPS)
     stream = torch.zeros((q_count, stride, 2, STEP_GATES, 4),
                          dtype=torch.long, device=device)
-    stream[qi, step, 0, slot] = torch.stack(
-        (word_bytes * o | flags, word_bytes * (a0 >> 1),
-         word_bytes * (a1 >> 1), 2 * a + an), 1)
-    stream[qi, step, 1, slot] = torch.stack(
-        (masks, word_bytes * (b0 >> 1), word_bytes * (b1 >> 1),
-         2 * b + bn), 1)
+    stream[qi, step, 0, slot], stream[qi, step, 1, slot] = slot_quads(
+        launch_shape(v1, 0).lanes_per_word // 8, o, 2 * a + an, 2 * b + bn,
+        operand(a), operand(b), second)
     has = per_pair > 0
     stream[torch.arange(q_count, device=device)[:, None]
            .expand(q_count, levels)[has], (ends - 1)[has], 0, :, 0] |= 1 << 30
@@ -541,6 +561,34 @@ def _check_operands(tensors: dict, x: torch.Tensor, layout):
                          f"roots) on {x.device}")
 
 
+def launch_arguments(layout: CircuitLayout, x: torch.Tensor,
+                     x_out: torch.Tensor, found: torch.Tensor, x_work,
+                     seed: int, steps: int, walk_depth: int,
+                     stream=None) -> dict:
+    """The kernel's arguments by name, in ARG_ORDER: data pointers (x_work
+    None: not the global tier), the sizes the kernel indexes with (a
+    query's records are v1p words or v1 pairs, its stream `stride` steps,
+    its roots `nr`), the seed, the launch shape (launch_shape of V1 and
+    the stride) and the CUDA stream (None: the default stream)."""
+    q_count, lanes, v1 = x.shape
+    shape = launch_shape(v1, layout.stride)
+    return {"records": layout.records.data_ptr(),
+            "stream_table": layout.stream.data_ptr(),
+            "stream_steps": layout.stream_steps.data_ptr(),
+            "roots": layout.roots.data_ptr(), "x_in": x.data_ptr(),
+            "x_out": x_out.data_ptr(), "found": found.data_ptr(),
+            "x_work": None if x_work is None else x_work.data_ptr(),
+            "queries": q_count, "lanes": lanes, "v1": v1,
+            "v1p": _align(v1, 4), "stride": layout.stride,
+            "nr": layout.roots.shape[1], "steps": max(int(steps), 0),
+            "walk_depth": max(int(walk_depth), 0),
+            "seed": int(seed) & 0x7FFFFFFF,
+            "tier": TIERS.index(shape.tier),
+            "lanes_per_word": shape.lanes_per_word,
+            "resident": int(shape.resident),
+            "smem_bytes": shape.smem_bytes, "stream": stream}
+
+
 def run_round_circuit_kernel(tensors: dict, x: torch.Tensor, seed: int,
                              steps: int, walk_depth: int, layout=None):
     """Advance the restart lanes of a batch of padded cones by `steps`
@@ -573,16 +621,9 @@ def run_round_circuit_kernel(tensors: dict, x: torch.Tensor, seed: int,
             dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = _lib.circuit_round_launch(
-            layout.records.data_ptr(), layout.stream.data_ptr(),
-            layout.stream_steps.data_ptr(), layout.roots.data_ptr(),
-            x.data_ptr(), x_out.data_ptr(), found.data_ptr(),
-            None if x_work is None else x_work.data_ptr(), q_count, lanes,
-            v1, v1p, layout.stride, layout.roots.shape[1],
-            max(int(steps), 0), max(int(walk_depth), 0),
-            int(seed) & 0x7FFFFFFF, TIERS.index(shape.tier),
-            shape.lanes_per_word, int(shape.resident), shape.smem_bytes,
-            stream)
+        status = _lib.circuit_round_launch(*launch_arguments(
+            layout, x, x_out, found, x_work, seed, steps, walk_depth,
+            stream).values())
     if status != 0:
         raise RuntimeError("circuit_round launch failed: "
                            + _lib.circuit_round_error_string(status).decode())

@@ -48,6 +48,7 @@ or the plain version depends on them.
 """
 
 import ctypes
+import glob
 import logging
 import os
 import shutil
@@ -625,13 +626,15 @@ _lib_lock = threading.Lock()
 
 def nvcc_library(source: str, stem: str):
     """Compile `source` with nvcc into _build/lib<stem>.so, skipped when
-    the library is newer than its source. Returns (the library's path,
-    the compiler's resource report)."""
+    the library is newer than its source and the headers beside it.
+    Returns (the library's path, the compiler's resource report)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     so_path = os.path.join(BUILD_DIR, f"lib{stem}.so")
     log_path = os.path.join(BUILD_DIR, f"{stem}.ptxas.txt")
-    if (not os.path.exists(so_path)
-            or os.path.getmtime(so_path) < os.path.getmtime(source)):
+    # the source and the headers beside it (csrc/*.cuh) it may include
+    newest = max(os.path.getmtime(path) for path in [source] + glob.glob(
+        os.path.join(os.path.dirname(source), "*.cuh")))
+    if not os.path.exists(so_path) or os.path.getmtime(so_path) < newest:
         nvcc = shutil.which("nvcc") or os.path.join(
             os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
         with tempfile.NamedTemporaryFile(suffix=".so", dir=BUILD_DIR,

@@ -399,6 +399,9 @@ class QueryRouter:
 
         ragged_start = time.perf_counter()
         if ragged_kernel.kernel_mode() == "xla":
+            # K2's tables and per-cone layout, built once here and reused
+            # by _measure_xla_rate: the layout's build and syncs are in
+            # the timed stage, as the backend counts them
             stream = circuit.RaggedStream([(pc, ()), (pc, ())],
                                           bucket=shape_bucket)
             uploaded = xla_kernel.device_stream(stream, device)

@@ -16,9 +16,16 @@ its tiers (launch_shape) on the CPU.
   group whose lanes are all found), equals the plain round bit for bit.
   The CUDA kernel itself is held to the plain round on the card
   (tests/test_torch_cuda_circuit.py, chip_smoke.py).
+- The launch: the wrapper's arguments (launch_arguments), read back the
+  way csrc/circuit_round.cu reads them (the C signature's order, each
+  table's length from the sizes and the kernel's own constants, the
+  block's shared memory), drive the emulation over the raw buffers.
 """
 
+import ctypes
+import os
 import random
+import re
 
 import numpy as np
 import pytest
@@ -391,3 +398,119 @@ def test_plain_round_counts_walks_without_changing_its_result():
         assert length.shape == walked.shape == (q_count, 6)
         assert int(length.max()) <= levels
         assert not bool(length[~walked].any()), "a found lane walks not"
+
+
+# -- the launch arguments, read the way the kernel reads them -----------------
+
+
+def _kernel_source():
+    """The kernel's source and the header of the warp-level pieces it
+    includes (csrc/sliced_round.cuh)."""
+    text = ""
+    for path in (circuit_kernel.KERNEL_SOURCE, os.path.join(os.path.dirname(
+            circuit_kernel.KERNEL_SOURCE), "sliced_round.cuh")):
+        with open(path) as handle:
+            text += handle.read()
+    assert '#include "sliced_round.cuh"' in text
+    return text
+
+
+def _c_signature():
+    """The parameter names of csrc/circuit_round.cu's circuit_round_launch."""
+    params = re.search(r"int circuit_round_launch\(([^)]*)\)",
+                       _kernel_source()).group(1)
+    return [re.split(r"[\s*]+", part.strip())[-1]
+            for part in params.split(",")]
+
+
+def _constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         _kernel_source()).group(1))
+
+
+def _view(address, count):
+    """A numpy int32 view of `count` elements at a raw address."""
+    return np.ctypeslib.as_array((ctypes.c_int32 * count).from_address(
+        address))
+
+
+@pytest.mark.parametrize("seed, lanes, steps, min_v1", [
+    (21, 5, 6, 0), (22, 33, 4, 20000), (23, 9, 5, 40000),
+    (24, 3, 3, 200000)])
+def test_launch_arguments_read_as_the_kernel_reads_them(seed, lanes, steps,
+                                                        min_v1):
+    """The C signature's parameters in the wrapper's order; every table's
+    length as the kernel indexes it from the size arguments and its own
+    constants (a step is 32 slots of kSlotQuads 16-byte quads, the stream
+    `stride` steps a query, whole chunks of kChunkBytes); the block's
+    shared memory inside the launch's; and the round emulated over the
+    raw buffers equal to the plain round."""
+    assert _c_signature() == list(circuit_kernel.ARG_ORDER)
+    assert _constant("kThreads") == circuit_kernel.THREADS
+    step_bytes = 32 * 16 * _constant("kSlotQuads")
+    chunk_bytes, ring = _constant("kChunkBytes"), _constant("kRing")
+    assert (chunk_bytes, ring) == (circuit_kernel.CHUNK_BYTES,
+                                   circuit_kernel.RING)
+    rng = random.Random(seed)
+    batch = circuit_batch(rng, max_queries=3, min_v1=min_v1)
+    tensors = circuit_kernel.device_batch(batch, "cpu")
+    layout = circuit_kernel.circuit_layout(tensors)
+    q_count, levels = batch["out_idx"].shape[:2]
+    v1 = batch["ga_var"].shape[1]
+    x = torch.as_tensor(np.random.RandomState(seed).randint(
+        0, 2, (q_count, lanes, v1)), dtype=torch.int32)
+    shape = circuit_kernel.launch_shape(v1, layout.stride)
+    x_out = torch.full_like(x, 7)
+    found = torch.zeros((q_count, lanes), dtype=torch.bool)
+    groups = -(-lanes // shape.lanes_per_word)
+    x_work = torch.zeros((q_count, groups, -(-v1 // 4) * 4),
+                         dtype=torch.int32) if shape.tier == "global" \
+        else None
+    walk = levels + 4
+    args = circuit_kernel.launch_arguments(layout, x, x_out, found, x_work,
+                                           seed, steps, walk)
+    assert list(args) == list(circuit_kernel.ARG_ORDER)
+    q, v1p, stride, nr = (args[k] for k in ("queries", "v1p", "stride",
+                                            "nr"))
+    assert (q, args["lanes"], args["v1"]) == tuple(x.shape)
+    assert circuit_kernel.TIERS[args["tier"]] == shape.tier
+    narrow = shape.tier in ("shared32", "shared16")
+    assert stride % (chunk_bytes // step_bytes) == 0
+    lengths = {"records": q * (v1p if narrow else 2 * v1),
+               "stream_table": q * stride * step_bytes // 4,
+               "stream_steps": q, "roots": q * nr, "x_in": x.numel(),
+               "x_out": x.numel()}
+    buffers = {"records": layout.records, "stream_table": layout.stream,
+               "stream_steps": layout.stream_steps, "roots": layout.roots,
+               "x_in": x, "x_out": x_out}
+    for key, length in lengths.items():
+        assert args[key] == buffers[key].data_ptr(), key
+        assert buffers[key].numel() == length, key
+    assert args["found"] == found.data_ptr()
+    if x_work is None:
+        assert args["x_work"] is None
+    else:
+        assert args["x_work"] == x_work.data_ptr()
+        assert x_work.numel() == q * groups * v1p
+    assert (_view(args["stream_steps"], q) <= stride).all()
+    # a block's shared memory, laid out as the kernel lays it out
+    word = args["lanes_per_word"]
+    need = (4 * v1p if narrow else 0) + (
+        stride * step_bytes if args["resident"] else ring * chunk_bytes) + (
+        v1p * word // 8 if shape.tier != "global" else 0)
+    assert need <= args["smem_bytes"] <= 227 * 1024
+    # the layout as the kernel sees it, read back from the raw buffers
+    records = _view(args["records"], lengths["records"])
+    seen = circuit_kernel.CircuitLayout(
+        torch.as_tensor(records.reshape((q, v1p) if narrow else (q, v1, 2))),
+        torch.as_tensor(_view(args["stream_table"], lengths["stream_table"])
+                        .reshape(q, stride, 2, 32, 4)),
+        torch.as_tensor(_view(args["stream_steps"], q)),
+        torch.as_tensor(_view(args["roots"], q * nr).reshape(q, nr)),
+        args["v1"], stride)
+    got_x, got_found = emulate(seen, x, args["seed"], args["steps"],
+                               args["walk_depth"])
+    want_x, want_found = circuit_kernel.run_round_circuit_plain(
+        tensors, x, seed, steps, walk)
+    assert torch.equal(got_x, want_x)
+    assert torch.equal(got_found, want_found)

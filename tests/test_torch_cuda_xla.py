@@ -8,8 +8,10 @@ even the shared test helpers), so they run where JAX is not installed:
     python3 -m pytest tests/test_torch_cuda_xla.py -m cuda
 """
 
+import copy
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -42,9 +44,31 @@ def _gate_free_cone():
     return circuit.PackedCircuit(aig, [aig.lit_of_var(aig.new_var()) ^ 1])
 
 
+def _widened(pc, v1):
+    """A copy of `pc` whose page holds `v1` local variables: those past its
+    own are inputs no gate reads."""
+    wide = copy.copy(pc)
+    for key in xla_kernel.VAR_KEYS:
+        setattr(wide, key, np.pad(getattr(pc, key), (0, v1 - pc.v1)))
+    wide.v1 = v1
+    return wide
+
+
+# a page of each tier at 32 lanes a word: shared32, shared16, xshared at
+# 32, 16 and 8 lanes, global
+TIER_PAGES = (60, 16384, 32768, 49152, 98304, 196608, 196609)
+
+
+def _tiered_stream(seed, extra=()):
+    cones = random_cones(random.Random(seed), len(TIER_PAGES))
+    entries = [(_widened(pc, max(v1, pc.v1)), ())
+               for pc, v1 in zip(cones, TIER_PAGES)]
+    return circuit.RaggedStream(entries + list(extra), bucket=shape_bucket)
+
+
 def _assert_kernel_matches_plain(device, stream, seed, lanes, steps,
-                                 walk_depth=None):
-    xs = xla_kernel.device_stream(stream, device)
+                                 walk_depth=None, widest=32):
+    xs = xla_kernel.device_stream(stream, device, widest)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     x = circuit.init_inputs(gen, lanes, stream.v1, device)
@@ -106,3 +130,28 @@ def test_cuda_xla_kernel_walk_depth_and_seed(cuda_device):
     for walk_depth, seed in ((1, 11), (0, 12), (3, (1 << 33) + 5)):
         _assert_kernel_matches_plain(cuda_device, stream, seed, 8, 12,
                                      walk_depth)
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 33, 96])
+def test_cuda_xla_kernel_on_a_stream_of_every_tier(cuda_device, lanes):
+    """Cones of every tier in one launch, with a deep big_cone, a gate-free
+    cone and padding cone slots."""
+    stream = _tiered_stream(lanes, [(big_cone(random.Random(lanes)), ()),
+                                    (_gate_free_cone(), ())])
+    xs = xla_kernel.device_stream(stream, cuda_device)
+    tiers = set(xs.layout.header[:, 3].tolist())
+    assert tiers == {0, 1, 2, 3} and stream.cone_slots > stream.num_cones
+    found = _assert_kernel_matches_plain(cuda_device, stream, lanes, lanes,
+                                         6)
+    assert bool(found[:, stream.num_cones:].all())
+
+
+@pytest.mark.parametrize("widest, lanes", [(16, 33), (8, 96), (8, 1)])
+def test_cuda_xla_kernel_at_narrower_words(cuda_device, widest, lanes):
+    """Every cone at `widest` lanes a word (x alone in shared memory, the
+    records in global memory): the result does not depend on the word."""
+    entries = _random_entries(20 + lanes, 9) + [(_gate_free_cone(), ())]
+    stream = circuit.RaggedStream(entries, bucket=shape_bucket)
+    _assert_kernel_matches_plain(cuda_device, stream, lanes, lanes, 24,
+                                 widest=widest)
+

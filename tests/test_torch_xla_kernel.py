@@ -15,15 +15,15 @@ kernel_mode).
   (the counterpart of test_xla_kernel_matches_bruteforce_oracle), and every
   witness must pass the host re-evaluation of its roots and pins.
 - The launch: the wrapper's arguments, read back the way
-  csrc/xla_round.cu reads them (the C signature's order, the row strides
-  widened to 64 bits, the tables' lengths), drive an emulation of the
-  kernel's phases over the raw buffers that must equal the plain round.
+  csrc/xla_round.cu reads them (the C signature's order, the per-cone
+  layout's header, offsets and tables, the blocks and the shared memory),
+  drive an emulation of the kernels over the raw buffers
+  (tests/test_torch_xla_layout.py) that must equal the plain round.
 
 On the CPU the wrapper runs the plain version; the CUDA kernel is held
 against it on the card (tests/test_torch_cuda_xla.py, chip_smoke.py).
 """
 
-import ctypes
 import logging
 import random
 import re
@@ -171,154 +171,47 @@ def _c_signature():
             for part in params.split(",")]
 
 
-def _view(address, count, ctype=ctypes.c_int32):
-    """A numpy view of `count` elements at a raw address."""
-    return np.ctypeslib.as_array((ctype * count).from_address(address))
-
-
-def _emulate_kernel(args):
-    """csrc/xla_round.cu's phases over the raw buffers named by `args`
-    (launch_arguments), each index computed as the kernel computes it: the
-    tables' lengths and row strides come from the size arguments alone."""
-    lanes, v1, levels, width = (args[k] for k in ("lanes", "v1", "levels",
-                                                  "width"))
-    cones, roots = args["cones"], args["roots"]
-    steps, walk_depth, seed = args["steps"], args["walk_depth"], args["seed"]
-    level = {k: _view(args[k], levels * width)
-             for k in xla_kernel.LEVEL_KEYS}
-    rows = _view(args["level_rows"], levels)
-    var = {k: _view(args[k], v1) for k in xla_kernel.VAR_KEYS}
-    root = {k: _view(args[k], cones * roots) for k in xla_kernel.ROOT_KEYS}
-    x_in = _view(args["x_in"], lanes * v1)
-    x_out = _view(args["x_out"], lanes * v1)
-    found = _view(args["found"], lanes * cones, ctypes.c_uint8)
-    flips = _view(args["flips"], lanes * cones * 2)
-    h = ragged_kernel._hash32
-    m = ragged_kernel._mul32
-
-    def simulate(base):
-        x_out[base] = 0
-        for lv in range(levels):
-            for i in range(min(int(rows[lv]), width)):
-                at = lv * width + i
-                out = int(level["out_idx"][at])
-                if out:
-                    x_out[base + out] = (
-                        (x_out[base + level["a_var"][at]]
-                         ^ level["a_neg"][at])
-                        & (x_out[base + level["b_var"][at]]
-                           ^ level["b_neg"][at]))
-
-    def check(base, c, key_base):
-        best_key, best = -1, 0
-        for r in range(roots):
-            at = c * roots + r
-            if root["root_mask"][at] != 1 or (
-                    x_out[base + root["root_var"][at]]
-                    ^ root["root_neg"][at]) != 0:
-                continue
-            key = h(key_base ^ m(r, ragged_kernel._C_ROOT)) >> 1
-            if key > best_key:
-                best_key, best = key, r
-        return best_key < 0, best
-
-    for lane in range(lanes):
-        base = lane * v1
-        x_out[base: base + v1] = x_in[base: base + v1]
-        found[lane * cones: (lane + 1) * cones] = 0
-        for step in range(steps):
-            simulate(base)
-            step_key = h(seed ^ m(step, ragged_kernel._C_STEP))
-            for c in range(cones):
-                salt = (m(lane, ragged_kernel._C_LANE)
-                        ^ m(c, ragged_kernel._C_CONE))
-                done, choice = check(base, c, step_key ^ salt)
-                end = (0, 0)
-                if found[lane * cones + c] or done:
-                    found[lane * cones + c] = 1
-                else:
-                    at = c * roots + choice
-                    cur = int(root["root_var"][at])
-                    want = 1 ^ int(root["root_neg"][at])
-                    coin_base = step_key ^ ragged_kernel._C_COIN ^ salt
-                    for depth in range(walk_depth):
-                        if var["is_gate"][cur] != 1:
-                            break
-                        ai, an = int(var["ga_var"][cur]), var["ga_neg"][cur]
-                        bi, bn = int(var["gb_var"][cur]), var["gb_neg"][cur]
-                        av, bv = x_out[base + ai] ^ an, x_out[base + bi] ^ bn
-                        if (av & bv) == want:
-                            break
-                        coin = h(coin_base
-                                 ^ m(depth, ragged_kernel._C_DEPTH)) & 1
-                        take_b = (((av == 1 and bv == 0)
-                                   or (av == 0 and bv == 0 and coin))
-                                  if want == 1 else
-                                  ((av == 0 and bv == 1)
-                                   or (av == 1 and bv == 1 and coin)))
-                        cur = bi if take_b else ai
-                        want ^= int(bn if take_b else an)
-                    end = (cur, want)
-                flips[2 * (lane * cones + c): 2 * (lane * cones + c) + 2] \
-                    = end
-            for c in range(cones):
-                cur, want = flips[2 * (lane * cones + c):
-                                  2 * (lane * cones + c) + 2]
-                if cur > 0:
-                    x_out[base + cur] = want
-        simulate(base)
-        for c in range(cones):
-            if check(base, c, 0)[0]:
-                found[lane * cones + c] = 1
-
-
-@pytest.mark.parametrize("seed, lanes, steps", [(6, 3, 0), (7, 2, 6),
-                                                (8, 1, 12)])
-def test_launch_arguments_read_as_the_kernel_reads_them(seed, lanes, steps):
-    """The C signature's parameters in the wrapper's order, the ctypes
-    types behind them, every table's length from the size arguments, and
-    an emulation of the kernel over those buffers equal to the plain
-    round."""
+@pytest.mark.parametrize("seed, lanes, steps, widest", [
+    (6, 3, 0, 32), (7, 40, 6, 32), (8, 1, 12, 32), (9, 17, 5, 8)])
+def test_launch_arguments_read_as_the_kernel_reads_them(seed, lanes, steps,
+                                                        widest):
+    """The C signature's parameters in the wrapper's order, the sizes and
+    the layout's tables behind the pointers, and an emulation of the kernels over those buffers
+    (tests/test_torch_xla_layout.emulate_launch: every offset from the
+    header, every read inside its buffer) equal to the plain round."""
     assert _c_signature() == list(xla_kernel.ARG_ORDER)
     _ref, entries = _random_window(seed, count=3)
     stream = circuit.RaggedStream(entries, bucket=shape_bucket)
-    xs = xla_kernel.device_stream(stream, "cpu")
+    xs = xla_kernel.device_stream(stream, "cpu", widest)
     generator = torch.Generator()
     generator.manual_seed(seed)
     x = circuit.init_inputs(generator, lanes, stream.v1, "cpu")
-    cones, roots = stream.tensors["root_var"].shape
+    cones = stream.tensors["root_var"].shape[0]
     x_out = torch.full_like(x, 7)
-    found = torch.ones((lanes, cones), dtype=torch.bool)
-    flips = torch.zeros((lanes, cones, 2), dtype=torch.int32)
+    found = torch.zeros((lanes, cones), dtype=torch.bool)
+    blocks, work = xla_kernel.launch_blocks(xs.layout, lanes)
+    assert work == 0, "small pages: no global tier"
     walk = stream.num_levels + 4
-    args = xla_kernel.launch_arguments(xs, x, x_out, found, flips, seed,
+    args = xla_kernel.launch_arguments(xs, x, x_out, found, None, seed,
                                        steps, walk)
     assert list(args) == list(xla_kernel.ARG_ORDER)
     assert (args["lanes"], args["v1"]) == tuple(x.shape)
-    assert (args["levels"], args["width"]) == (stream.num_levels,
-                                               stream.width)
-    assert (args["cones"], args["roots"]) == (cones, roots)
-    lengths = dict({key: args["levels"] * args["width"]
-                    for key in xla_kernel.LEVEL_KEYS},
-                   level_rows=args["levels"],
-                   x_in=args["lanes"] * args["v1"],
-                   x_out=args["lanes"] * args["v1"],
-                   found=args["lanes"] * args["cones"],
-                   flips=args["lanes"] * args["cones"] * 2)
-    lengths.update({key: args["v1"] for key in xla_kernel.VAR_KEYS})
-    lengths.update({key: args["cones"] * args["roots"]
-                    for key in xla_kernel.ROOT_KEYS})
-    buffers = dict(xs.tensors, level_rows=xs.level_rows, x_in=x,
-                   x_out=x_out, found=found, flips=flips)
-    for key in xla_kernel.POINTER_ARGS:
-        assert args[key] == buffers[key].data_ptr(), key
-        assert buffers[key].numel() == lengths[key], key
-    # the largest offsets the kernel forms, in 64 bits, stay in the buffers
-    assert (args["lanes"] - 1) * args["v1"] + args["v1"] - 1 \
-        < buffers["x_in"].numel()
-    assert (args["levels"] - 1) * args["width"] + args["width"] - 1 \
-        < buffers["out_idx"].numel()
-    _emulate_kernel(args)
+    assert (args["num_cones"], args["cone_slots"]) == (stream.num_cones,
+                                                        cones)
+    assert args["page_end"] == sum(size for _b, size in stream.pages) + 1
+    assert args["blocks"] == blocks == stream.num_cones * -(-lanes // widest)
+    assert args["smem_bytes"] == xs.layout.smem_bytes
+    assert args["x_work"] is None
+    buffers = {"cones": xs.layout.cones, "records": xs.layout.records,
+               "stream_table": xs.layout.stream, "roots": xs.layout.roots,
+               "x_in": x, "x_out": x_out, "found": found}
+    for key, buffer in buffers.items():
+        assert args[key] == buffer.data_ptr(), key
+        assert buffer.dtype in (torch.int32, torch.bool), key
+    from tests.test_torch_xla_layout import emulate_launch
+
+    emulate_launch(args, {key: buffer.numel()
+                          for key, buffer in buffers.items()})
     want_x, want_found = xla_kernel.run_round_xla_plain(xs, x, seed, steps,
                                                         walk)
     assert torch.equal(x_out, want_x)

@@ -11,6 +11,7 @@
     python3 chip_smoke.py --k3-split PATH  # env, build, K3's split
     python3 chip_smoke.py --k2-split PATH  # env, build, K2's split
     python3 chip_smoke.py --xla-only     # env, build, the xla phase
+    python3 chip_smoke.py --corpus-only  # env, build, the corpus phase
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
@@ -87,9 +88,10 @@ line):
           easm_to_code) at -t 2 and the four bench_inputs/corpus contracts
           at -t 1, each with an execution timeout of 600 s that the runs
           must not reach, then bench_inputs/stress_dispatch.hex at -t 1
-          with a fixed 60 s each (reported, its findings compared only if
-          both runs completed; 120 s before the frontier phase came, cut
-          to keep the script inside its time limit). KILLBILLY and
+          with a fixed 30 s each (reported, its findings compared only if
+          both runs completed; 120 s before the frontier phase came, 60 s
+          before the corpus phase came, cut to keep the script inside its
+          time limit). KILLBILLY and
           xc_dispatch_a.hex run a third time, on the host CDCL with the
           frontier stepped by K6 (MYTHRIL_GPU_FRONTIER_BACKEND=cuda): the
           report must equal the host run's byte for byte, and the frontier
@@ -199,7 +201,8 @@ line):
           (MYTHRIL_GPU_FLIGHTREC=0, nothing written) and on (the ring at
           its default 512 spans, the heartbeat every 0.5 s, the
           Prometheus file, the stats JSON), full tracing off, in the
-          order off, on, on, off: the four walls of each, and the CPU
+          order off, on (off, on, on, off before the corpus phase came):
+          the walls of each, and the CPU
           seconds spent inside the telemetry's own calls (a span
           recorded, a beat, the stats JSON) in each leg;
   resilience  fault containment and the disk tier on the device backend,
@@ -224,7 +227,8 @@ line):
           clean run records no deadline and prints the deadline runner's
           cost (the stats JSON's deadline_runner_calls and
           deadline_handoff_wall, which the runner counts itself); (4)
-          xc_dispatch_a.hex (-t 1) three times in new processes on one
+          KILLBILLY (-t 2; xc_dispatch_a.hex -t 1 before the corpus phase
+          came) three times in new processes on one
           --solve-cache disk directory: the first stores entries (K1
           launched), the second hits them with no verify reject, the third
           (disk.entry:corrupt:*) quarantines, both with the first's
@@ -233,7 +237,34 @@ line):
           the CLI runs), beside the card's nvidia-smi line. Every check of
           the analyze phase's telemetry also fails a clean run that
           recorded a deadline, and the analyze phase prints the runner's
-          cost summed over the five compared contracts' dispatches.
+          cost summed over the five compared contracts' dispatches;
+  corpus  corpus runs (after the resilience phase) of the four
+          bench_inputs/corpus contracts at -t 1 through MythrilAnalyzer,
+          fork pruning on, 600 s timeouts they must not reach, each
+          contract loaded under its file name: (a) --corpus-interleave 4
+          on the device backend: findings by contract must equal the
+          analyze phase's sequential host and device runs at issue
+          granularity, a stream must mix two contracts
+          (xcontract_windows), and K1 must launch while a mixed-origin
+          group is dispatched (the router's _ragged_dispatch wrapped to
+          count them); K1 is held bit for bit against its plain version
+          on the largest mixed-origin stream and timed there beside its
+          bound; (b) --jobs 4 on the device backend: the same findings,
+          K1 and K6 launches in the stats the workers sent back, K1
+          launched by every worker (each worker's record: its pid, its
+          launches by kernel and its router's calibrated K1 rate), the
+          workers' final metrics snapshots merged
+          (observe.metrics.merge_snapshots) agreeing with the absorbed
+          stats, and the card's busy share over the leg (nvidia-smi's
+          utilization.gpu every 200 ms, all processes); (c) --jobs 2 on
+          KILLBILLY and xc_dispatch_a.hex under jobs.worker:exit:n1: a
+          worker_requeue and then a degraded event,
+          resilience_worker_requeues 1, both contracts analyzed in this
+          process on K1 with the host's findings (KILLBILLY's at -t 1
+          from a host run here); (d) --jobs 4 on the host backend. It
+          prints each leg's wall and contracts per hour beside the
+          sequential host and device walls of the analyze phase.
+          --corpus-only runs the sequential host and device runs itself.
 --telemetry-overhead runs the overhead legs alone, twice over (eight legs
 a contract).
 
@@ -282,9 +313,11 @@ beside them; K3's launches over the bucketed analyze runs and its time on
 their largest batch, with its split and the plain run's walk lengths;
 K2's launches over the xla-mode analyze runs, the fallback leg and the
 random streams, and its time on the xla runs' largest launch with its
-split and walk lengths, then on the fallback's and the past-k1 stream), the
-card's nvidia-smi line, and last {"ok": true, "device": {...}}. A copy of every
-JSON line goes to chiprun_out/chip_smoke.jsonl.
+split and walk lengths, then on the fallback's and the past-k1 stream;
+K1's and K6's launches in the corpus phase, and K1's time on its largest
+mixed-origin stream), the card's nvidia-smi line, and last {"ok": true,
+"device": {...}}. A copy of every JSON line goes to
+chiprun_out/chip_smoke.jsonl.
 """
 
 import contextlib
@@ -310,7 +343,7 @@ FORK_PAIRS = 16    # the fork window: 32 queries
 SEED = 20261016
 OUT_DIR = "chiprun_out"
 ANALYZE_TIMEOUT = 600   # s per analyze run; the runs must complete inside
-STRESS_TIMEOUT = 60     # s per stress_dispatch run, a measurement
+STRESS_TIMEOUT = 30     # s per stress_dispatch run, a measurement
 FRONTIER_RUNS = 300     # random runs K6 is held against its plain version
 FRONTIER_EDGE_BIAS = 0.25
 # analyze runs repeated on the host CDCL with the frontier stepped by K6
@@ -1912,7 +1945,8 @@ def _analyze_contract(device, name, code, tx_count, timeout, compared,
     return hits, k1_hits, k6_launches, host_k6_launches, runner, records
 
 
-def _hold_stream(device, stream, window, counts, timed=True):
+def _hold_stream(device, stream, window, counts, timed=True,
+                 phase="analyze"):
     """K1 bit for bit against its plain version on `stream`, and both timed
     there unless `timed` is false; launches made here are not counted.
     Emits one record."""
@@ -1941,7 +1975,7 @@ def _hold_stream(device, stream, window, counts, timed=True):
     ragged_kernel.launches = launches
     bound_ms, bound_by, moved, ops = _bound(flat, stream.v1, lanes, steps,
                                             caps)
-    emit({"phase": "analyze", "window": window,
+    emit({"phase": phase, "window": window,
           **_stream_fields(stream, flat), "lanes": lanes, "steps": steps,
           "walk_depth": walk_depth,
           "global_path_cones": list(flat.cones.global_cones), **counts,
@@ -2156,15 +2190,15 @@ def _overhead_leg(device, name, code, tx_count, on):
     return wall, spent.get("s", 0.0)
 
 
-def phase_telemetry_overhead(device, rounds=1):
+def phase_telemetry_overhead(device, order=("off", "on")):
     """What the telemetry costs: each of OVERHEAD_CONTRACTS on the device
-    backend with every artifact off, on, on, off, `rounds` times. Emits
-    one record a contract: the walls of each leg and the CPU seconds
-    inside the telemetry's own calls."""
+    backend with every artifact off and on, in `order`. Emits one record a
+    contract: the walls of each leg and the CPU seconds inside the
+    telemetry's own calls."""
     inputs = {name: (code, tx_count)
               for name, code, tx_count, _timeout, _compared
               in _analyze_inputs()}
-    order = ["off", "on", "on", "off"] * rounds
+    order = list(order)
     for name in OVERHEAD_CONTRACTS:
         code, tx_count = inputs[name]
         walls = {"off": [], "on": []}
@@ -2188,7 +2222,7 @@ HANG_DEADLINE_S = 2
 HANG_GRACE_S = 2
 HANG_SLACK_S = 30   # process start, CUDA set-up, exploration to the hang
 RESILIENCE_TIMEOUT = 600  # s per CLI run of the phase
-DISK_CONTRACT = "xc_dispatch_a.hex"
+DISK_CONTRACT = "killbilly"  # at -t 2, as in step 3
 # host sites on the device backend (KILLBILLY -t 2): spec, the site's
 # events that must be counted, and whether K1 must launch in the run.
 # Under aig.session:raise:* every cone stays un-rewritten, and the
@@ -2415,14 +2449,13 @@ def phase_resilience(device):
             {"case": spec}, timed=False)["max_abs_err"])
 
     # 4. the disk tier across processes: fill, hit, corrupted
-    code_path = os.path.join("bench_inputs", "corpus", DISK_CONTRACT)
     disk_env = {"MYTHRIL_GPU_CACHE_DIR": os.path.join(folder, "disk-cache")}
     disk = {}
     for leg, extra in (("fill", ()), ("hit", ()),
                        ("corrupt", ("--inject-fault",
                                     "disk.entry:corrupt:*"))):
-        disk[leg] = _cli_analyze(device, folder, f"disk-{leg}", code_path, 1,
-                                 extra=("--solve-cache", "disk", *extra),
+        disk[leg] = _cli_analyze(device, folder, f"disk-{leg}", killbilly,
+                                 2, extra=("--solve-cache", "disk", *extra),
                                  env=disk_env)
         emit(_cli_record(f"{DISK_CONTRACT} --solve-cache disk: {leg}",
                          disk[leg]))
@@ -2454,6 +2487,369 @@ def phase_resilience(device):
     if failures:
         raise AssertionError(f"resilience: {failures}")
     return {"launches": host_launches, "max_abs_err": host_err}
+
+
+# -- corpus: the four corpus contracts interleaved and in worker processes ---
+
+CORPUS_INTERLEAVE = 4
+CORPUS_JOBS = 4
+# the worker-death leg: two contracts in two workers, each killed at its
+# first crossing of the jobs.worker site, twice over
+DEATH_CONTRACTS = ("killbilly", "xc_dispatch_a.hex")
+DEATH_SPEC = "jobs.worker:exit:n1"
+BUSY_SAMPLE_MS = 200
+
+
+@contextlib.contextmanager
+def _busy_sampler(device):
+    """The card's busy share over the block: nvidia-smi's utilization.gpu
+    (the share of each sample period in which a kernel ran, from any
+    process) every BUSY_SAMPLE_MS, averaged; "not measured" when the
+    sampler cannot run. The sampler process is stopped on exit."""
+    out = {}
+    proc = None
+    if device.type == "cuda":
+        try:
+            proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms",
+                 str(BUSY_SAMPLE_MS)],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            proc = None
+    try:
+        yield out
+    finally:
+        samples = []
+        if proc is not None:
+            proc.terminate()
+            try:
+                text, _err = proc.communicate(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _err = proc.communicate()
+            samples = [float(line) for line in text.split()
+                       if line.replace(".", "", 1).isdigit()]
+        if samples:
+            out.update(device_busy_share=sum(samples) / len(samples) / 100,
+                       busy_samples=len(samples))
+        else:
+            out.update(device_busy_share="not measured")
+
+
+def _corpus_once(device, entries, solver_backend, interleave=0, jobs=1,
+                 spec=None, mixed=None):
+    """One in-process MythrilAnalyzer run over `entries` ((name, creation
+    code) pairs, each loaded under its name) at -t 1, fork pruning on,
+    from fresh solve state: interleaved on `interleave` slots, or in
+    `jobs` spawn workers, with `spec` armed. K1's, K2's and K6's counts
+    in this process start at 0 just before the run and are read just
+    after. `mixed` (a dict) keeps the largest stream K1 was sent for a
+    mixed-origin group and counts the K1 launches made while such groups
+    were dispatched. Returns a record: the wall, the findings by
+    contract, the counters, the busy share, the worker records and the
+    parent's resilience spans in order."""
+    from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
+    from mythril_tpu_torch.gpu import frontier_kernel, ragged_kernel, xla_kernel
+    from mythril_tpu_torch.gpu import router as router_mod
+    from mythril_tpu_torch.gpu.backend import get_device_backend
+    from mythril_tpu_torch.observe.tracer import get_tracer
+    from mythril_tpu_torch.resilience import faults
+    from mythril_tpu_torch.smt.solver import frontend
+    from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
+    from mythril_tpu_torch.support.args import args
+    from mythril_tpu_torch.support.model import clear_caches
+
+    device_arg = None if device.type == "cuda" else device
+    args.reset()
+    clear_caches()
+    frontend._global_blaster = None
+    stats = SolverStatistics()
+    stats.reset()
+    tracer = get_tracer()
+    tracer.reset()
+    tracer.enable(None)  # the resilience events' order
+    watch = _TimeoutLines()
+    logger = logging.getLogger("mythril_tpu_torch.laser.svm")
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(watch)
+    original = router_mod.QueryRouter._ragged_dispatch
+    backend = None
+    if mixed is not None and solver_backend == "gpu":
+        backend = get_device_backend(device_arg)
+        caps = ragged_kernel.kernel_caps()
+        state = {"mixed": False}
+        mixed.setdefault("k1_launches", 0)
+        mixed.setdefault("groups", 0)
+
+        def dispatch(self, group, remaining, profile):
+            state["mixed"] = len({unit.origin for unit in group
+                                  if unit.origin is not None}) >= 2
+            before = ragged_kernel.launches
+            try:
+                return original(self, group, remaining, profile)
+            finally:
+                if state["mixed"]:
+                    mixed["groups"] += 1
+                    mixed["k1_launches"] += ragged_kernel.launches - before
+                state["mixed"] = False
+
+        def keep(stream, stream_entries):
+            if not state["mixed"] or (
+                    stream.v1 > caps.var_cap
+                    or stream.cone_slots > caps.cone_cap
+                    or stream.max_roots > caps.root_cap):
+                return
+            gates = sum(pc.num_gates for pc, _extra in stream_entries)
+            if gates > mixed.get("gates", -1):
+                mixed.update(gates=gates, stream=stream)
+
+        router_mod.QueryRouter._ragged_dispatch = dispatch
+        backend.on_stream = keep
+    cmd_args = SimpleNamespace(
+        execution_timeout=ANALYZE_TIMEOUT, transaction_count=1,
+        max_depth=128, solver_backend=solver_backend,
+        torch_device=device_arg, pruning_factor=1.0,
+        corpus_interleave=interleave, jobs=jobs, inject_fault=spec)
+    disassembler = MythrilDisassembler()
+    for name, code in entries:
+        disassembler.load_from_bytecode(code, name=name)
+    ragged_kernel.reset_launches()  # this run's counts start here
+    xla_kernel.reset_launches()
+    frontier_kernel.reset_launches()
+    try:
+        with _busy_sampler(device) as busy:
+            torch_sync(device)
+            start = time.monotonic()
+            analyzer = MythrilAnalyzer(disassembler, cmd_args=cmd_args)
+            report = analyzer.fire_lasers(transaction_count=1)
+            torch_sync(device)
+            wall = time.monotonic() - start
+        launches = {"ragged_round": ragged_kernel.launches,  # ... and end
+                    "xla_round": xla_kernel.launches,
+                    "frontier_step": frontier_kernel.launches}
+    finally:
+        router_mod.QueryRouter._ragged_dispatch = original
+        if backend is not None:
+            backend.on_stream = None
+        logger.removeHandler(watch)
+        logger.setLevel(level)
+        events = [event["name"] for event in tracer.events()
+                  if event["name"].startswith("resilience.")]
+        tracer.reset()
+        faults.configure(None)
+        args.reset()
+    if report.exceptions:
+        raise AssertionError(f"corpus run raised: {report.exceptions[0]}")
+    counters = stats.as_dict()
+    findings = {name: [] for name, _code in entries}
+    for issue in report.issues.values():
+        findings[issue.contract].append(
+            [issue.swc_id, issue.function, issue.address, issue.title])
+    return {"wall_s": wall, "completed": not watch.lines,
+            "findings": {name: sorted(keys)
+                         for name, keys in findings.items()},
+            "launches_here": launches, "counters": counters, **busy,
+            "workers": analyzer.worker_records,
+            "resilience_spans": events}
+
+
+def _corpus_record(leg, run, extra=None):
+    counters = run["counters"]
+    return {"phase": "corpus", "leg": leg, "wall_s": run["wall_s"],
+            "contracts_per_hour": len(run["findings"]) * 3600
+            / run["wall_s"],
+            "completed": run["completed"],
+            "kernel_launches": counters["kernel_launches"],
+            "frontier_vmap_steps": counters["frontier_vmap_steps"],
+            "launches_in_this_process": run["launches_here"],
+            "xcontract_windows": counters["xcontract_windows"],
+            "xcontract_cones_packed": counters["xcontract_cones_packed"],
+            "ragged_windows": counters["ragged_windows"],
+            "device_batch_hits": counters["device_batch_hits"],
+            "aig_device_component_hits":
+                counters["aig_device_component_hits"],
+            "device_busy_share": run["device_busy_share"],
+            "busy_samples": run.get("busy_samples", 0),
+            "resilience": {site: events for site, events
+                           in counters["resilience"]["sites"].items()
+                           if events},
+            "findings": run["findings"], **(extra or {})}
+
+
+def _sequential_corpus(device):
+    """The four corpus contracts one by one on both backends, as the
+    analyze phase runs them (--corpus-only has no analyze phase)."""
+    records = {}
+    for name, code, tx_count, timeout, _compared in _analyze_inputs():
+        if name not in CORPUS:
+            continue
+        records[name] = {}
+        for solver_backend in ("cpu", "gpu"):
+            _report, done, record = _analyze_once(
+                device, code, tx_count, timeout, solver_backend, {})
+            if not done:
+                raise AssertionError(f"corpus: {name} did not complete")
+            records[name][solver_backend] = record
+            emit({"phase": "corpus", "leg": "sequential", "contract": name,
+                  "backend": solver_backend, "wall_s": record["wall_s"],
+                  "findings": record["findings"]})
+    return records
+
+
+def phase_corpus(device, records=None):
+    """Corpus runs (see the module note): the four corpus contracts
+    interleaved on four slots and in four workers on the device backend,
+    two contracts through a worker death, and in four workers on the
+    host; findings by contract against the sequential runs (the analyze
+    phase's `records`, or run here). Returns K1's and K6's launches by
+    leg and K1 held and timed on the largest mixed-origin stream."""
+    from mythril_tpu_torch.observe import metrics
+
+    if records is None:
+        records = _sequential_corpus(device)
+    inputs = {name: code for name, code, _tx, _timeout, _compared
+              in _analyze_inputs()}
+    corpus = [(name, inputs[name]) for name in CORPUS]
+    expected = {}
+    for name in CORPUS:
+        host = records[name]["cpu"]["findings"]
+        if records[name]["gpu"]["findings"] != host:
+            raise AssertionError(f"corpus: {name}: the sequential device "
+                                 f"and host findings differ")
+        expected[name] = host
+    smi = nvidia_smi_line()
+    failures = []
+
+    def check(leg, run, want):
+        if not run["completed"]:
+            failures.append(f"{leg}: a contract did not complete")
+        for name, keys in want.items():
+            if run["findings"][name] != keys:
+                failures.append(f"{leg}: {name}: findings "
+                                f"{run['findings'][name]} differ from the "
+                                f"sequential runs' {keys}")
+
+    # (a) interleaved on the device backend: mixed-origin K1 streams
+    mixed = {}
+    interleaved = _corpus_once(device, corpus, "gpu",
+                               interleave=CORPUS_INTERLEAVE, mixed=mixed)
+    check("interleave", interleaved, expected)
+    counters = interleaved["counters"]
+    if counters["xcontract_windows"] <= 0:
+        failures.append("interleave: no stream mixed two contracts")
+    if mixed["k1_launches"] <= 0 or "stream" not in mixed:
+        failures.append("interleave: K1 never launched on a mixed stream")
+    emit(_corpus_record("interleave", interleaved, {
+        "slots": CORPUS_INTERLEAVE, "mixed_groups": mixed["groups"],
+        "k1_launches_on_mixed_streams": mixed["k1_launches"],
+        "nvidia_smi": smi}))
+    held = {"max_abs_err": 0, "ms": None, "plain_ms": None,
+            "bound_ms": None, "bound_by": None}
+    if "stream" in mixed:
+        held = _hold_stream(device, mixed["stream"], "corpus-mixed-stream",
+                            {"xcontract_windows":
+                                 counters["xcontract_windows"],
+                             "k1_launches_on_mixed_streams":
+                                 mixed["k1_launches"]}, phase="corpus")
+
+    # (b) four spawn workers on the device backend
+    jobs = _corpus_once(device, corpus, "gpu", jobs=CORPUS_JOBS)
+    check("jobs", jobs, expected)
+    workers = {}
+    for record in jobs["workers"]:
+        worker = workers.setdefault(record["pid"], {
+            "pid": record["pid"], "contracts": [], "k1_launches": 0,
+            "k6_launches": 0, "k2_launches": 0,
+            "k1_cells_s": record["rates"].get("kernel_cells_s")})
+        worker["contracts"].append(CORPUS[record["contract"]])
+        worker["k1_launches"] += record["launches"]["ragged_round"]
+        worker["k6_launches"] += record["launches"]["frontier_step"]
+        worker["k2_launches"] += record["launches"]["xla_round"]
+    merged = metrics.merge_snapshots([record["metrics"]
+                                      for record in jobs["workers"]])
+    jobs_counters = jobs["counters"]
+    if jobs_counters["kernel_launches"] <= 0 \
+            or jobs_counters["frontier_vmap_steps"] <= 0:
+        failures.append("jobs: the workers' stats hold no K1 or K6 launch")
+    if any(worker["k1_launches"] <= 0 for worker in workers.values()):
+        failures.append("jobs: a worker never launched K1")
+    if device.type == "cuda" and not any(
+            worker["k6_launches"] for worker in workers.values()):
+        failures.append("jobs: no worker launched K6")
+    if len(jobs["workers"]) != len(CORPUS):
+        failures.append(f"jobs: {len(jobs['workers'])} worker records")
+    for name in ("kernel_launches", "frontier_vmap_steps"):
+        if merged["counters"][name] != jobs_counters[name]:
+            failures.append(f"jobs: merged snapshots' {name} "
+                            f"{merged['counters'][name]} against the "
+                            f"absorbed {jobs_counters[name]}")
+    emit(_corpus_record("jobs", jobs, {
+        "jobs": CORPUS_JOBS, "workers": list(workers.values()),
+        "nvidia_smi": smi}))
+
+    # (c) worker death: requeued once, then analyzed in this process
+    death_entries = [(name, inputs[name]) for name in DEATH_CONTRACTS]
+    # KILLBILLY's host findings at -t 1 (the analyze phase runs it at -t 2)
+    death_expected = {name: (expected[name] if name in expected else
+                             _corpus_once(device, [(name, inputs[name])],
+                                          "cpu")["findings"][name])
+                      for name in DEATH_CONTRACTS}
+    death = _corpus_once(device, death_entries, "gpu", jobs=2,
+                         spec=DEATH_SPEC)
+    check("worker-death", death, death_expected)
+    order = [name for name in death["resilience_spans"]
+             if name in ("resilience.worker_requeue", "resilience.degraded")]
+    if order != ["resilience.worker_requeue", "resilience.degraded"]:
+        failures.append(f"worker-death: events {order}")
+    if death["counters"]["resilience_worker_requeues"] != 1:
+        failures.append("worker-death: resilience_worker_requeues "
+                        f"{death['counters']['resilience_worker_requeues']}")
+    if death["workers"] or death["launches_here"]["ragged_round"] <= 0:
+        failures.append("worker-death: the contracts were not analyzed in "
+                        "this process, on K1")
+    emit(_corpus_record("worker-death", death, {
+        "spec": DEATH_SPEC, "event_order": order,
+        "contracts": list(DEATH_CONTRACTS)}))
+
+    # (d) the host's four workers, and every leg's wall
+    host_jobs = _corpus_once(device, corpus, "cpu", jobs=CORPUS_JOBS)
+    check("host-jobs", host_jobs, expected)
+    emit(_corpus_record("host-jobs", host_jobs, {"jobs": CORPUS_JOBS}))
+    walls = {
+        "sequential_host": sum(records[name]["cpu"]["wall_s"]
+                               for name in CORPUS),
+        "sequential_device": sum(records[name]["gpu"]["wall_s"]
+                                 for name in CORPUS),
+        f"interleave_{CORPUS_INTERLEAVE}_device": interleaved["wall_s"],
+        f"jobs_{CORPUS_JOBS}_device": jobs["wall_s"],
+        f"jobs_{CORPUS_JOBS}_host": host_jobs["wall_s"]}
+    emit({"phase": "corpus", "leg": "walls", "contracts": len(CORPUS),
+          "wall_s": walls,
+          "contracts_per_hour": {leg: len(CORPUS) * 3600 / wall
+                                 for leg, wall in walls.items()},
+          "failed_checks": failures, "nvidia_smi": smi})
+    if failures:
+        raise AssertionError(f"corpus: {failures}")
+    k1_jobs = sum(worker["k1_launches"] for worker in workers.values())
+    k6_jobs = sum(worker["k6_launches"] for worker in workers.values())
+    return {"interleave_launches": interleaved["launches_here"],
+            "mixed_k1_launches": mixed["k1_launches"],
+            "jobs_k1_launches": k1_jobs, "jobs_k6_launches": k6_jobs,
+            "xcontract_windows": counters["xcontract_windows"],
+            "xcontract_cones_packed": counters["xcontract_cones_packed"],
+            "mixed_stream": held, "max_abs_err": held["max_abs_err"]}
+
+
+def corpus_only(device) -> int:
+    phase_build()
+    result = phase_corpus(device)
+    emit({"phase": "corpus", "mixed_stream": result["mixed_stream"],
+          "launches": {key: result[key] for key in (
+              "interleave_launches", "mixed_k1_launches",
+              "jobs_k1_launches", "jobs_k6_launches")}})
+    return 0
 
 
 FORK_PREP_CONTRACTS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex")
@@ -3645,7 +4041,8 @@ def main() -> int:
             return 0
         if "--telemetry-overhead" in sys.argv[1:]:
             phase_build()
-            phase_telemetry_overhead(device, rounds=2)
+            phase_telemetry_overhead(device,
+                                     order=("off", "on", "on", "off") * 2)
             print(smi, flush=True)
             return 0
         if "--fork-prep" in sys.argv[1:]:
@@ -3664,6 +4061,10 @@ def main() -> int:
             return 0
         if "--xla-only" in sys.argv[1:]:
             xla_only(device)
+            print(smi, flush=True)
+            return 0
+        if "--corpus-only" in sys.argv[1:]:
+            corpus_only(device)
             print(smi, flush=True)
             return 0
         if "--k3-split" in sys.argv[1:]:
@@ -3686,6 +4087,7 @@ def main() -> int:
         xla = phase_xla(device, analyze["records"])
         phase_telemetry_overhead(device)
         resilience = phase_resilience(device)
+        corpus = phase_corpus(device, analyze["records"])
         emit({"phase": "total", "seconds": time.monotonic() - start})
     except Exception as error:
         import traceback
@@ -3707,10 +4109,20 @@ def main() -> int:
                              "analyze": analyze["launches"],
                              "analyze_stress": analyze["stress_launches"],
                              "resilience_host_sites":
-                                 resilience["launches"]},
+                                 resilience["launches"],
+                             # the corpus phase: interleaved in this
+                             # process (those made dispatching mixed
+                             # streams apart), and in the four workers
+                             "corpus_interleave":
+                                 corpus["interleave_launches"]["ragged_round"],
+                             "corpus_interleave_mixed_streams":
+                                 corpus["mixed_k1_launches"],
+                             "corpus_jobs_workers":
+                                 corpus["jobs_k1_launches"]},
         "max_abs_err": max(max_err, router["max_abs_err"],
                            analyze["max_abs_err"],
-                           resilience["max_abs_err"]),
+                           resilience["max_abs_err"],
+                           corpus["max_abs_err"]),
         # times of one round on the largest stream the compared analyze
         # runs launched; the router's and the slice's streams beside them
         "ms": analyze["ms"],
@@ -3726,6 +4138,8 @@ def main() -> int:
                          "plain_ms": timing["plain_ms"],
                          "bound_ms": timing["bound_ms"],
                          "bound_by": timing["bound_by"]},
+        # the largest mixed-origin stream of the interleaved corpus run
+        "corpus_mixed_stream": corpus["mixed_stream"],
     }, {
         "name": "frontier_step",
         "route": "cuda",
@@ -3739,7 +4153,11 @@ def main() -> int:
         "launches": analyze["k6_launches"],
         "launches_by_path": {"analyze": analyze["k6_launches"],
                              "analyze_host_cdcl": analyze["k6_host_launches"],
-                             "analyze_stress": analyze["k6_stress"]},
+                             "analyze_stress": analyze["k6_stress"],
+                             "corpus_interleave": corpus[
+                                 "interleave_launches"]["frontier_step"],
+                             "corpus_jobs_workers":
+                                 corpus["jobs_k6_launches"]},
         "max_abs_err": max(frontier["max_abs_err"],
                            analyze["k6"]["max_abs_err"]),
         # one launch on the largest frontier batch (rows x micro-ops) the

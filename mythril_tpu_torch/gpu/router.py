@@ -1049,6 +1049,12 @@ class QueryRouter:
                 stats.add_device_dispatch(len(group), len(group), elapsed)
                 if any(unit.fork for unit in group):
                     stats.add_fork_stream_dispatch()
+                if len({unit.origin for unit in group
+                        if unit.origin is not None}) >= 2:
+                    # this stream carried cones of two or more contracts
+                    # (mythril_tpu/tpu/router.py:1405-1411): on K1, on K2
+                    # in the xla mode, or on K2 as pallas's fallback chunk
+                    stats.add_xcontract_window(len(group))
             self.record_dispatch(hits, elapsed)
             with trace_span("router.land", cat="router", units=len(group)):
                 self._apply_group_bits(group, group_bits, results, states,

@@ -96,6 +96,17 @@ def add_analysis_args(parser) -> None:
     parser.add_argument("--loop-bound", type=int, default=3)
     parser.add_argument("--call-depth-limit", type=int, default=3)
     parser.add_argument("--pruning-factor", type=float, default=None)
+    parser.add_argument("--jobs", type=int, default=1,
+                        help="analyze the contracts in N spawn worker "
+                             "processes sharing the card")
+    parser.add_argument("--corpus-interleave", type=int, default=0,
+                        dest="corpus_interleave", metavar="N",
+                        help="step up to N contracts' analyses in turns in "
+                             "ONE process, so sibling queries of different "
+                             "contracts share windows and K1 streams; 1 = "
+                             "the same slots one contract at a time, 0 = "
+                             "off; MYTHRIL_GPU_CORPUS_INTERLEAVE wins over "
+                             "it")
     parser.add_argument("--solver-backend", default="gpu",
                         choices=["gpu", "cpu"],
                         help="satisfiability backend: gpu (default) sends "

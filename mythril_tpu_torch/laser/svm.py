@@ -287,7 +287,14 @@ class LaserEVM:
             from mythril_tpu_torch.laser.frontier import FrontierStepper
 
             self._frontier = FrontierStepper(self)
+        # the interleaved corpus run's yield point (service/interleave.py;
+        # mythril_tpu/laser/svm.py:293-300): the baton moves between
+        # contracts every quantum of exec iterations; a thread-local and a
+        # global load and a None check when no coordinator is live
+        from mythril_tpu_torch.service.interleave import tick as interleave_tick
+
         for global_state in self.strategy:
+            interleave_tick()
             if create and self.create_timeout:
                 if time.monotonic() - start > self.create_timeout:
                     log.info("create timeout reached")

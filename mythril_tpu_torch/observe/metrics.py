@@ -235,6 +235,70 @@ def snapshot(seq: int = 0, final: bool = False) -> dict:
     return snap
 
 
+def merge_snapshots(snaps) -> dict:
+    """Fold several processes' snapshots into one view
+    (mythril_tpu/observe/metrics.py:270): counters and timers sum, the
+    histograms and the per-site resilience events merge, and the ratio
+    gauges are recomputed from the summed counters (averaging each
+    process's ratio would weigh an idle worker like a busy one). The
+    roofline view is left out: each process calibrates its own ceilings,
+    and they do not add. The stamp, seq and ts are the newest
+    snapshot's."""
+    from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
+
+    snaps = [snap for snap in snaps if snap]
+    if not snaps:
+        return snapshot()
+    merged = dict(max(snaps, key=lambda snap: snap.get("ts", 0)))
+    counters = {}
+    for name in SolverStatistics._COUNTERS:
+        counters[name] = sum(
+            int(snap.get("counters", {}).get(name, 0)) for snap in snaps)
+    for name in SolverStatistics._TIMERS:
+        counters[name] = round(sum(
+            float(snap.get("counters", {}).get(name, 0.0))
+            for snap in snaps), 4)
+    merged["counters"] = counters
+
+    def ratio(numerator, denominator) -> float:
+        return round(numerator / denominator, 4) if denominator else 0.0
+
+    merged["gauges"] = {
+        "device_occupancy": ratio(counters["device_dispatched_queries"],
+                                  counters["device_slots"]),
+        "coalesce_occupancy": ratio(counters["coalesced_queries"],
+                                    counters["window_flushes"]),
+        "frontier_batch_occupancy": ratio(
+            counters["frontier_states_stepped"]
+            + counters["frontier_batch_bails"]
+            + counters["frontier_fork_cohort_rows"],
+            counters["frontier_batch_slots"]),
+    }
+    histograms = {name: {} for name in _HISTOGRAM_NAMES}
+    for snap in snaps:
+        for name, buckets in (snap.get("histograms") or {}).items():
+            section = histograms.setdefault(name, {})
+            for bucket, value in buckets.items():
+                if isinstance(value, (list, tuple)):
+                    record = section.setdefault(bucket, [0, 0.0])
+                    record[0] += int(value[0])
+                    record[1] = round(record[1] + float(value[1]), 4)
+                else:
+                    section[bucket] = section.get(bucket, 0) + int(value)
+    merged["histograms"] = histograms
+    sites = {}
+    for snap in snaps:
+        for site, events in (snap.get("resilience") or {}).items():
+            per_site = sites.setdefault(site, {})
+            for event, count in events.items():
+                per_site[event] = per_site.get(event, 0) + int(count)
+    merged["resilience"] = sites
+    merged["roofline"] = {}
+    merged["pid"] = os.getpid()
+    merged["final"] = all(snap.get("final") for snap in snaps)
+    return merged
+
+
 # -- Prometheus text exposition -----------------------------------------------
 
 _PROM_NAME_RE = re.compile(r"[^a-zA-Z0-9_]")

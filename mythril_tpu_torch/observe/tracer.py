@@ -159,6 +159,23 @@ class Tracer:
             if self.enabled:
                 self._events.append(event)
 
+    def drain_events(self) -> List[dict]:
+        """Take every collected event: a --jobs worker's side of the
+        merge (plain dicts that pickle back to the parent;
+        mythril_tpu/observe/tracer.py:204)."""
+        with self._lock:
+            events, self._events = self._events, []
+        return events
+
+    def absorb_events(self, events) -> None:
+        """Fold a worker's drained events into this (the parent's)
+        tracer (:211). They carry the worker's pid, so each worker keeps
+        its own process lane in the merged timeline."""
+        if not events:
+            return
+        with self._lock:
+            self._events.extend(events)
+
     def summary(self) -> Dict[str, list]:
         """{stage name: [span count, total seconds]} over every event."""
         out: Dict[str, list] = {}
@@ -185,8 +202,14 @@ class Tracer:
         events = self.events()
         base = min((e["ts"] for e in events), default=0.0)
         out_events = [dict(e, ts=round(e["ts"] - base, 3)) for e in events]
-        meta = [{"name": "process_name", "ph": "M", "pid": self._pid,
-                 "tid": 0, "args": {"name": "mythril_tpu_torch"}}]
+        # one process lane for the analyzer and one for each --jobs
+        # worker whose events were absorbed
+        pids = list(dict.fromkeys([self._pid]
+                                  + [e["pid"] for e in out_events]))
+        meta = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+                 "args": {"name": ("mythril_tpu_torch" if pid == self._pid
+                                   else f"mythril_tpu_torch worker {pid}")}}
+                for pid in pids]
         try:
             with open(path, "w") as fd:
                 json.dump({"traceEvents": meta + out_events,

@@ -111,7 +111,8 @@ FAULT_SITES: Dict[str, FaultSite] = {
             "jobs.worker", "core", "retry",
             ("raise", "exit"),
             "dead worker's pending contracts requeued into a fresh pool "
-            "once, then analyzed in-process"),
+            "once, then analyzed in-process; a DeviceFault raised in a "
+            "worker stops the run instead"),
         FaultSite(
             "serve.request", "serve/daemon", "quarantine",
             ("raise",),
@@ -156,9 +157,8 @@ FAULT_SITES: Dict[str, FaultSite] = {
 }
 
 # sites whose surface is not ported yet, with the ROADMAP.md §1 item that
-# brings it: corpus runs (8), serve and fleet (9)
+# brings it: serve and fleet (9)
 NOT_PORTED = {
-    "jobs.worker": 8,
     "serve.request": 9, "serve.admission": 9, "serve.worker": 9,
     "fleet.shard": 9, "fleet.route": 9, "netstore.entry": 9,
 }

@@ -16,8 +16,24 @@ Flush triggers (bounded window):
   age      a submit arriving after the oldest buffered entry has waited
            COALESCE_MS (6 ms)
 
-Synchronous host code (time.monotonic checks, no threads). Every flush is
-counted in SolverStatistics (window_flushes, coalesced_queries).
+Synchronous host code (time.monotonic checks, no threads of its own).
+Every flush is counted in SolverStatistics (window_flushes,
+coalesced_queries).
+
+Cross-contract windows (service/interleave.py;
+mythril_tpu/service/scheduler.py:150-330): the window is process-global
+and every buffered entry carries an origin tag (the contract identity
+the interleaved corpus run mints; None outside it). Under the
+interleave coordinator solve_batch and solve_fork_batch PARK their
+bundle instead of demanding a flush, and the age trigger is suspended,
+so bundles from different contracts gather in one window and ride one
+router dispatch, whose streams then mix origins. A fork bundle's pairs
+travel as shared tokens the flush turns back into the router's
+fork_pairs hint. Fair admission: a flush group holding two or more
+origins splits into sub-groups that round-robin the origins, each
+origin at most MYTHRIL_GPU_ORIGIN_BUDGET (32) queries a sub-group, so a
+contract that floods the window cannot push a small one's queries out of
+the first dispatch (nothing is dropped, only ordered).
 
 Failure isolation (the registered fault site scheduler.flush, retry
 action): a group whose batched solve raises is retried query by query, so
@@ -25,11 +41,8 @@ the buffered siblings still get their real verdicts and only a query that
 fails alone degrades to unknown. A DeviceFault, or a NoDeviceError, is
 not a host error: it propagates at once and is never retried, which would
 launch K1 again after the device failed (the JAX package retries those
-too, as its device errors fall back to the host).
-
-Differences from the JAX package: the DeviceFault rule above, and the
-interleave coordinator's parking and fair per-origin sub-groups wait for
-the corpus slice.
+too, as its device errors fall back to the host). A flush resolves every
+handle it popped in its finally, so no parked analysis waits for ever.
 """
 
 import logging
@@ -45,6 +58,8 @@ DEFAULT_COALESCE_MAX = 16
 # on the gpu backend ONE ragged launch covers a whole window regardless
 # of shape, so a wider window buys amortization
 DEFAULT_COALESCE_MAX_RAGGED = 64
+# one origin's share of a flush sub-group when the window mixes origins
+DEFAULT_ORIGIN_BUDGET = 32
 
 
 class SolveHandle:
@@ -87,7 +102,12 @@ class CoalescingScheduler:
                 default_max = DEFAULT_COALESCE_MAX_RAGGED
         self.max_batch = max(
             1, int(env_float("MYTHRIL_GPU_COALESCE_MAX", default_max)))
-        # entries: (handle, constraint list, crosscheck, origin tag)
+        self.origin_budget = max(
+            1, int(env_float("MYTHRIL_GPU_ORIGIN_BUDGET",
+                             DEFAULT_ORIGIN_BUDGET)))
+        # entries: (handle, constraint list, crosscheck, origin tag, pair
+        # token); the token is one object per fork pair (both sides of one
+        # batched JUMPI fork), None for other traffic
         self._buffer: List[tuple] = []
         self._oldest: Optional[float] = None
 
@@ -103,32 +123,44 @@ class CoalescingScheduler:
             self.flush()
         return handle
 
-    def _buffer_one(self, handle, constraints, crosscheck) -> None:
-        from mythril_tpu_torch.service.interleave import current_origin
+    def _buffer_one(self, handle, constraints, crosscheck,
+                    pair_key=None) -> None:
+        from mythril_tpu_torch.service import interleave
 
         now = time.monotonic()
         if (self._buffer and self._oldest is not None
+                and interleave.active() is None
                 and (now - self._oldest) * 1000.0 >= COALESCE_MS):
             # the window expired while nobody demanded a result: flush the
-            # stale cohort before starting a new one
+            # stale cohort before starting a new one. Under the interleave
+            # coordinator the age trigger is suspended: parked bundles wait
+            # for sibling contracts' queries by design, and the coordinator
+            # flushes the moment no analysis can progress
             self.flush()
             now = time.monotonic()
         if not self._buffer:
             self._oldest = now
         self._buffer.append((handle, list(constraints), crosscheck,
-                             current_origin()))
+                             interleave.current_origin(), pair_key))
 
     def solve_batch(self, constraint_sets,
                     crosscheck: Optional[bool] = None) -> List:
         """Seam entry point: buffer every sibling query, then demand all
         results — the whole bundle (plus anything already buffered) rides
         ONE window flush regardless of max_batch (the caller bounds the
-        bundle; splitting it would split its stream)."""
+        bundle; splitting it would split its stream). Under the interleave
+        coordinator the bundle parks instead: the baton passes to sibling
+        analyses, whose bundles join the same window."""
         handles = []
         for constraints in constraint_sets:
             handle = SolveHandle(self)
             self._buffer_one(handle, constraints, crosscheck)
             handles.append(handle)
+        from mythril_tpu_torch.service import interleave
+
+        coordinator = interleave.active()
+        if coordinator is not None and handles:
+            coordinator.park_for_results(self, handles)
         return [handle.result() for handle in handles]
 
     def solve_fork_batch(self, constraint_sets, pairs,
@@ -138,19 +170,43 @@ class CoalescingScheduler:
         with `pairs` — (i, j) index pairs marking two sides of one row —
         forwarded to the router's fork lane, which packs a pair's shared
         cone once and rides both sides on one ragged stream with the fork
-        literals as extra roots. Already-buffered traffic flushes first so
-        the pair indices stay aligned with the bundle."""
-        from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
-        from mythril_tpu_torch.support.model import get_models_batch
+        literals as extra roots. Outside the interleave coordinator,
+        already-buffered traffic flushes first so the pair indices stay
+        aligned with the bundle. Under it the bundle joins the shared
+        window like any other traffic, each pair tagged with a token the
+        flush turns back into the fork_pairs hint."""
+        from mythril_tpu_torch.service import interleave
 
-        self.flush()
-        SolverStatistics().add_window_flush(len(constraint_sets))
-        return get_models_batch(constraint_sets, crosscheck=crosscheck,
-                                fork_pairs=pairs)
+        coordinator = interleave.active()
+        if coordinator is None:
+            from mythril_tpu_torch.smt.solver.statistics import (
+                SolverStatistics,
+            )
+            from mythril_tpu_torch.support.model import get_models_batch
+
+            self.flush()
+            SolverStatistics().add_window_flush(len(constraint_sets))
+            return get_models_batch(constraint_sets, crosscheck=crosscheck,
+                                    fork_pairs=pairs)
+        pair_keys = {}
+        for i, j in pairs or ():
+            token = object()
+            pair_keys[i] = token
+            pair_keys[j] = token
+        handles = []
+        for index, constraints in enumerate(constraint_sets):
+            handle = SolveHandle(self)
+            self._buffer_one(handle, constraints, crosscheck,
+                             pair_key=pair_keys.get(index))
+            handles.append(handle)
+        if handles:
+            coordinator.park_for_results(self, handles)
+        return [handle.result() for handle in handles]
 
     def flush(self) -> None:
-        """Solve everything buffered: one get_models_batch per distinct
-        crosscheck flag, submission order preserved per group."""
+        """Solve everything buffered: one _solve_group per distinct
+        crosscheck flag and fair-admission sub-group, submission order
+        preserved per group."""
         if not self._buffer:
             return
         from mythril_tpu_torch.observe.tracer import span as trace_span
@@ -166,10 +222,10 @@ class CoalescingScheduler:
             with trace_span("scheduler.flush", cat="service",
                             queries=len(buffered), groups=len(groups)):
                 for flag, entries in groups.items():
-                    outcomes = self._solve_group(flag, entries)
-                    for (handle, _c, _f, _o), outcome in zip(entries,
-                                                             outcomes):
-                        handle._resolve(outcome)
+                    for group in self._origin_groups(entries):
+                        outcomes = self._solve_group(flag, group)
+                        for entry, outcome in zip(group, outcomes):
+                            entry[0]._resolve(outcome)
         finally:
             # an error escaping the isolation below (a DeviceFault) reaches
             # the demanding caller; no popped handle may dangle, so the
@@ -178,23 +234,77 @@ class CoalescingScheduler:
                 if not entry[0].done:
                     entry[0]._resolve(("unknown", None))
 
+    def _origin_groups(self, entries: List[tuple]) -> List[List[tuple]]:
+        """Fair admission (mythril_tpu/service/scheduler.py:294): with two
+        or more origins in a flush group, round-robin the origins with at
+        most origin_budget entries each a sub-group, so every origin in
+        the window lands in the first dispatch and a flooding origin's
+        overflow rides later sub-groups of the same flush. A fork pair
+        travels as one atom. Single-origin and untagged windows pass
+        through as one group."""
+        origins = {entry[3] for entry in entries}
+        if len(origins) < 2:
+            return [entries]
+        queues = {}   # origin -> atoms (one entry, or a fork pair)
+        order = []
+        pending_pair = {}  # pair token -> the atom awaiting its second side
+        for entry in entries:
+            origin = entry[3]
+            if origin not in queues:
+                queues[origin] = []
+                order.append(origin)
+            token = entry[4]
+            if token is not None and token in pending_pair:
+                pending_pair.pop(token).append(entry)
+                continue
+            atom = [entry]
+            queues[origin].append(atom)
+            if token is not None:
+                pending_pair[token] = atom
+        cursors = {origin: 0 for origin in order}
+        groups: List[List[tuple]] = []
+        while any(cursors[o] < len(queues[o]) for o in order):
+            group: List[tuple] = []
+            for origin in order:
+                queue, cursor = queues[origin], cursors[origin]
+                taken = 0
+                while cursor < len(queue) and taken < self.origin_budget:
+                    group.extend(queue[cursor])
+                    taken += len(queue[cursor])
+                    cursor += 1
+                cursors[origin] = cursor
+            groups.append(group)
+        return groups
+
     @staticmethod
     def _solve_group(flag, entries) -> List:
         """Solve one crosscheck group of a window flush, isolating a
         failing query: on a host error the group is retried query by query
         (a `retry` event), and only a query that fails alone degrades to
         unknown (a `degraded` event). A device error propagates
-        unretried."""
+        unretried. The router's fork_pairs hint is rebuilt from the pair
+        tokens at the positions the entries occupy (a pair never straddles
+        a sub-group); the retry drops it, as it is a packing hint only."""
         from mythril_tpu_torch.gpu.device import DeviceFault, NoDeviceError
         from mythril_tpu_torch.resilience import maybe_inject, record_event
         from mythril_tpu_torch.support.model import get_models_batch
 
+        fork_pairs = []
+        first_side = {}
+        for position, entry in enumerate(entries):
+            token = entry[4]
+            if token is None:
+                continue
+            if token in first_side:
+                fork_pairs.append((first_side.pop(token), position))
+            else:
+                first_side[token] = position
         try:
             maybe_inject("scheduler.flush")
             return get_models_batch(
-                [constraints for _h, constraints, _f, _o in entries],
-                crosscheck=flag,
-                origins=[origin for _h, _c, _f, origin in entries])
+                [entry[1] for entry in entries], crosscheck=flag,
+                origins=[entry[3] for entry in entries],
+                fork_pairs=fork_pairs or None)
         except (DeviceFault, NoDeviceError):
             raise
         except Exception:
@@ -203,10 +313,10 @@ class CoalescingScheduler:
                         exc_info=True)
             record_event("scheduler.flush", "retry")
         outcomes = []
-        for _handle, constraints, _f, origin in entries:
+        for entry in entries:
             try:
                 outcomes.append(get_models_batch(
-                    [constraints], crosscheck=flag, origins=[origin])[0])
+                    [entry[1]], crosscheck=flag, origins=[entry[3]])[0])
             except (DeviceFault, NoDeviceError):
                 raise
             except Exception:
@@ -221,8 +331,8 @@ class CoalescingScheduler:
         isolation); unresolved handles degrade to unknown."""
         buffered, self._buffer = self._buffer, []
         self._oldest = None
-        for handle, _c, _f, _o in buffered:
-            handle._resolve(("unknown", None))
+        for entry in buffered:
+            entry[0]._resolve(("unknown", None))
 
 
 _scheduler: Optional[CoalescingScheduler] = None

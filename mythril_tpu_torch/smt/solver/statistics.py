@@ -105,6 +105,13 @@ class SolverStatistics:
         "ragged_windows",
         "ragged_cones_packed",
         "paged_stream_bytes",
+        # corpus runs (service/interleave.py): streams whose cones came
+        # from two or more contracts and the cones they carried, and disk
+        # tier hits served to another contract than the one that stored
+        # the entry
+        "xcontract_windows",
+        "xcontract_cones_packed",
+        "xcontract_dedup_hits",
         # the cube-and-conquer second pass: cubes shipped as pinned
         # replicas, and cubes that came back modelless
         "cubes_dispatched",
@@ -134,6 +141,9 @@ class SolverStatistics:
         "resilience_deadline_trips",
         "resilience_stale_lock_breaks",
         "resilience_faults_injected",
+        # requeues of a --jobs pool whose worker died with contracts in
+        # flight (core.py): one a requeue
+        "resilience_worker_requeues",
         # calls guarded by the deadline runner (resilience/deadline.py)
         "deadline_runner_calls",
         # the engine (laser/svm.py, analysis/module/loader.py): detection
@@ -205,6 +215,7 @@ class SolverStatistics:
         "deadline": "resilience_deadline_trips",
         "stale_break": "resilience_stale_lock_breaks",
         "injected": "resilience_faults_injected",
+        "worker_requeue": "resilience_worker_requeues",
     }
 
     def __new__(cls):
@@ -444,6 +455,20 @@ class SolverStatistics:
             self.ragged_cones_packed += cones
             self.paged_stream_bytes += stream_bytes
 
+    def add_xcontract_window(self, cones: int) -> None:
+        """One ragged stream launch whose cones came from two or more
+        distinct origins (contracts); `cones` is the stream's whole cone
+        count (mythril_tpu/smt/solver/statistics.py:511)."""
+        if self.enabled:
+            self.xcontract_windows += 1
+            self.xcontract_cones_packed += cones
+
+    def add_xcontract_dedup_hit(self, count: int = 1) -> None:
+        """A disk-tier entry (whole instance or component sub-model)
+        stored by one contract's analysis and served to another
+        contract's query in this process (:520)."""
+        self._add("xcontract_dedup_hits", count)
+
     def add_cube_dispatch(self, cubes: int, refuted: int = 0) -> None:
         """One cube-and-conquer pass: `cubes` pinned replicas of a hard
         cone rode a ragged stream; `refuted` came back modelless
@@ -679,6 +704,38 @@ class SolverStatistics:
             else {})
         return out
 
+    def absorb(self, snapshot: dict) -> None:
+        """Fold a --jobs worker's as_dict() into this (the parent's)
+        singleton (mythril_tpu/smt/solver/statistics.py:984): every
+        counter and timer, the port's own device keys among them
+        (kernel_launches and kernel_cells_stepped, the frontier's
+        counters, the deadline runner's calls and hand-off wall), the
+        suffix histogram, the per-opcode wall and the per-site
+        resilience events. The device backend's stats stay per process:
+        the backend never crosses the spawn boundary."""
+        if not self.enabled or not snapshot:
+            return
+        for name in self._COUNTERS:
+            setattr(self, name, getattr(self, name)
+                    + int(snapshot.get(name, 0)))
+        for name in self._TIMERS:
+            setattr(self, name, getattr(self, name)
+                    + float(snapshot.get(name, 0.0)))
+        for bucket, count in (snapshot.get("prepare_suffix_hist")
+                              or {}).items():
+            self.prepare_suffix_hist[bucket] = (
+                self.prepare_suffix_hist.get(bucket, 0) + int(count))
+        for op, (count, seconds) in (snapshot.get("interp_opcode_wall")
+                                     or {}).items():
+            record = self.interp_opcode_wall.setdefault(op, [0, 0.0])
+            record[0] += int(count)
+            record[1] += float(seconds)
+        sites = (snapshot.get("resilience") or {}).get("sites") or {}
+        for site, events in sites.items():
+            per_site = self.resilience_events.setdefault(site, {})
+            for event, count in events.items():
+                per_site[event] = per_site.get(event, 0) + int(count)
+
     def __repr__(self):
         out = (f"Solver statistics: query count: {self.query_count}, "
                f"solver time: {self.solver_time:.3f}")
@@ -750,6 +807,10 @@ class SolverStatistics:
                     f" {self.cubes_dispatched} cubes"
                     f"/{self.cube_device_refutes} device refutes,"
                     f" {self.kernel_launches} kernel launches)")
+        if self.xcontract_windows or self.xcontract_dedup_hits:
+            out += (f", cross-contract: {self.xcontract_windows} mixed"
+                    f" windows ({self.xcontract_cones_packed} cones,"
+                    f" {self.xcontract_dedup_hits} dedup hits)")
         if self.resilience_events:
             out += (f", resilience: {self.resilience_retries} retries"
                     f"/{self.resilience_degraded} degraded"

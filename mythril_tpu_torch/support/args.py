@@ -42,6 +42,9 @@ class _Args:
         #   metrics JSONL; MYTHRIL_GPU_HEARTBEAT is the env equivalent)
         self.inject_fault = None               # --inject-fault SPEC (the
         #   fault-injection harness; MYTHRIL_GPU_FAULTS wins over it)
+        self.jobs = 1                          # --jobs N worker processes
+        self.corpus_interleave = 0             # --corpus-interleave N
+        #   (MYTHRIL_GPU_CORPUS_INTERLEAVE wins over it)
 
     def reset(self):
         self.__init__()

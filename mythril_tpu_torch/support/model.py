@@ -27,8 +27,9 @@ A device error raises out of here as a recorded DeviceFault, and so does
 a fresh device model that fails its _reconstruct check (the JAX package
 falls back to the CDCL for both). An entry loaded from disk that fails
 _reconstruct is a host artefact: a safe miss, counted in
-persistent_verify_rejects. The disk tier's network mirror and its
-cross-contract counters come with the fleet and corpus slices.
+persistent_verify_rejects. A disk hit on an entry another contract's
+analysis stored in this process counts xcontract_dedup_hits (corpus
+runs). The disk tier's network mirror comes with the fleet slice.
 """
 
 import os
@@ -128,6 +129,34 @@ def caches_for_origin(origin):
     return _origin_caches[origin]
 
 
+# fingerprint -> origin tag of the analysis that first persisted the entry
+# in this process (entries written outside an origin are not recorded).
+# Telemetry only: a later hit from another origin counts
+# xcontract_dedup_hits, the disk tier's content-addressed fingerprints
+# deduping identical (sub-)cones across contracts
+# (mythril_tpu/support/model.py:126-148). First writer wins, size-capped,
+# never read for a verdict.
+_fingerprint_origins: dict = {}
+_FINGERPRINT_ORIGIN_MAX = 1 << 16
+
+
+def _record_fingerprint_origin(fingerprint, origin) -> None:
+    if fingerprint is None or origin is None:
+        return
+    if fingerprint not in _fingerprint_origins \
+            and len(_fingerprint_origins) >= _FINGERPRINT_ORIGIN_MAX:
+        return
+    _fingerprint_origins.setdefault(fingerprint, origin)
+
+
+def _count_xcontract_hit(fingerprint, origin, stats) -> None:
+    """A disk-tier hit on an entry another origin stored in this
+    process: cross-contract dedup, counted."""
+    stored = _fingerprint_origins.get(fingerprint)
+    if stored is not None and origin is not None and stored != origin:
+        stats.add_xcontract_dedup_hit()
+
+
 def _cache_key(terms_list) -> Optional[tuple]:
     """Order- and multiplicity-insensitive key: the DEDUPLICATED constraint
     terms sorted by hash. The stored entry is verified by structural
@@ -166,14 +195,16 @@ def _prep_partition(prep):
         return None
 
 
-def _probe_component_assembly(store, solver, prep, stats):
+def _probe_component_assembly(store, solver, prep, stats, origin=None):
     """Disk-tier probe at component granularity: when the whole-instance
     fingerprint misses but every non-trivial component of the partitioned
     instance has a stored SAT sub-model, the components reassemble into a
     full model, so a sub-cone shared by different parent queries hits
     across them. The assembled assignment goes through Solver._reconstruct
     (validated against the ORIGINAL constraints): any staleness or
-    collision is a safe miss. Returns ("sat", Model, True) or None."""
+    collision is a safe miss. Returns ("sat", Model, True) or None. The
+    cross-contract dedup hits are counted only once the whole assembly
+    serves."""
     partition = _prep_partition(prep)
     if partition is None:
         return None
@@ -186,16 +217,19 @@ def _probe_component_assembly(store, solver, prep, stats):
 
     aig, dense_q = prep.aig_roots[0], prep.aig_roots[2]
     merged = [False] * (prep.num_vars + 1)
+    hit_fingerprints = []
     try:
         for component in partition.components:
             if apply_trivial_assignment(component, dense_q, merged):
                 continue
             comp_nv, comp_cnf, comp_dense = component.instance(aig)
-            entry = store.lookup(component_fingerprint(
-                comp_nv, comp_cnf, component.roots, comp_dense))
+            fingerprint = component_fingerprint(
+                comp_nv, comp_cnf, component.roots, comp_dense)
+            entry = store.lookup(fingerprint)
             if entry is None or entry.verdict != "sat" \
                     or entry.num_vars != comp_nv or entry.bits is None:
                 return None
+            hit_fingerprints.append(fingerprint)
             merge_component_bits(
                 comp_dense, dense_q, component_vars(comp_dense),
                 entry.bits, merged)
@@ -203,10 +237,13 @@ def _probe_component_assembly(store, solver, prep, stats):
     except Exception:
         stats.add_persistent_verify_reject()
         return None
+    for fingerprint in hit_fingerprints:
+        _count_xcontract_hit(fingerprint, origin, stats)
     return ("sat", model, True)
 
 
-def _persist_component_entries(store, prep, bits, stats) -> None:
+def _persist_component_entries(store, prep, bits, stats,
+                               origin=None) -> None:
     """Store each non-trivial component's sub-model under its own
     fingerprint, so later queries sharing the sub-cone (under any parent,
     in any later process) can reassemble it from disk."""
@@ -231,11 +268,12 @@ def _persist_component_entries(store, prep, bits, stats) -> None:
                 comp_nv, comp_cnf, component.roots, comp_dense)
             if store.store_sat(fingerprint, comp_nv, comp_bits):
                 stats.add_persistent_store()
+            _record_fingerprint_origin(fingerprint, origin)
     except Exception:
         pass  # persistence is best-effort; never break a solve
 
 
-def _probe_persistent(solver, prep, crosscheck, stats):
+def _probe_persistent(solver, prep, crosscheck, stats, origin=None):
     """Disk-tier lookup for a blasted instance: (fingerprint, outcome).
     outcome is ("sat", Model, True) / ("unsat", None, memoizable) on a
     trusted hit, None on a miss; fingerprint is None when the disk tier
@@ -249,11 +287,11 @@ def _probe_persistent(solver, prep, crosscheck, stats):
     with trace_span("cache.probe", cat="service"):
         return _probe_persistent_store(
             store, instance_fingerprint(prep), solver, prep, crosscheck,
-            stats)
+            stats, origin=origin)
 
 
 def _probe_persistent_store(store, fingerprint, solver, prep, crosscheck,
-                            stats):
+                            stats, origin=None):
     """A SAT entry is replay-verified: its bits go through
     Solver._reconstruct against the ORIGINAL constraints, and a failure is
     a safe miss (persistent_verify_rejects), never a verdict and never a
@@ -267,7 +305,8 @@ def _probe_persistent_store(store, fingerprint, solver, prep, crosscheck,
     if entry is None:
         # a whole-instance miss: a partitioned instance may still
         # reassemble from per-component entries
-        assembled = _probe_component_assembly(store, solver, prep, stats)
+        assembled = _probe_component_assembly(store, solver, prep, stats,
+                                              origin=origin)
         stats.add_persistent_lookup(hit=assembled is not None)
         return fingerprint, assembled
     if entry.verdict == "sat":
@@ -280,6 +319,7 @@ def _probe_persistent_store(store, fingerprint, solver, prep, crosscheck,
             stats.add_persistent_lookup(hit=False)
             return fingerprint, None
         stats.add_persistent_lookup(hit=True)
+        _count_xcontract_hit(fingerprint, origin, stats)
         return fingerprint, ("sat", model, True)
     if crosscheck and not entry.crosschecked:
         # a detection-critical lookup of an entry that never got its
@@ -287,6 +327,7 @@ def _probe_persistent_store(store, fingerprint, solver, prep, crosscheck,
         stats.add_persistent_lookup(hit=False)
         return fingerprint, None
     stats.add_persistent_lookup(hit=True)
+    _count_xcontract_hit(fingerprint, origin, stats)
     return fingerprint, ("unsat", None, entry.crosschecked)
 
 
@@ -304,7 +345,7 @@ def _crosscheck_confirmed(crosscheck: bool) -> bool:
 
 
 def _persist_result(fingerprint, prep, status, bits=None,
-                    crosscheck=False, stats=None) -> None:
+                    crosscheck=False, stats=None, origin=None) -> None:
     """Write a settled verdict into the disk tier (no-op when off). A SAT
     verdict is stored whole and per component."""
     if fingerprint is None:
@@ -314,12 +355,14 @@ def _persist_result(fingerprint, prep, status, bits=None,
         return
     if status == SAT:
         stored = store.store_sat(fingerprint, prep.num_vars, bits)
-        _persist_component_entries(store, prep, bits, stats)
+        _persist_component_entries(store, prep, bits, stats,
+                                   origin=origin)
     elif status == UNSAT:
         stored = store.store_unsat(
             fingerprint, crosschecked=_crosscheck_confirmed(crosscheck))
     else:
         return
+    _record_fingerprint_origin(fingerprint, origin)
     if stored and stats is not None:
         stats.add_persistent_store()
 
@@ -413,8 +456,9 @@ def _get_model_impl(
                 raise UnsatError()
             raise SolverTimeOutException()
 
+        origin = current_origin()
         fingerprint, cached_outcome = _probe_persistent(
-            solver, prep, crosscheck, stats)
+            solver, prep, crosscheck, stats, origin=origin)
         if cached_outcome is not None:
             verdict, model, memoizable = cached_outcome
             if verdict == "sat":
@@ -433,13 +477,14 @@ def _get_model_impl(
                 _store_result(key, model)
                 model_cache.put(model)
             _persist_result(fingerprint, prep, SAT, bits=prep.last_bits,
-                            crosscheck=crosscheck, stats=stats)
+                            crosscheck=crosscheck, stats=stats,
+                            origin=origin)
             return model
         if status == UNSAT:
             if key is not None:
                 _store_result(key, UNSAT)
             _persist_result(fingerprint, prep, UNSAT, crosscheck=crosscheck,
-                            stats=stats)
+                            stats=stats, origin=origin)
             raise UnsatError()
         raise SolverTimeOutException()
     finally:
@@ -556,7 +601,7 @@ def _get_models_batch_impl(constraint_sets, enforce_execution_time,
                 results[idx] = ("unknown", None)
             continue
         fingerprint, cached_outcome = _probe_persistent(
-            solver, prep, crosscheck, stats)
+            solver, prep, crosscheck, stats, origin=origin_of(idx))
         if cached_outcome is not None:
             verdict, model, memoizable = cached_outcome
             if verdict == "sat":
@@ -620,7 +665,8 @@ def _get_models_batch_impl(constraint_sets, enforce_execution_time,
                 _store_result(key, model, tier)
                 quick_cache.put(model)
             _persist_result(fingerprint, prep, SAT, bits=bits,
-                            crosscheck=crosscheck, stats=stats)
+                            crosscheck=crosscheck, stats=stats,
+                            origin=origin_of(idx))
         pending = still_pending
 
     # CDCL settles the rest (and proves UNSAT); no device re-entry
@@ -641,13 +687,15 @@ def _get_models_batch_impl(constraint_sets, enforce_execution_time,
                     _store_result(key, model, tier)
                     quick_cache.put(model)
                 _persist_result(fingerprint, prep, SAT, bits=prep.last_bits,
-                                crosscheck=crosscheck, stats=stats)
+                                crosscheck=crosscheck, stats=stats,
+                                origin=origin_of(idx))
             elif status == UNSAT:
                 results[idx] = ("unsat", None)
                 if key is not None:
                     _store_result(key, UNSAT, tier)
                 _persist_result(fingerprint, prep, UNSAT,
-                                crosscheck=crosscheck, stats=stats)
+                                crosscheck=crosscheck, stats=stats,
+                                origin=origin_of(idx))
             else:
                 results[idx] = ("unknown", None)
     stats.add_host_route_seconds(time.monotonic() - settle_start)
@@ -664,10 +712,12 @@ def _store_result(key, value, cache=None) -> None:
 
 def clear_result_tiers() -> None:
     """Drop the memory tiers alone: the term-keyed results, the quick-sat
-    models and the per-origin pairs (every other cache stays warm)."""
+    models, the per-origin pairs and the disk entries' origin attribution
+    (every other cache stays warm)."""
     _result_cache.clear()
     model_cache.models.clear()
     _origin_caches.clear()
+    _fingerprint_origins.clear()
 
 
 def clear_caches() -> None:

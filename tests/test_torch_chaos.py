@@ -322,6 +322,56 @@ def test_cuda_frontier_step_raise_stops_with_device_fault(monkeypatch,
     assert stats["resilience_degraded"] == 0, "no per-state replay"
 
 
+# -- --jobs worker death (core.py) ---------------------------------------------
+
+
+def _parallel_report(spec=None, jobs=2):
+    """KILLBILLY and OVERFLOW_ADD in one run on the device backend (K1's
+    plain version), in `jobs` spawn workers, with `spec` armed."""
+    from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
+
+    args.reset()
+    cmd_args = SimpleNamespace(
+        execution_timeout=EXECUTION_TIMEOUT, transaction_count=1,
+        max_depth=128, solver_backend="gpu", torch_device="cpu",
+        pruning_factor=1, jobs=jobs, inject_fault=spec)
+    try:
+        disassembler = MythrilDisassembler()
+        disassembler.load_from_bytecode(wrap_creation(KILLBILLY))
+        disassembler.load_from_bytecode(wrap_creation(OVERFLOW_ADD))
+        report = MythrilAnalyzer(disassembler, cmd_args=cmd_args,
+                                 strategy="bfs").fire_lasers(
+            transaction_count=1)
+    finally:
+        args.reset()
+    assert not report.exceptions, report.exceptions
+    return issue_keys(report)
+
+
+@pytest.mark.parametrize("spec,expected_events", [
+    pytest.param("jobs.worker:exit:n1", {"worker_requeue": 1, "degraded": 1},
+                 id="jobs.worker-exit"),
+    pytest.param("jobs.worker:raise:n1", {"degraded": 1},
+                 id="jobs.worker-raise"),
+])
+def test_worker_death_requeues_then_degrades_in_process(spec,
+                                                        expected_events):
+    """jobs.worker: `exit` kills every spawn worker at its first crossing
+    (a crashed worker's shape): the watchdog sees the death, the pending
+    contracts go to a fresh pool once, and when those workers die too the
+    corpus is analyzed in this process. `raise` comes back as a worker's
+    host error: the contracts are analyzed in this process at once. Both
+    find what the one-process run finds."""
+    baseline = _parallel_report(jobs=1)
+    _full_reset()
+    SolverStatistics().reset()
+    faulted = _parallel_report(spec=spec)
+    assert faulted == baseline, f"findings changed under {spec}"
+    assert _events("jobs.worker") == expected_events
+    assert SolverStatistics().resilience_worker_requeues == \
+        expected_events.get("worker_requeue", 0)
+
+
 def test_every_wired_site_kind_pair_is_exercised():
     """Every (site, kind) pair the registry declares for a site the port
     wires appears as an injected spec in this file or in

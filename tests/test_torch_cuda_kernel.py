@@ -142,3 +142,57 @@ def test_router_dispatch_on_the_card_launches_the_kernel(cuda_device):
         args.reset()
         model.clear_caches()
         stats.reset()
+
+
+def test_cuda_kernel_mixed_origin_stream_matches_plain_round(cuda_device):
+    """Cones of two contracts' AIGs (two generators, as two analyses'
+    blasters) interleaved on one stream, as an interleaved corpus window
+    sends them: bit for bit with the plain round."""
+    first = random_cones(random.Random(21), 6)
+    second = random_cones(random.Random(22), 6)
+    entries = [(pc, ()) for pair in zip(first, second) for pc in pair]
+    _assert_kernel_matches_plain(cuda_device, circuit.RaggedStream(entries),
+                                 SMALL, 21, 8, 48)
+
+
+def test_mixed_origin_window_on_the_card_matches_plain_round(cuda_device):
+    """Two contracts' sibling queries in one get_models_batch call on the
+    card, tagged by origin: a stream the router sends K1 mixes them
+    (xcontract_windows), and K1 is bit for bit with its plain version on
+    the largest stream it was sent."""
+    import mythril_tpu_torch.smt as smt
+    from mythril_tpu_torch.gpu.backend import get_device_backend
+    from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
+    from mythril_tpu_torch.support import model
+    from mythril_tpu_torch.support.args import args
+    from mythril_tpu_torch.support.workloads import sibling_window
+
+    model.clear_caches()
+    stats = SolverStatistics()
+    stats.reset()
+    stats.enabled = True
+    kept = {}
+
+    def keep(stream, entries):
+        gates = sum(pc.num_gates for pc, _extra in entries)
+        if gates > kept.get("gates", -1):
+            kept.update(gates=gates, stream=stream)
+
+    backend = get_device_backend("cuda")
+    backend.on_stream = keep
+    try:
+        args.solver_backend = "gpu"
+        args.torch_device = "cuda"
+        queries = sibling_window(smt, 32, seed=5)
+        model.get_models_batch(queries, origins=["0:a"] * 16 + ["1:b"] * 16)
+        assert stats.xcontract_windows >= 1
+        assert stats.xcontract_cones_packed >= 2
+    finally:
+        backend.on_stream = None
+        args.reset()
+        model.clear_caches()
+        stats.reset()
+    caps = ragged_kernel.kernel_caps()
+    stream = kept["stream"]
+    assert stream.v1 <= caps.var_cap and stream.cone_slots <= caps.cone_cap
+    _assert_kernel_matches_plain(cuda_device, stream, caps, 9, 64, 64)

@@ -1,8 +1,7 @@
 """The port's live telemetry: the metrics registry and heartbeat stream,
-the Prometheus file and the always-on flight recorder (the counterparts of
-tests/test_observe_live.py; its --jobs worker-death case waits for the
-port's corpus runs, and its bench_compare and stats-dump cases for the
-port's benchmark)."""
+the Prometheus file and the always-on flight recorder, and a --jobs
+worker's death (the counterparts of tests/test_observe_live.py; its
+bench_compare and stats-dump cases wait for the port's benchmark)."""
 
 import glob
 import json
@@ -369,3 +368,52 @@ def test_tiny_analyze_heartbeat_reconciles_with_stats_json(
             f"final heartbeat counter {name} does not reconcile with "
             "the exit stats JSON")
     assert "query_count" in open(prom_path).read()
+
+
+# -- an abnormal --jobs worker exit ---------------------------------------------
+
+
+def test_worker_death_leaves_timeline_and_metrics_valid(
+        tmp_path, monkeypatch):
+    """A --jobs worker killed at its start (an injected exit, a crashed
+    worker's shape) leaves the parent's merged trace schema-valid, the
+    worker-death events in the metrics snapshot, the heartbeat stream
+    ending in its final beat, and the snapshot serializable."""
+    from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
+    from mythril_tpu_torch.observe import TRACE_ENV
+    from mythril_tpu_torch.resilience import faults
+
+    trace_path = str(tmp_path / "trace.json")
+    hb_path = str(tmp_path / "hb.jsonl")
+    monkeypatch.setenv(TRACE_ENV, trace_path)
+    monkeypatch.setenv(metrics.HEARTBEAT_ENV, hb_path)
+    monkeypatch.setenv(metrics.INTERVAL_ENV, "0.2")
+    args.solver_backend = "cpu"
+    args.execution_timeout = 60
+    args.jobs = 2
+    args.inject_fault = "jobs.worker:exit:n1"
+    try:
+        disassembler = MythrilDisassembler()
+        disassembler.load_from_bytecode(TINY, bin_runtime=True)
+        disassembler.load_from_bytecode("0x6000356000556001600055",
+                                        bin_runtime=True)
+        MythrilAnalyzer(disassembler, strategy="bfs").fire_lasers(
+            transaction_count=1)
+    finally:
+        faults.configure(None)
+    sites = SolverStatistics().as_dict()["resilience"]["sites"]
+    assert sites["jobs.worker"] == {"worker_requeue": 1, "degraded": 1}
+    trace = json.load(open(trace_path))
+    x_events = [event for event in trace["traceEvents"]
+                if event["ph"] == "X"]
+    assert any(event["name"] == "analyze.contract" for event in x_events), \
+        "the contracts analyzed in process after the deaths are traced"
+    for event in x_events:
+        for field in ("name", "ts", "dur", "pid", "tid"):
+            assert field in event, f"partial span in merged trace: {event}"
+        assert event["dur"] >= 0
+    lines = [json.loads(line) for line in open(hb_path)]
+    assert lines[-1]["final"] is True
+    assert lines[-1]["resilience"]["jobs.worker"] == {
+        "worker_requeue": 1, "degraded": 1}
+    json.dumps(metrics.snapshot())

@@ -16,9 +16,6 @@ from tests.torch_helpers import run_analyze
 # keys of the JAX package's stats JSON whose surface the port has not
 # ported yet, with the ROADMAP.md §1 item that brings each
 NOT_PORTED = {
-    # 8: corpus runs (--jobs workers, --corpus-interleave)
-    "resilience_worker_requeues": 8, "xcontract_windows": 8,
-    "xcontract_cones_packed": 8, "xcontract_dedup_hits": 8,
     # 9: serve and fleet
     "serve_requests_admitted": 9, "serve_requests_rejected": 9,
     "serve_requests_requeued": 9, "serve_requests_incomplete": 9,

@@ -12,6 +12,7 @@
     python3 chip_smoke.py --k2-split PATH  # env, build, K2's split
     python3 chip_smoke.py --xla-only     # env, build, the xla phase
     python3 chip_smoke.py --corpus-only  # env, build, the corpus phase
+    python3 chip_smoke.py --serve-only   # env, build, the serve phase
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
@@ -64,7 +65,7 @@ line):
           went, and holds K1 bit for bit against its plain version on the
           largest stream the router launched in (a), and times it there;
   frontier the frontier step K6 against its plain version (the same
-          micro-op interpreter in torch ops) on the card, on 300 seeded
+          micro-op interpreter in torch ops) on the card, on 100 seeded
           random straight-line runs (support/workloads.frontier_program,
           a quarter of the words at the edges 0, 1, 2^255 and 2^256 - 1)
           over 1-64 rows each, some rows starved of gas, through the
@@ -88,10 +89,10 @@ line):
           easm_to_code) at -t 2 and the four bench_inputs/corpus contracts
           at -t 1, each with an execution timeout of 600 s that the runs
           must not reach, then bench_inputs/stress_dispatch.hex at -t 1
-          with a fixed 30 s each (reported, its findings compared only if
+          with a fixed 10 s each (reported, its findings compared only if
           both runs completed; 120 s before the frontier phase came, 60 s
-          before the corpus phase came, cut to keep the script inside its
-          time limit). KILLBILLY and
+          before the corpus phase came, 30 s before the serve phase came,
+          cut to keep the script inside its time limit). KILLBILLY and
           xc_dispatch_a.hex run a third time, on the host CDCL with the
           frontier stepped by K6 (MYTHRIL_GPU_FRONTIER_BACKEND=cuda): the
           report must equal the host run's byte for byte, and the frontier
@@ -137,7 +138,7 @@ line):
           laser.frontier_step spans; and the dump reads back;
   bucketed the bucketed path (--no-ragged) with K3, the per-query round
           (after the analyze phase): (1) K3 against its plain version,
-          bit for bit (x and found), on 300 seeded random batches of 1-16
+          bit for bit (x and found), on 100 seeded random batches of 1-16
           queries (support/workloads.circuit_batch: spare query slots,
           1-4 roots, spare variables; two of them with x past shared
           memory, so the global tier runs) at random lanes, steps and
@@ -145,8 +146,10 @@ line):
           (mythril_tpu_torch.graft.entry), and on a deep synthetic batch
           of each layout tier (support/workloads.deep_batch, K3_TIER_CASES:
           shared32 with the stream in the ring and resident, shared16,
-          xshared at 32, 16 and 8 lanes a word, global) at 64, 1, 31, 33
-          and 96 lanes (the variants at 64), launch_shape's tier checked
+          xshared at 32, 16 and 8 lanes a word, global) at 64, 1 and 33
+          lanes (the variants at 64; 31 and 96 too before the serve phase
+          came; tests/test_torch_cuda_circuit.py keeps every lane count
+          1-96), launch_shape's tier checked
           on each; (2) the sibling window
           (WINDOW queries, seed SEED) through get_models_batch with
           MYTHRIL_GPU_RAGGED=0 behind a fresh router: verdicts must equal
@@ -169,7 +172,7 @@ line):
           walk depth));
   xla     the xla kernel mode (MYTHRIL_GPU_KERNEL=xla) with K2, the
           XLA-semantics ragged round (after the bucketed phase): (1) K2
-          against its plain version, bit for bit (x and found), on 300
+          against its plain version, bit for bit (x and found), on 100
           seeded random streams padded to their shape bucket (1-40
           support/workloads.random_cones, pinned inputs) at random lanes,
           steps and walk depths, and on a stream past every K1 capacity
@@ -196,7 +199,8 @@ line):
           roots' operations, as K3's); the fallback leg's largest launch
           and the stream past every K1 capacity timed the same way.
           --xla-only runs the host legs of (2) itself;
-  telemetry-overhead  KILLBILLY (-t 2) and xc_dispatch_a.hex (-t 1) on
+  telemetry-overhead  KILLBILLY (-t 2) (and xc_dispatch_a.hex -t 1
+          before the serve phase came; --telemetry-overhead runs both) on
           the device backend with every telemetry artifact off
           (MYTHRIL_GPU_FLIGHTREC=0, nothing written) and on (the ring at
           its default 512 spans, the heartbeat every 0.5 s, the
@@ -265,6 +269,32 @@ line):
           prints each leg's wall and contracts per hour beside the
           sequential host and device walls of the analyze phase.
           --corpus-only runs the sequential host and device runs itself.
+  serve   `serve` on the card, last: (a) the daemon in this process over
+          HTTP on port 0 at its defaults (batch 4, queue 64, tenant budget
+          8) with the device backend; three tenants POST five requests at
+          once (KILLBILLY at -t 2, the four corpus contracts at -t 1);
+          each answer's findings (issue granularity) equal the contract's
+          sequential host run (the analyze phase's, or run here); it
+          prints each request's latency, each batch's wall,
+          serve_batches and serve_batch_tenants, K1's launches in all and
+          on mixed-origin streams (at least one), K6's launches and the
+          card's busy share over the leg, with their counts set to 0
+          just before the leg and read just after, and K1 held bit for
+          bit and timed on the largest mixed-origin stream beside its
+          bound by bytes; (b) KILLBILLY again for the same tenant records
+          fewer cdcl_settles than its first run and than a cold tenant's
+          run, with its K1 launches; (c) POST /evict drops that tenant's
+          memory tiers and leaves the others'; (d) `serve --shards 2`
+          as a subprocess with a shared MYTHRIL_GPU_NET_TIER_DIR: one
+          contract from two tenants lands on one shard, a contract routed
+          to the other shard runs there, the first contract sent to the
+          other shard is served from the tier (net_tier_hits), both
+          shards' K1 solve rounds are above 0, the merged /metrics equal
+          the shards' snapshots summed, and SIGTERM exits 0; (e) `serve`
+          with device.dispatch:raise:n1: both requests answer
+          `device_fault` (or are refused with it), /healthz answers 503
+          with ok false, and the process exits 2. --serve-only runs the
+          host runs itself.
 --telemetry-overhead runs the overhead legs alone, twice over (eight legs
 a contract).
 
@@ -315,7 +345,8 @@ K2's launches over the xla-mode analyze runs, the fallback leg and the
 random streams, and its time on the xla runs' largest launch with its
 split and walk lengths, then on the fallback's and the past-k1 stream;
 K1's and K6's launches in the corpus phase, and K1's time on its largest
-mixed-origin stream), the card's nvidia-smi line, and last {"ok": true,
+mixed-origin stream; the same of the serve phase, and the fleet shards'
+K1 solve rounds), the card's nvidia-smi line, and last {"ok": true,
 "device": {...}}. A copy of every JSON line goes to
 chiprun_out/chip_smoke.jsonl.
 """
@@ -343,8 +374,8 @@ FORK_PAIRS = 16    # the fork window: 32 queries
 SEED = 20261016
 OUT_DIR = "chiprun_out"
 ANALYZE_TIMEOUT = 600   # s per analyze run; the runs must complete inside
-STRESS_TIMEOUT = 30     # s per stress_dispatch run, a measurement
-FRONTIER_RUNS = 300     # random runs K6 is held against its plain version
+STRESS_TIMEOUT = 10     # s per stress_dispatch run, a measurement
+FRONTIER_RUNS = 100     # random runs K6 is held against its plain version
 FRONTIER_EDGE_BIAS = 0.25
 # analyze runs repeated on the host CDCL with the frontier stepped by K6
 CUDA_HOST_RUNS = ("killbilly", "xc_dispatch_a.hex")
@@ -359,7 +390,9 @@ HEARTBEAT_INTERVAL_S = 0.5
 # which make about 600 spans after it
 CHECKED_RING_CAP = 4096
 # contracts timed with every telemetry artifact off and on, in turns
-OVERHEAD_CONTRACTS = ("killbilly", "xc_dispatch_a.hex")
+OVERHEAD_CONTRACTS = ("killbilly",)
+# --telemetry-overhead times these
+OVERHEAD_ONLY_CONTRACTS = ("killbilly", "xc_dispatch_a.hex")
 
 _lines = []
 
@@ -2190,16 +2223,16 @@ def _overhead_leg(device, name, code, tx_count, on):
     return wall, spent.get("s", 0.0)
 
 
-def phase_telemetry_overhead(device, order=("off", "on")):
-    """What the telemetry costs: each of OVERHEAD_CONTRACTS on the device
-    backend with every artifact off and on, in `order`. Emits one record a
-    contract: the walls of each leg and the CPU seconds inside the
-    telemetry's own calls."""
+def phase_telemetry_overhead(device, order=("off", "on"), contracts=None):
+    """What the telemetry costs: each of `contracts` (OVERHEAD_CONTRACTS)
+    on the device backend with every artifact off and on, in `order`.
+    Emits one record a contract: the walls of each leg and the CPU
+    seconds inside the telemetry's own calls."""
     inputs = {name: (code, tx_count)
               for name, code, tx_count, _timeout, _compared
               in _analyze_inputs()}
     order = list(order)
-    for name in OVERHEAD_CONTRACTS:
+    for name in contracts or OVERHEAD_CONTRACTS:
         code, tx_count = inputs[name]
         walls = {"off": [], "on": []}
         inside = {"off": [], "on": []}
@@ -2537,6 +2570,57 @@ def _busy_sampler(device):
             out.update(device_busy_share="not measured")
 
 
+@contextlib.contextmanager
+def _track_mixed_streams(device, mixed):
+    """While the block runs, `mixed` (a dict; None: nothing is tracked)
+    keeps the largest stream K1 was sent for a mixed-origin group (two or
+    more origins: contracts, or tenants' requests), and counts the groups
+    and the K1 launches made while they were dispatched."""
+    from mythril_tpu_torch.gpu import ragged_kernel
+    from mythril_tpu_torch.gpu import router as router_mod
+    from mythril_tpu_torch.gpu.backend import get_device_backend
+
+    if mixed is None:
+        yield
+        return
+    original = router_mod.QueryRouter._ragged_dispatch
+    backend = get_device_backend(None if device.type == "cuda" else device)
+    caps = ragged_kernel.kernel_caps()
+    state = {"mixed": False}
+    mixed.setdefault("k1_launches", 0)
+    mixed.setdefault("groups", 0)
+
+    def dispatch(self, group, remaining, profile):
+        state["mixed"] = len({unit.origin for unit in group
+                              if unit.origin is not None}) >= 2
+        before = ragged_kernel.launches
+        try:
+            return original(self, group, remaining, profile)
+        finally:
+            if state["mixed"]:
+                mixed["groups"] += 1
+                mixed["k1_launches"] += ragged_kernel.launches - before
+            state["mixed"] = False
+
+    def keep(stream, stream_entries):
+        if not state["mixed"] or (
+                stream.v1 > caps.var_cap
+                or stream.cone_slots > caps.cone_cap
+                or stream.max_roots > caps.root_cap):
+            return
+        gates = sum(pc.num_gates for pc, _extra in stream_entries)
+        if gates > mixed.get("gates", -1):
+            mixed.update(gates=gates, stream=stream)
+
+    router_mod.QueryRouter._ragged_dispatch = dispatch
+    backend.on_stream = keep
+    try:
+        yield
+    finally:
+        router_mod.QueryRouter._ragged_dispatch = original
+        backend.on_stream = None
+
+
 def _corpus_once(device, entries, solver_backend, interleave=0, jobs=1,
                  spec=None, mixed=None):
     """One in-process MythrilAnalyzer run over `entries` ((name, creation
@@ -2551,8 +2635,6 @@ def _corpus_once(device, entries, solver_backend, interleave=0, jobs=1,
     parent's resilience spans in order."""
     from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
     from mythril_tpu_torch.gpu import frontier_kernel, ragged_kernel, xla_kernel
-    from mythril_tpu_torch.gpu import router as router_mod
-    from mythril_tpu_torch.gpu.backend import get_device_backend
     from mythril_tpu_torch.observe.tracer import get_tracer
     from mythril_tpu_torch.resilience import faults
     from mythril_tpu_torch.smt.solver import frontend
@@ -2574,39 +2656,6 @@ def _corpus_once(device, entries, solver_backend, interleave=0, jobs=1,
     level = logger.level
     logger.setLevel(logging.INFO)
     logger.addHandler(watch)
-    original = router_mod.QueryRouter._ragged_dispatch
-    backend = None
-    if mixed is not None and solver_backend == "gpu":
-        backend = get_device_backend(device_arg)
-        caps = ragged_kernel.kernel_caps()
-        state = {"mixed": False}
-        mixed.setdefault("k1_launches", 0)
-        mixed.setdefault("groups", 0)
-
-        def dispatch(self, group, remaining, profile):
-            state["mixed"] = len({unit.origin for unit in group
-                                  if unit.origin is not None}) >= 2
-            before = ragged_kernel.launches
-            try:
-                return original(self, group, remaining, profile)
-            finally:
-                if state["mixed"]:
-                    mixed["groups"] += 1
-                    mixed["k1_launches"] += ragged_kernel.launches - before
-                state["mixed"] = False
-
-        def keep(stream, stream_entries):
-            if not state["mixed"] or (
-                    stream.v1 > caps.var_cap
-                    or stream.cone_slots > caps.cone_cap
-                    or stream.max_roots > caps.root_cap):
-                return
-            gates = sum(pc.num_gates for pc, _extra in stream_entries)
-            if gates > mixed.get("gates", -1):
-                mixed.update(gates=gates, stream=stream)
-
-        router_mod.QueryRouter._ragged_dispatch = dispatch
-        backend.on_stream = keep
     cmd_args = SimpleNamespace(
         execution_timeout=ANALYZE_TIMEOUT, transaction_count=1,
         max_depth=128, solver_backend=solver_backend,
@@ -2619,7 +2668,8 @@ def _corpus_once(device, entries, solver_backend, interleave=0, jobs=1,
     xla_kernel.reset_launches()
     frontier_kernel.reset_launches()
     try:
-        with _busy_sampler(device) as busy:
+        with _busy_sampler(device) as busy, _track_mixed_streams(
+                device, mixed if solver_backend == "gpu" else None):
             torch_sync(device)
             start = time.monotonic()
             analyzer = MythrilAnalyzer(disassembler, cmd_args=cmd_args)
@@ -2630,9 +2680,6 @@ def _corpus_once(device, entries, solver_backend, interleave=0, jobs=1,
                     "xla_round": xla_kernel.launches,
                     "frontier_step": frontier_kernel.launches}
     finally:
-        router_mod.QueryRouter._ragged_dispatch = original
-        if backend is not None:
-            backend.on_stream = None
         logger.removeHandler(watch)
         logger.setLevel(level)
         events = [event["name"] for event in tracer.events()
@@ -2852,6 +2899,482 @@ def corpus_only(device) -> int:
     return 0
 
 
+# -- the serve phase ------------------------------------------------------------
+
+# (tenant, contract, transaction count) of the serve leg's five requests,
+# posted SERVE_STAGGER_S apart: the first rides a batch alone, and the
+# other four queue behind it and form one batch of three tenants
+SERVE_REQUESTS = (("bob", "xc_dispatch_a.hex", 1),
+                  ("alice", "killbilly", 2),
+                  ("carol", "xc_dispatch_b.hex", 1),
+                  ("alice", "xc_sender_a.hex", 1),
+                  ("bob", "xc_sender_b.hex", 1))
+SERVE_STAGGER_S = 0.1
+SERVE_HTTP_TIMEOUT = 600   # s per request over HTTP, and per drain
+SERVE_START_TIMEOUT = 300  # s for a `serve` process to listen
+# the fleet leg: two tenants' identical bytecode (routed to one shard), a
+# contract routed to the other shard, and the first one sent straight to
+# that other shard, which must serve it from the network tier
+FLEET_SAME = "xc_dispatch_a.hex"
+FLEET_OTHER = "killbilly"
+FAULT_CONTRACT = "xc_dispatch_a.hex"
+
+
+def _serve_http(port, method, path, payload=None, timeout=60.0):
+    """(status, body: JSON or text) of one loopback HTTP call."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(payload).encode() if payload is not None else None
+    request = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data, method=method,
+        headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(request, timeout=timeout) as response:
+            status, raw = response.status, response.read()
+    except urllib.error.HTTPError as error:
+        status, raw = error.code, error.read()
+    try:
+        return status, json.loads(raw)
+    except ValueError:
+        return status, raw.decode(errors="replace")
+
+
+def _issue_keys_of(issues):
+    return sorted([issue["swc-id"], issue["function"], issue["address"],
+                   issue["title"]] for issue in issues)
+
+
+def _prom_value(text, name):
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def _serve_cli(folder, extra, env_extra=None):
+    """Start `python -m mythril_tpu_torch serve` with `extra`, its output
+    in `folder`; returns (process, port) once it listens."""
+    os.makedirs(folder, exist_ok=True)
+    log_path = os.path.join(folder, "serve.log")
+    env = dict(os.environ, **(env_extra or {}))
+    env.pop("MYTHRIL_GPU_FAULTS", None)
+    with open(log_path, "w") as log_fd:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mythril_tpu_torch", "serve", "--port",
+             "0", "-v", "3", *extra], stdout=log_fd, stderr=log_fd, env=env)
+    deadline = time.monotonic() + SERVE_START_TIMEOUT
+    while time.monotonic() < deadline:
+        with open(log_path) as fd:
+            text = fd.read()
+        for line in text.splitlines():
+            if " listening on http://127.0.0.1:" in line:
+                port = int(line.split("127.0.0.1:")[1].split()[0])
+                return proc, port
+        if proc.poll() is not None:
+            raise AssertionError(f"serve exited {proc.returncode} before "
+                                 f"listening: {text[-2000:]}")
+        time.sleep(0.2)
+    _stop(proc)
+    raise AssertionError("serve did not listen within "
+                         f"{SERVE_START_TIMEOUT} s")
+
+
+def _stop(proc, timeout=120):
+    """SIGTERM (a drain), then a kill past `timeout`; the exit code."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return proc.returncode
+
+
+def _serve_sequential(device):
+    """The serve leg's contracts on the host backend, one by one, as the
+    analyze phase runs them (--serve-only has no analyze phase)."""
+    records = {}
+    for name, code, tx_count, timeout, _compared in _analyze_inputs():
+        if name not in {entry[1] for entry in SERVE_REQUESTS}:
+            continue
+        _report, done, record = _analyze_once(
+            device, code, tx_count, timeout, "cpu", {})
+        if not done:
+            raise AssertionError(f"serve: {name} did not complete")
+        records[name] = {"cpu": record}
+        emit({"phase": "serve", "leg": "sequential", "contract": name,
+              "backend": "cpu", "wall_s": record["wall_s"],
+              "findings": record["findings"]})
+    return records
+
+
+def phase_serve(device, records=None):
+    """`serve` on the card (see the module note): (a) the daemon over HTTP
+    with five requests of three tenants posted at once, findings against
+    the sequential host runs (the analyze phase's `records`, or run
+    here), K1 held and timed on the largest mixed-origin stream; (b) a
+    warm repeat; (c) an eviction; (d) `serve --shards 2` with a shared
+    network tier; (e) an injected device fault. Returns the launch counts
+    by leg and K1's record on the mixed stream."""
+    from mythril_tpu_torch.gpu import frontier_kernel, ragged_kernel, xla_kernel
+    from mythril_tpu_torch.serve.daemon import ServeDaemon
+    from mythril_tpu_torch.service import tenancy
+    from mythril_tpu_torch.smt.solver import frontend
+    from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
+    from mythril_tpu_torch.support import model as model_mod
+    from mythril_tpu_torch.support.args import args
+
+    if records is None:
+        records = _serve_sequential(device)
+    inputs = {name: code for name, code, _tx, _timeout, _compared
+              in _analyze_inputs()}
+    smi = nvidia_smi_line()
+    failures = []
+    device_arg = None if device.type == "cuda" else device
+    args.reset()
+    model_mod.clear_caches()
+    frontend._global_blaster = None
+    args.solver_backend = "gpu"
+    args.torch_device = device_arg
+    stats = SolverStatistics()
+    stats.reset()
+    stats.enabled = True
+    batch_walls = []
+    original_execute = ServeDaemon._execute_batch
+
+    def timed_execute(self, batch):
+        start = time.monotonic()
+        try:
+            return original_execute(self, batch)
+        finally:
+            batch_walls.append({"requests": len(batch),
+                                "tenants": len({r.tenant for r in batch}),
+                                "wall_s": time.monotonic() - start})
+
+    ServeDaemon._execute_batch = timed_execute
+    daemon = ServeDaemon(tx_count=1, http_port=0)
+    mixed = {}
+    try:
+        daemon.start()  # resolves the card and loads the kernels
+        # (a) three tenants, five requests, posted at once
+        ragged_kernel.reset_launches()  # the leg's counts start here
+        xla_kernel.reset_launches()
+        frontier_kernel.reset_launches()
+        outcomes = [None] * len(SERVE_REQUESTS)
+
+        def client(index, tenant, name, tx_count):
+            start = time.monotonic()
+            status, body = _serve_http(
+                daemon.port, "POST", "/analyze",
+                {"tenant": tenant, "code": inputs[name],
+                 "tx_count": tx_count}, timeout=SERVE_HTTP_TIMEOUT)
+            outcomes[index] = (status, body, time.monotonic() - start)
+
+        with _busy_sampler(device) as busy, _track_mixed_streams(
+                device, mixed):
+            start = time.monotonic()
+            threads = [threading.Thread(target=client, args=(i, *entry))
+                       for i, entry in enumerate(SERVE_REQUESTS)]
+            for thread in threads:
+                thread.start()
+                time.sleep(SERVE_STAGGER_S)
+            for thread in threads:
+                thread.join(timeout=SERVE_HTTP_TIMEOUT + 60)
+            torch_sync(device)
+            leg_wall = time.monotonic() - start
+        launches = {"ragged_round": ragged_kernel.launches,  # ... and end
+                    "xla_round": xla_kernel.launches,
+                    "frontier_step": frontier_kernel.launches}
+        requests = []
+        first = {}
+        for (tenant, name, tx_count), outcome in zip(SERVE_REQUESTS,
+                                                     outcomes):
+            if outcome is None:
+                failures.append(f"serve: {tenant}/{name} never answered")
+                continue
+            status, body, latency = outcome
+            keys = (_issue_keys_of(body.get("issues", []))
+                    if isinstance(body, dict) else None)
+            want = records[name]["cpu"]["findings"]
+            if status != 200 or body.get("status") != "ok":
+                failures.append(f"serve: {tenant}/{name} answered {status} "
+                                f"{str(body)[:300]}")
+            elif keys != want:
+                failures.append(f"serve: {tenant}/{name} findings {keys} "
+                                f"differ from the sequential run's {want}")
+            if isinstance(body, dict) and name == "killbilly":
+                first = body
+            requests.append({"tenant": tenant, "contract": name,
+                             "tx_count": tx_count, "http": status,
+                             "status": body.get("status")
+                             if isinstance(body, dict) else None,
+                             "latency_s": latency,
+                             "wait_s": body.get("wait_s")
+                             if isinstance(body, dict) else None,
+                             "cdcl_settles": body.get("cdcl_settles")
+                             if isinstance(body, dict) else None,
+                             "findings": keys})
+        counters = stats.as_dict()
+        if launches["ragged_round"] <= 0:
+            failures.append("serve: K1 was never launched")
+        if mixed.get("k1_launches", 0) <= 0 or "stream" not in mixed:
+            failures.append("serve: K1 never launched on a mixed-origin "
+                            "stream")
+        if device.type == "cuda" and launches["frontier_step"] <= 0:
+            failures.append("serve: K6 was never launched")
+        emit({"phase": "serve", "leg": "daemon", "wall_s": leg_wall,
+              "requests": requests, "batches": list(batch_walls),
+              "serve_batches": counters["serve_batches"],
+              "serve_batch_requests": counters["serve_batch_requests"],
+              "serve_batch_tenants": counters["serve_batch_tenants"],
+              "serve_tenant_window_share":
+                  counters["serve_tenant_window_share"],
+              "launches": launches,
+              "k1_launches_on_mixed_streams": mixed.get("k1_launches", 0),
+              "mixed_groups": mixed.get("groups", 0),
+              "xcontract_windows": counters["xcontract_windows"],
+              "xcontract_cones_packed": counters["xcontract_cones_packed"],
+              "device_busy_share": busy["device_busy_share"],
+              "busy_samples": busy.get("busy_samples", 0),
+              "nvidia_smi": smi})
+        held = {"max_abs_err": 0, "ms": None, "plain_ms": None,
+                "bound_ms": None, "bound_by": None}
+        if "stream" in mixed:
+            held = _hold_stream(device, mixed["stream"],
+                                "serve-mixed-stream",
+                                {"k1_launches_on_mixed_streams":
+                                     mixed["k1_launches"]}, phase="serve")
+
+        # (b) the warm repeat, beside a cold tenant's solo run
+        repeats = {}
+        for leg, tenant in (("warm", "alice"), ("cold", "dave")):
+            ragged_kernel.reset_launches()
+            frontier_kernel.reset_launches()
+            status, body = _serve_http(
+                daemon.port, "POST", "/analyze",
+                {"tenant": tenant, "code": inputs["killbilly"],
+                 "tx_count": 2}, timeout=SERVE_HTTP_TIMEOUT)
+            repeats[leg] = {
+                "tenant": tenant, "status": body.get("status"),
+                "cdcl_settles": body.get("cdcl_settles"),
+                "memo_hits": body.get("memo_hits"),
+                "k1_launches": ragged_kernel.launches,
+                "k6_launches": frontier_kernel.launches,
+                "findings": _issue_keys_of(body.get("issues", []))}
+            if status != 200 or body.get("status") != "ok":
+                failures.append(f"serve warm: {tenant} answered {status}")
+            elif repeats[leg]["findings"] != \
+                    records["killbilly"]["cpu"]["findings"]:
+                failures.append(f"serve warm: {tenant}'s findings differ")
+        warm = repeats["warm"]["cdcl_settles"] or 0
+        if not (warm < (first.get("cdcl_settles") or 0)
+                and warm < (repeats["cold"]["cdcl_settles"] or 0)):
+            failures.append(
+                f"serve warm: {warm} settles, not fewer than the first "
+                f"run's {first.get('cdcl_settles')} and a cold tenant's "
+                f"{repeats['cold']['cdcl_settles']}")
+        emit({"phase": "serve", "leg": "warm-repeat",
+              "first": {"cdcl_settles": first.get("cdcl_settles"),
+                        "memo_hits": first.get("memo_hits"),
+                        "k1_launches_of_its_batch": launches[
+                            "ragged_round"]},
+              **repeats})
+
+        # (c) evict alice: her memos go, the others' stay
+        others = [origin for origin in model_mod._origin_caches
+                  if not tenancy.origin_in_session(origin, "alice")]
+        status, body = _serve_http(daemon.port, "POST", "/evict",
+                                   {"tenant": "alice"}, timeout=120)
+        left = [origin for origin in model_mod._origin_caches
+                if tenancy.origin_in_session(origin, "alice")]
+        kept = all(origin in model_mod._origin_caches for origin in others)
+        if status != 200 or left or not kept or not others:
+            failures.append(f"serve evict: {status}, alice's origins left "
+                            f"{left}, others kept {kept}")
+        emit({"phase": "serve", "leg": "evict", "http": status,
+              "alice_origins_left": left, "other_origins": len(others),
+              "others_kept": kept,
+              "alice_blasters_left": [o for o in tenancy._blasters
+                                      if tenancy.origin_in_session(
+                                          o, "alice")]})
+        status, health = _serve_http(daemon.port, "GET", "/healthz")
+        if status != 200 or not health.get("ok"):
+            failures.append(f"serve: /healthz {status} {health}")
+    finally:
+        ServeDaemon._execute_batch = original_execute
+        if not daemon.drain(timeout=SERVE_HTTP_TIMEOUT):
+            failures.append("serve: the drain timed out")
+        args.reset()
+        model_mod.clear_caches()
+
+    fleet = _serve_fleet(device, inputs, records, failures)
+    fault = _serve_device_fault(device, inputs, failures)
+    emit({"phase": "serve", "leg": "summary", "failed_checks": failures,
+          "nvidia_smi": smi})
+    if failures:
+        raise AssertionError(f"serve: {failures}")
+    return {"launches": launches, "mixed_k1_launches": mixed["k1_launches"],
+            "warm_k1_launches": repeats["warm"]["k1_launches"],
+            "fleet_k1_launches": fleet, "fault": fault,
+            "mixed_stream": held, "max_abs_err": held["max_abs_err"]}
+
+
+def _serve_fleet(device, inputs, records, failures):
+    """(d) `serve --shards 2` with a shared network tier: identical
+    bytecode of two tenants lands on one shard, a contract routed to the
+    other shard runs there, the first contract sent straight to the
+    other shard is served from the tier, both shards launch K1, and the
+    merged /metrics equal the shards' own snapshots summed. Returns each
+    shard's K1 solve rounds (kernel_launches)."""
+    folder = os.path.join(OUT_DIR, "serve-fleet")
+    net = os.path.join(folder, "net-tier")
+    extra = ["--shards", "2", "-t", "1"]
+    if device.type != "cuda":
+        extra += ["--torch-device", str(device)]
+    proc, port = _serve_cli(folder, extra, {
+        "MYTHRIL_GPU_NET_TIER_DIR": net,
+        "MYTHRIL_GPU_FLEET_PROBE_INTERVAL": "60"})
+    try:
+        answers = {}
+        tx_counts = {entry[1]: entry[2] for entry in SERVE_REQUESTS}
+        for tenant, name in (("alice", FLEET_SAME), ("bob", FLEET_SAME),
+                             ("carol", FLEET_OTHER)):
+            status, body = _serve_http(port, "POST", "/analyze",
+                                       {"tenant": tenant,
+                                        "code": inputs[name],
+                                        "tx_count": tx_counts[name]},
+                                       timeout=SERVE_HTTP_TIMEOUT)
+            answers[tenant] = body
+            if status != 200 or body.get("status") != "ok":
+                failures.append(f"fleet: {tenant}/{name} answered {status}")
+            elif _issue_keys_of(body["issues"]) != \
+                    records[name]["cpu"]["findings"]:
+                failures.append(f"fleet: {tenant}/{name} findings differ")
+        hot = answers["alice"].get("shard")
+        if answers["bob"].get("shard") != hot:
+            failures.append("fleet: identical bytecode of two tenants "
+                            "landed on two shards")
+        if answers["carol"].get("shard") == hot:
+            failures.append(f"fleet: {FLEET_OTHER} was routed to the same "
+                            "shard")
+        _status, health = _serve_http(port, "GET", "/healthz")
+        shards = health.get("shards", {})
+        other = 1 - hot if hot in (0, 1) else None
+        before = {}
+        if other is not None:
+            _status, snap = _serve_http(shards[str(other)]["port"], "GET",
+                                        "/snapshot")
+            before = snap["counters"]
+            status, body = _serve_http(
+                shards[str(other)]["port"], "POST", "/analyze",
+                {"tenant": "dave", "code": inputs[FLEET_SAME]},
+                timeout=SERVE_HTTP_TIMEOUT)
+            if status != 200 or body.get("status") != "ok":
+                failures.append(f"fleet: the other shard answered {status}")
+        snaps = {}
+        for shard_id, row in sorted(shards.items()):
+            _status, snaps[shard_id] = _serve_http(row["port"], "GET",
+                                                   "/snapshot")
+        _status, text = _serve_http(port, "GET", "/metrics")
+        k1 = {shard_id: snap["counters"]["kernel_launches"]
+              for shard_id, snap in snaps.items()}
+        tier_hits = (snaps[str(other)]["counters"]["net_tier_hits"]
+                     - before.get("net_tier_hits", 0)
+                     if other is not None else 0)
+        if len(k1) != 2 or min(k1.values()) <= 0:
+            failures.append(f"fleet: K1 solve rounds by shard {k1}")
+        if tier_hits <= 0:
+            failures.append("fleet: the other shard served no network-tier "
+                            "entry")
+        merged = {}
+        for key in ("kernel_launches", "net_tier_hits", "net_tier_stores",
+                    "serve_requests_completed"):
+            merged[key] = _prom_value(text, f"mythril_tpu_torch_{key}")
+            want = sum(snap["counters"][key] for snap in snaps.values())
+            if merged[key] != want:
+                failures.append(f"fleet: merged /metrics {key} "
+                                f"{merged[key]} against the shards' {want}")
+        emit({"phase": "serve", "leg": "fleet", "hot_shard": hot,
+              "shards": {shard_id: {key: snap["counters"][key] for key in (
+                  "kernel_launches", "frontier_vmap_steps",
+                  "net_tier_hits", "net_tier_stores", "cdcl_settles",
+                  "serve_requests_completed")}
+                  for shard_id, snap in snaps.items()},
+              "other_shard_tier_hits": tier_hits, "merged_metrics": merged,
+              "routes": {tenant: body.get("shard")
+                         for tenant, body in answers.items()}})
+    finally:
+        rc = _stop(proc)
+    if rc != 0:
+        failures.append(f"fleet: the supervisor exited {rc} on SIGTERM")
+    return k1
+
+
+def _serve_device_fault(device, inputs, failures):
+    """(e) device.dispatch:raise in one request of `serve`: it and its
+    batch answer `device_fault`, /healthz is not ok, the process exits
+    2."""
+    folder = os.path.join(OUT_DIR, "serve-fault")
+    extra = ["-t", "1", "--inject-fault", "device.dispatch:raise:n1"]
+    if device.type != "cuda":
+        extra += ["--torch-device", str(device)]
+    proc, port = _serve_cli(folder, extra)
+    try:
+        answers = [None, None]
+
+        def client(index, tenant):
+            answers[index] = _serve_http(
+                port, "POST", "/analyze",
+                {"tenant": tenant, "code": inputs[FAULT_CONTRACT]},
+                timeout=SERVE_HTTP_TIMEOUT)
+
+        threads = [threading.Thread(target=client, args=(i, tenant))
+                   for i, tenant in enumerate(("alice", "bob"))]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=SERVE_HTTP_TIMEOUT + 60)
+        health_status, health = _serve_http(port, "GET", "/healthz")
+        statuses = [(answer[0], answer[1].get("status"),
+                     answer[1].get("reason"))
+                    if answer and isinstance(answer[1], dict) else None
+                    for answer in answers]
+        for answer in statuses:
+            if answer is None or answer[1] == "ok" or not (
+                    answer[1] == "device_fault" or answer[2] ==
+                    "device_fault"):
+                failures.append(f"fault: an answer {answer}")
+        if health_status != 503 or health.get("ok") is not False \
+                or "device" not in str(health.get("reason")):
+            failures.append(f"fault: /healthz {health_status} {health}")
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            rc = None
+    finally:
+        if proc.poll() is None:
+            _stop(proc)
+    if rc != 2:
+        failures.append(f"fault: serve exited {rc}, not 2")
+    record = {"phase": "serve", "leg": "device-fault",
+              "answers": statuses, "healthz": health, "exit_code": rc}
+    emit(record)
+    return {"answers": [a[1] if a else None for a in statuses],
+            "exit_code": rc}
+
+
+def serve_only(device) -> int:
+    phase_build()
+    result = phase_serve(device)
+    emit({"phase": "serve", "mixed_stream": result["mixed_stream"],
+          "launches": result["launches"],
+          "mixed_k1_launches": result["mixed_k1_launches"],
+          "fleet_k1_launches": result["fleet_k1_launches"]})
+    return 0
+
+
 FORK_PREP_CONTRACTS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex")
 
 
@@ -2905,7 +3428,7 @@ def phase_fork_prep(device):
                   "findings": len(report.issues)})
 
 
-BUCKETED_RUNS = 300  # random batches K3 is held against its plain version
+BUCKETED_RUNS = 100  # random batches K3 is held against its plain version
 BUCKETED_GLOBAL_RUNS = 2  # of them with x past shared memory
 BUCKETED_CONTRACTS = ("killbilly", "xc_dispatch_a.hex")
 
@@ -3208,7 +3731,7 @@ K3_TIER_CASES = (
     ("xshared8", {"gates": 12000, "reach": 32}, 150000, "xshared", 8, False),
     ("global", {"gates": 12000, "reach": 32}, 213000, "global", 32, True),
 )
-K3_TIER_LANES = (64, 1, 31, 33, 96)
+K3_TIER_LANES = (64, 1, 33)
 K3_TIER_STEPS = 6
 GLOBAL_TIER_V1 = 196608  # past it x leaves shared memory (launch_shape)
 
@@ -3461,7 +3984,7 @@ def k3_split(device, path) -> int:
 
 # -- the xla kernel mode: K2 -------------------------------------------------
 
-XLA_RUNS = 300  # random streams K2 is held against its plain version
+XLA_RUNS = 100  # random streams K2 is held against its plain version
 XLA_CONTRACTS = ("killbilly", "xc_dispatch_a.hex")
 # the fallback leg: xc_dispatch_a's 37,381-variable cone past K1's
 # variable capacity
@@ -4042,7 +4565,8 @@ def main() -> int:
         if "--telemetry-overhead" in sys.argv[1:]:
             phase_build()
             phase_telemetry_overhead(device,
-                                     order=("off", "on", "on", "off") * 2)
+                                     order=("off", "on", "on", "off") * 2,
+                                     contracts=OVERHEAD_ONLY_CONTRACTS)
             print(smi, flush=True)
             return 0
         if "--fork-prep" in sys.argv[1:]:
@@ -4067,6 +4591,10 @@ def main() -> int:
             corpus_only(device)
             print(smi, flush=True)
             return 0
+        if "--serve-only" in sys.argv[1:]:
+            serve_only(device)
+            print(smi, flush=True)
+            return 0
         if "--k3-split" in sys.argv[1:]:
             k3_split(device, sys.argv[sys.argv.index("--k3-split") + 1])
             print(smi, flush=True)
@@ -4088,6 +4616,7 @@ def main() -> int:
         phase_telemetry_overhead(device)
         resilience = phase_resilience(device)
         corpus = phase_corpus(device, analyze["records"])
+        serve = phase_serve(device, analyze["records"])
         emit({"phase": "total", "seconds": time.monotonic() - start})
     except Exception as error:
         import traceback
@@ -4118,11 +4647,22 @@ def main() -> int:
                              "corpus_interleave_mixed_streams":
                                  corpus["mixed_k1_launches"],
                              "corpus_jobs_workers":
-                                 corpus["jobs_k1_launches"]},
+                                 corpus["jobs_k1_launches"],
+                             # the serve phase: the daemon's five
+                             # requests (those made dispatching mixed
+                             # streams apart), the warm repeat, and each
+                             # fleet shard's solve rounds
+                             "serve_daemon":
+                                 serve["launches"]["ragged_round"],
+                             "serve_daemon_mixed_streams":
+                                 serve["mixed_k1_launches"],
+                             "serve_warm_repeat": serve["warm_k1_launches"],
+                             "serve_fleet_shards_solve_rounds":
+                                 serve["fleet_k1_launches"]},
         "max_abs_err": max(max_err, router["max_abs_err"],
                            analyze["max_abs_err"],
                            resilience["max_abs_err"],
-                           corpus["max_abs_err"]),
+                           corpus["max_abs_err"], serve["max_abs_err"]),
         # times of one round on the largest stream the compared analyze
         # runs launched; the router's and the slice's streams beside them
         "ms": analyze["ms"],
@@ -4140,6 +4680,8 @@ def main() -> int:
                          "bound_by": timing["bound_by"]},
         # the largest mixed-origin stream of the interleaved corpus run
         "corpus_mixed_stream": corpus["mixed_stream"],
+        # and of the serve daemon's five requests
+        "serve_mixed_stream": serve["mixed_stream"],
     }, {
         "name": "frontier_step",
         "route": "cuda",
@@ -4157,7 +4699,9 @@ def main() -> int:
                              "corpus_interleave": corpus[
                                  "interleave_launches"]["frontier_step"],
                              "corpus_jobs_workers":
-                                 corpus["jobs_k6_launches"]},
+                                 corpus["jobs_k6_launches"],
+                             "serve_daemon":
+                                 serve["launches"]["frontier_step"]},
         "max_abs_err": max(frontier["max_abs_err"],
                            analyze["k6"]["max_abs_err"]),
         # one launch on the largest frontier batch (rows x micro-ops) the
@@ -4220,7 +4764,8 @@ def main() -> int:
         # capacities runs on K2
         "launches_by_path": {**xla["launches_by_path"],
                              "analyze": analyze["k2_launches"],
-                             "analyze_stress": analyze["k2_stress"]},
+                             "analyze_stress": analyze["k2_stress"],
+                             "serve_daemon": serve["launches"]["xla_round"]},
         "max_abs_err": xla["max_abs_err"],
         # one round on the largest launch of the xla analyze runs; its
         # split (steps=0, walk_depth=0) and the plain run's walk lengths,

@@ -1,13 +1,16 @@
 """`myth`-compatible command line (reference mythril/interfaces/cli.py:976).
 
-Subcommands: analyze/a, list-detectors, version, help. `analyze` exits
-with 0 when it found no issue and 1 when it found some (reference
+Subcommands: analyze/a, serve, list-detectors, version, help. `analyze`
+exits with 0 when it found no issue and 1 when it found some (reference
 cli.py:875-878), and with 2 when the analysis failed: no device, a device
 fault, or an exception that cut a contract's analysis short (the partial
 report is printed). `analyze` runs the batched
 solve windows on the CUDA device by default (--solver-backend gpu);
 --torch-device cpu runs the kernels' plain PyTorch versions instead, and
---solver-backend cpu the host CDCL alone."""
+--solver-backend cpu the host CDCL alone. `serve` runs the multi-tenant
+daemon (serve/), or with --shards N > 1 the sharded fleet (fleet/), on
+the same device rules: it exits 0 after a SIGTERM drain and 2 without a
+device or once a device fault stopped it."""
 
 import argparse
 import logging
@@ -60,6 +63,24 @@ def build_parser() -> argparse.ArgumentParser:
     add_input_args(analyze)
     add_analysis_args(analyze)
     add_output_args(analyze)
+
+    serve = subparsers.add_parser(
+        "serve",
+        help="run the multi-tenant analyzer daemon (HTTP API on "
+             "localhost: POST /analyze, POST /evict, GET /healthz, "
+             "GET /metrics)")
+    serve.add_argument(
+        "--port", type=int, default=None,
+        help="localhost listener port (0 = ephemeral; default: "
+             "MYTHRIL_GPU_SERVE_PORT or 8311)")
+    serve.add_argument(
+        "--shards", type=int, default=None,
+        help="worker processes: > 1 runs the sharded fleet (a supervisor "
+             "and digest-routed daemon processes on the same card; "
+             "default: MYTHRIL_GPU_FLEET_SHARDS or 1, one process)")
+    serve.add_argument("-v", "--verbose", type=int, default=2,
+                       help="log level 0-5")
+    add_analysis_args(serve)
 
     subparsers.add_parser("list-detectors", help="list detection modules")
     subparsers.add_parser("version", help="print version")
@@ -290,7 +311,47 @@ def execute_command(parsed) -> int:
             return 2
         return 1 if report.issues else 0
 
+    if command == "serve":
+        return serve_command(parsed)
+
     raise CliError(f"unknown command {command!r}")
+
+
+def serve_command(parsed) -> int:
+    """`serve` (reference cli.py:454-493): the analysis flags go into the
+    args singleton as an analyze run's would (every request inherits
+    them); one process runs the daemon, --shards N > 1 the fleet."""
+    from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
+    from mythril_tpu_torch.fleet import fleet_shards
+    from mythril_tpu_torch.gpu.device import DeviceFault, NoDeviceError
+    from mythril_tpu_torch.serve.daemon import (
+        DEFAULT_PORT,
+        PORT_ENV,
+        ServeDaemon,
+        serve_forever,
+    )
+
+    MythrilAnalyzer(MythrilDisassembler(), cmd_args=parsed)
+    port = parsed.port
+    if port is None:
+        port = int(os.environ.get(PORT_ENV) or DEFAULT_PORT)
+    modules = parsed.modules.split(",") if parsed.modules else None
+    try:
+        shards = fleet_shards(parsed.shards)
+        if shards > 1:
+            from mythril_tpu_torch.fleet.supervisor import (
+                FleetSupervisor,
+                serve_forever_fleet,
+            )
+
+            return serve_forever_fleet(FleetSupervisor(
+                shards, tx_count=parsed.transaction_count,
+                modules=modules, http_port=port))
+        return serve_forever(ServeDaemon(
+            tx_count=parsed.transaction_count, modules=modules,
+            http_port=port))
+    except (NoDeviceError, DeviceFault) as error:
+        raise CliError(str(error))
 
 
 if __name__ == "__main__":

@@ -63,7 +63,8 @@ class Instrument(NamedTuple):
 # non-scalar histograms as_dict() emits; counters and timers come from
 # SolverStatistics itself, so a new counter is registered by construction
 _GAUGE_NAMES = (
-    "device_occupancy", "coalesce_occupancy", "frontier_batch_occupancy")
+    "device_occupancy", "coalesce_occupancy", "frontier_batch_occupancy",
+    "serve_tenant_window_share")
 _HISTOGRAM_NAMES = ("prepare_suffix_hist", "interp_opcode_wall")
 _ROOFLINE_FIELDS = ("attained", "attainable", "sol_gap_s")
 
@@ -273,6 +274,9 @@ def merge_snapshots(snaps) -> dict:
             + counters["frontier_batch_bails"]
             + counters["frontier_fork_cohort_rows"],
             counters["frontier_batch_slots"]),
+        "serve_tenant_window_share": ratio(
+            counters["serve_batch_requests"],
+            counters["serve_batch_tenants"]),
     }
     histograms = {name: {} for name in _HISTOGRAM_NAMES}
     for snap in snaps:
@@ -313,9 +317,13 @@ def _prom_escape(value) -> str:
     return str(value).replace("\\", r"\\").replace('"', r'\"')
 
 
-def prometheus_text(snap: Optional[dict] = None) -> str:
+def prometheus_text(snap: Optional[dict] = None,
+                    scrape_stamp: bool = False) -> str:
     """A snapshot in the Prometheus text exposition format (the file a
-    node-exporter textfile collector reads)."""
+    node-exporter textfile collector reads, and the serve daemon's and
+    the fleet's GET /metrics). scrape_stamp adds the snapshot_ts gauge,
+    the second the snapshot was taken: only the live scrapes set it, so
+    the file stays byte-identical for equal counters."""
     snap = snap or snapshot()
     build_info = _prom_name("build_info")
     lines = [
@@ -327,6 +335,11 @@ def prometheus_text(snap: Optional[dict] = None) -> str:
             _prom_escape(snap.get("platform") or "none"),
             snap.get("schema_version", SCHEMA_VERSION)),
     ]
+    ts = snap.get("ts") if scrape_stamp else None
+    if ts is not None:
+        stamp_name = _prom_name("snapshot_ts")
+        lines.append(f"# TYPE {stamp_name} gauge")
+        lines.append(f"{stamp_name} {ts}")
     for name, value in sorted(snap.get("counters", {}).items()):
         prom = _prom_name(name)
         lines.append(f"# TYPE {prom} counter")

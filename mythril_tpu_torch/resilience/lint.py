@@ -10,7 +10,9 @@ Invariants, numbered as in the JAX package's lint:
      maybe_inject("<site>"), corrupt_text("<site>" or
      run_with_deadline("<site>" crossing under mythril_tpu_torch/;
   3. every registered site is EXERCISED: its name appears in
-     tests/test_torch_chaos.py or tests/test_torch_resilience.py;
+     tests/test_torch_chaos.py, tests/test_torch_resilience.py,
+     tests/test_torch_chaos_serve.py or tests/test_torch_fleet.py (the
+     fleet sites cross processes, so their cases live with the fleet's);
   4. every crossing in the code names a REGISTERED site;
   5. every resilience event counter rolls up: each counter of
      SolverStatistics._RESILIENCE_EVENT_COUNTERS is a _COUNTERS member and
@@ -39,7 +41,8 @@ from typing import List, Optional
 _CROSSING_RE = re.compile(
     r'(?:maybe_inject|corrupt_text|run_with_deadline)\(\s*"([a-z_.]+)"')
 _EVENT_RE = re.compile(r'record_event\(\s*"([a-z_.]+)",\s*"([a-z_]+)"')
-CHAOS_TESTS = ("test_torch_chaos.py", "test_torch_resilience.py")
+CHAOS_TESTS = ("test_torch_chaos.py", "test_torch_resilience.py",
+               "test_torch_chaos_serve.py", "test_torch_fleet.py")
 
 _PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -22,9 +22,12 @@ The device sites differ on the port: a fault at device.dispatch,
 device.calibrate, or frontier.step on the cuda step, stops the analysis
 with a recorded DeviceFault (gpu/device.py) instead of handing the work to
 the host. Their `degrades_to` says so; the host sites degrade as the JAX
-package declares. Sites whose surface the port has not ported yet are
-named in NOT_PORTED with the ROADMAP item that brings them; the lint
-exempts those, and only those, from "wired" and "exercised".
+package declares. A site whose surface the port has not ported yet would
+be named in NOT_PORTED with the ROADMAP item that brings it (none is
+left); the lint exempts those, and only those, from "wired" and
+"exercised". A device fault met inside a serve request is not the
+serve.request quarantine: it stops the batch and the daemon (see
+serve/daemon.py).
 """
 
 from typing import Dict, NamedTuple, Tuple
@@ -118,7 +121,8 @@ FAULT_SITES: Dict[str, FaultSite] = {
             ("raise",),
             "the poisoned request alone answers `error`; sibling "
             "tenants' requests in the same batch complete with findings "
-            "untouched"),
+            "untouched; a DeviceFault is never quarantined: the batch "
+            "answers `device_fault` and the daemon stops (exit 2)"),
         FaultSite(
             "serve.admission", "serve/daemon", "disable",
             ("raise",),
@@ -157,11 +161,8 @@ FAULT_SITES: Dict[str, FaultSite] = {
 }
 
 # sites whose surface is not ported yet, with the ROADMAP.md §1 item that
-# brings it: serve and fleet (9)
-NOT_PORTED = {
-    "serve.request": 9, "serve.admission": 9, "serve.worker": 9,
-    "fleet.shard": 9, "fleet.route": 9, "netstore.entry": 9,
-}
+# brings each: none since the serve and fleet slice
+NOT_PORTED: Dict[str, int] = {}
 
 
 def validate() -> None:

@@ -29,10 +29,16 @@ stops the whole run. The slot records it as the coordinator's `failure`
 and cancels the coordinator, so every other slot unwinds with
 BatchCancelled at its next yield point; the caller joins the slot threads
 and re-raises the failure on its own thread. A window flush that fails
-with a DeviceFault is not degraded to unknown: it propagates. The JAX
-package's serve-daemon options (caller-minted origins, warm contexts,
-caller-captured module templates, uninstall's keep_tenancy and its
-compare-and-swap) come with the serve slice.
+with a DeviceFault is not degraded to unknown: it propagates.
+
+The serve daemon (serve/daemon.py) runs each admitted batch as one
+cohort: it mints tenant-qualified origins, asks for warm contexts (each
+origin's solve memos survive its requests), passes the module templates
+it captured once at start, and tears down with uninstall(
+keep_tenancy=True, expected=coordinator): a compare-and-swap, so an
+abandoned batch body unwinding late cannot pop its successor's
+coordinator, and the module state it restores is restored under the same
+lock.
 
 Knobs: MYTHRIL_GPU_CORPUS_INTERLEAVE / --corpus-interleave selects the
 interleaved run (core.MythrilAnalyzer._fire_lasers_interleaved);
@@ -125,17 +131,30 @@ class Coordinator:
     stopped (the old holder has not released the baton, the new one has
     not started), so the swap needs no other lock."""
 
-    def __init__(self, tasks, quantum: Optional[int] = None):
+    def __init__(self, tasks, quantum: Optional[int] = None,
+                 origins: Optional[List[str]] = None, warm: bool = False,
+                 module_templates=None):
         """`tasks`: (idx, contract) pairs in corpus order. Origin tags are
         minted here, index-qualified (contracts loaded from bytecode all
-        share the name MAIN)."""
+        share the name MAIN), unless the caller passes its own `origins`
+        (parallel to `tasks`; the serve daemon's tenant-qualified tags).
+        `warm` keeps each origin's solve memos across its runs
+        (EngineContext.install_fresh(preserve_caches=True));
+        `module_templates` reuses templates the caller captured, instead
+        of capturing them here (:148-165)."""
         from mythril_tpu_torch.support.env import env_float
         from mythril_tpu_torch.support import model as model_mod
 
         self._cond = threading.Condition()
-        self._tasks = deque(
-            (idx, contract, f"{idx}:{getattr(contract, 'name', '?')}")
-            for idx, contract in tasks)
+        self._warm = warm
+        if origins is not None:
+            self._tasks = deque(
+                (idx, contract, origin)
+                for (idx, contract), origin in zip(tasks, origins))
+        else:
+            self._tasks = deque(
+                (idx, contract, f"{idx}:{getattr(contract, 'name', '?')}")
+                for idx, contract in tasks)
         self._waitq: deque = deque()
         self._live = set()
         self._current: Optional[int] = None
@@ -153,7 +172,9 @@ class Coordinator:
                                   else env_float(
                                       "MYTHRIL_GPU_INTERLEAVE_QUANTUM",
                                       DEFAULT_QUANTUM)))
-        self._module_templates = tenancy.capture_module_templates()
+        self._module_templates = (
+            module_templates if module_templates is not None
+            else tenancy.capture_module_templates())
         # the module globals from before the run, restored by uninstall()
         # so later origin-less work sees its own caches again
         self._base_model_state = (model_mod._result_cache,
@@ -176,12 +197,18 @@ class Coordinator:
                 context = EngineContext(origin, self._module_templates)
                 with self._cond:
                     self._contexts[slot_id] = context
-                context.install_fresh()
+                context.install_fresh(preserve_caches=self._warm)
                 self._current_origin = origin
                 self._ticks = 0
                 try:
                     analyze_one(idx, contract)
                 finally:
+                    if self._warm and not self._cancelled:
+                        # a warm origin's last blaster must outlive the
+                        # task (hand-offs stash it, the last holder leaves
+                        # without one); never on cancellation, when the
+                        # live globals may be a sibling's (:216-230)
+                        tenancy.stash_blaster(origin)
                     with self._cond:
                         self._contexts[slot_id] = None
                     self._current_origin = None
@@ -371,21 +398,31 @@ def install(coordinator: Coordinator) -> None:
         _active = coordinator
 
 
-def uninstall() -> None:
-    """Tear the coordinator down: drop the per-origin blasters (a corpus
-    run's origins never recur), put back the memory tiers that were live
-    before the run started, and leave the next origin-less solve a
-    fresh process-wide blaster rather than the last origin's."""
+def uninstall(keep_tenancy: bool = False,
+              expected: Optional[Coordinator] = None) -> None:
+    """Tear the coordinator down: put back the memory tiers that were live
+    before the run started, and leave the next origin-less solve a fresh
+    process-wide blaster rather than the last origin's. The corpus run
+    drops the per-origin blasters too (its origins never recur); the
+    serve daemon keeps them (`keep_tenancy`), so the next batch starts
+    warm. `expected` makes the teardown a compare-and-swap (:416-440):
+    when another coordinator is installed, nothing happens. The check,
+    the pop and the restore run under one lock, so an abandoned body
+    unwinding late can neither pop its successor's coordinator nor
+    restore module state under it."""
     global _active
-    with _install_lock:
-        coordinator, _active = _active, None
-    tenancy.clear_blasters()
-    if coordinator is None:
-        return
     from mythril_tpu_torch.smt.solver import frontend
     from mythril_tpu_torch.support import model as model_mod
 
-    (model_mod._result_cache, model_mod.model_cache,
-     model_mod._in_detection_context) = coordinator._base_model_state
-    frontend._global_blaster = None
-    frontend._global_blaster_generation = -1
+    with _install_lock:
+        if expected is not None and _active is not expected:
+            return
+        coordinator, _active = _active, None
+        if not keep_tenancy:
+            tenancy.clear_blasters()
+        if coordinator is None:
+            return
+        (model_mod._result_cache, model_mod.model_cache,
+         model_mod._in_detection_context) = coordinator._base_model_state
+        frontend._global_blaster = None
+        frontend._global_blaster_generation = -1

@@ -111,6 +111,12 @@ class PersistentResultStore:
     """File-per-entry result store; every method is total (I/O failures
     degrade to miss/no-op — the store must never break a solve)."""
 
+    # the fleet's shared network tier (fleet/netstore.py) subclasses this
+    # with is_network=True and its own fault site; model.py mirrors its
+    # events into the net_tier_* counters off the flag
+    is_network = False
+    entry_site = "disk.entry"
+
     def __init__(self, root: Optional[str] = None,
                  max_entries: Optional[int] = None,
                  max_bytes: Optional[int] = None):
@@ -261,8 +267,11 @@ class PersistentResultStore:
 
         log.warning("quarantining corrupt solve-cache entry %s (%s)",
                     os.path.basename(path), reason)
-        SolverStatistics().add_persistent_verify_reject()
-        record_event("disk.entry", "quarantine")
+        stats = SolverStatistics()
+        stats.add_persistent_verify_reject()
+        if self.is_network:
+            stats.add_net_tier_verify_reject()
+        record_event(self.entry_site, "quarantine")
         try:
             os.replace(path, path + ".quarantined")
         except OSError:
@@ -455,11 +464,21 @@ _store: Optional[PersistentResultStore] = None
 
 
 def get_result_store() -> PersistentResultStore:
-    """Process-wide store handle (re-reads MYTHRIL_GPU_CACHE_DIR on first
-    access after reset_result_store)."""
+    """Process-wide store handle (re-reads MYTHRIL_GPU_CACHE_DIR and
+    MYTHRIL_GPU_NET_TIER_DIR on first access after reset_result_store).
+    With a network-tier directory mounted, every shard of the fleet
+    shares that one tier instead of a private disk tier: safe, because
+    every hit is replay-verified (mythril_tpu/service/store.py:473)."""
     global _store
     if _store is None:
-        _store = PersistentResultStore()
+        net_root = os.environ.get("MYTHRIL_GPU_NET_TIER_DIR")
+        if net_root:
+            # imported here: fleet/ imports service/, not the reverse
+            from mythril_tpu_torch.fleet.netstore import NetworkResultStore
+
+            _store = NetworkResultStore(net_root)
+        else:
+            _store = PersistentResultStore()
     return _store
 
 

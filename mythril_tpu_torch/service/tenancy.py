@@ -1,27 +1,36 @@
-"""Per-origin engine contexts and blasters
-(mythril_tpu.service.tenancy, the part the interleaved corpus run calls).
+"""Per-origin engine contexts and blasters, the tenancy layer of the two
+multi-analysis runs: the interleaved corpus run and the serve daemon
+(mythril_tpu.service.tenancy).
 
-  origins        an origin tag is one analysis's identity in an
-                 interleaved corpus run: `"{idx}:{name}"`, minted by the
-                 coordinator (service/interleave.py), index-qualified
-                 because contracts loaded from bytecode share a name.
+  origins        an origin tag is one analysis's identity: `"{idx}:{name}"`
+                 for the corpus run (index-qualified, because contracts
+                 loaded from bytecode share a name) and
+                 `"{encode_session(tenant)}:{code digest}"` for the serve
+                 daemon, so two tenants never share a memory tier, a
+                 quick-sat deque or a blaster. origin_in_session maps an
+                 origin back to its session (eviction, isolation checks).
   blasters       the per-origin private blaster registry. The shared
                  strashed AIG assigns node ids in first-use order and the
                  dense CNF sorts by id, so a process-wide blaster would
                  make the CDCL's branching, and so the model it returns,
                  depend on which sibling analysis blasted a common
                  subterm first. Per-origin blasters reproduce the solo
-                 process's id space: interleaved reports are byte-identical
-                 to the sequential ones, witnesses included.
+                 process's id space: interleaved and served reports are
+                 byte-identical to the sequential ones, witnesses included.
   EngineContext  one origin's slice of the process-global engine state,
-                 switched at every baton hand-off.
+                 switched at every baton hand-off. install_fresh(
+                 preserve_caches=True) is the serve daemon's warm start:
+                 the engine state resets a request, the origin's solve
+                 memos (memory tier, quick-sat deque, blaster) survive.
+  eviction       evict_session drops one session's origins (tiers,
+                 deques, blasters, prefix snapshots) and nothing shared.
 
 Process-global state of the port that EngineContext does not swap, and
 why the schedule cannot reach the findings through it:
 
   the recorded DeviceFault (gpu/device.py)  a fault stops the whole run
-      (the coordinator cancels every slot and re-raises it on the
-      caller's thread), so which slot records or re-raises it changes
+      or batch (the coordinator cancels every slot and re-raises it on
+      the caller's thread), so which slot records or re-raises it changes
       nothing but the thread;
   SignatureDB (support/signatures.py)  read-only during an analysis:
       the built-in table and the signature file, never written;
@@ -30,21 +39,35 @@ why the schedule cannot reach the findings through it:
       synchronises before it returns (no launch is in flight across a
       hand-off); the `kernel.on_cuda_step` observer only watches;
   the execution budget (support/time_handler.py)  swapped here, paused
-      while the origin is off the baton, and ended by fire_lasers'
-      finally once every slot is done.
-
-The session helpers of the JAX package (encode_session,
-origin_in_session, evict_session) and its warm start (install_fresh's
-preserve_caches) serve only its serve daemon, and come with it.
+      while the origin is off the baton, and ended once every slot is
+      done (fire_lasers' finally; the serve daemon's batch body).
 """
 
 import copy
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 # origin -> (Blaster or None, term generation): each analysis's private
 # blaster/AIG (None = lazily recreated on first use).
 _blasters: Dict[str, Tuple[object, int]] = {}
+
+
+def encode_session(session: str) -> str:
+    """Injective colon-free encoding of a session (tenant) id. Origins are
+    minted as "<session>:<qualifier>" and origin_in_session splits on the
+    first colon, so a raw tenant id holding ':' (they come from HTTP
+    bodies) would let tenant "alice" evict "alice:prod"'s memos.
+    Percent-escaping keeps distinct ids distinct."""
+    return str(session).replace("%", "%25").replace(":", "%3A")
+
+
+def origin_in_session(origin: Optional[str], session: str) -> bool:
+    """Does `origin` belong to `session` (an encode_session()-ed id, or a
+    full origin tag, which is its own session)? The owning session is
+    everything before the origin's first colon."""
+    if origin is None:
+        return False
+    return origin == session or origin.split(":", 1)[0] == session
 
 
 def install_blaster(origin) -> None:
@@ -100,7 +123,9 @@ class EngineContext:
     detection-context flag and the blaster.
 
     install_fresh() gives a starting analysis the state a solo process
-    would give it; save() captures the live globals when the origin loses
+    would give it (with preserve_caches, the serve daemon's warm start,
+    the origin's solve memos survive from its earlier requests); save()
+    captures the live globals when the origin loses
     the baton; restore() puts them back when it gets the baton again.
     Singletons that other modules hold references to (the function
     managers, the detection modules) are swapped by replacing their
@@ -112,7 +137,7 @@ class EngineContext:
         self._templates = module_templates
         self._saved = None
 
-    def install_fresh(self) -> None:
+    def install_fresh(self, preserve_caches: bool = False) -> None:
         from mythril_tpu_torch.laser.function_managers import (
             exponent_function_manager,
             keccak_function_manager,
@@ -124,7 +149,12 @@ class EngineContext:
         time_handler._start = None
         time_handler._timeout = None
         tx_id_manager._next = 0
-        reset_blaster(self.origin)
+        if preserve_caches:
+            # warm start: the origin's private blaster (and below, its
+            # memory tiers) survive from its earlier requests
+            install_blaster(self.origin)
+        else:
+            reset_blaster(self.origin)
         keccak_function_manager.__dict__ = (
             type(keccak_function_manager)().__dict__)
         exponent_function_manager.__dict__ = (
@@ -136,9 +166,11 @@ class EngineContext:
         # (get_models_batch resolves them per query in a mixed flush);
         # installed in the module globals they serve the ambient call
         # sites (get_model, the engine's quick-sat probes) while this
-        # origin holds the baton. A stale pair is dropped: the analysis
-        # starts as cold as a solo process would
-        model_mod._origin_caches.pop(self.origin, None)
+        # origin holds the baton. A cold start drops a stale pair, so the
+        # analysis starts as cold as a solo process would; a warm start
+        # keeps it
+        if not preserve_caches:
+            model_mod._origin_caches.pop(self.origin, None)
         tier, quick_cache = model_mod.caches_for_origin(self.origin)
         model_mod._result_cache = tier
         model_mod.model_cache = quick_cache
@@ -193,3 +225,38 @@ class EngineContext:
         model_mod._result_cache = saved["result_cache"]
         model_mod.model_cache = saved["model_cache"]
         model_mod._in_detection_context = saved["detection"]
+
+
+def evict_session(session: str) -> int:
+    """Session-scoped eviction (mythril_tpu/service/tenancy.py:243): drop
+    every memo of one session, its origins' memory tiers and quick-sat
+    deques, its private blasters and its prefix snapshots, and nothing
+    shared: the strash table, the disk tier, other sessions' tiers, the
+    scheduler and the session fuses stay. Returns the origins evicted."""
+    from collections import OrderedDict
+
+    from mythril_tpu_torch.smt.solver import incremental
+    from mythril_tpu_torch.support import model as model_mod
+
+    # snapshots of the registries: eviction may run on an HTTP handler
+    # thread while another tenant's batch adds origins
+    doomed = [origin for origin in list(model_mod._origin_caches)
+              if origin_in_session(origin, session)]
+    for origin in doomed:
+        pair = model_mod._origin_caches.pop(origin, None)
+        if pair is None:
+            continue
+        tier, quick_cache = pair
+        # an evicted pair still installed in the module globals is
+        # replaced, so the ambient call sites cannot serve it
+        if model_mod._result_cache is tier:
+            model_mod._result_cache = OrderedDict()
+        if model_mod.model_cache is quick_cache:
+            model_mod.model_cache = model_mod.ModelCache()
+    for origin in [o for o in list(_blasters)
+                   if origin_in_session(o, session)]:
+        _blasters.pop(origin, None)
+        if origin not in doomed:
+            doomed.append(origin)
+    incremental.evict_session(session)
+    return len(doomed)

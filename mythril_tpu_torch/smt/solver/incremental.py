@@ -142,7 +142,7 @@ class _State:
     PrefixSnapshot)."""
 
     __slots__ = ("generation", "simp_memo", "simp_pinned", "free_memo",
-                 "free_pinned", "prefix_memo", "lengths")
+                 "free_pinned", "prefix_memo", "lengths", "origins")
 
     def __init__(self, generation: int):
         self.generation = generation
@@ -152,6 +152,19 @@ class _State:
         self.free_pinned: List[terms.Term] = []
         self.prefix_memo: "OrderedDict" = OrderedDict()
         self.lengths: Dict[int, int] = {}  # key length -> live snapshots
+        # snapshot key -> origin tag of the analysis that recorded it
+        # (None outside the interleave coordinator): session-scoped
+        # eviction (evict_session) drops one tenant's snapshots alone
+        self.origins: Dict[tuple, Optional[str]] = {}
+
+    def drop_snapshot(self, key: tuple) -> None:
+        self.prefix_memo.pop(key, None)
+        self.origins.pop(key, None)
+        live = self.lengths.get(len(key), 0) - 1
+        if live <= 0:
+            self.lengths.pop(len(key), None)
+        else:
+            self.lengths[len(key)] = live
 
     def clear_simplify(self) -> None:
         self.simp_memo = {}
@@ -177,6 +190,36 @@ def reset() -> None:
     """Drop every memo (clear_caches / testing hook)."""
     global _state_obj
     _state_obj = None
+
+
+def evict_session(session: str) -> int:
+    """Drop one session's prefix snapshots (those recorded while one of
+    its origins held the baton; mythril_tpu/smt/solver/incremental.py:208),
+    leaving every other tenant's snapshots and the id-keyed simplify and
+    free-symbol memos. Returns the number of snapshots dropped."""
+    state = _state_obj
+    if state is None:
+        return 0
+    from mythril_tpu_torch.service.tenancy import origin_in_session
+
+    doomed = [key for key, origin in list(state.origins.items())
+              if origin is not None and origin_in_session(origin, session)]
+    for key in doomed:
+        state.drop_snapshot(key)
+    return len(doomed)
+
+
+def snapshot_count(session: Optional[str] = None) -> int:
+    """Live prefix snapshots, or only those a session recorded (:225)."""
+    state = _state_obj
+    if state is None:
+        return 0
+    if session is None:
+        return len(state.prefix_memo)
+    from mythril_tpu_torch.service.tenancy import origin_in_session
+
+    return sum(1 for origin in list(state.origins.values())
+               if origin is not None and origin_in_session(origin, session))
 
 
 # -- memoized simplify --------------------------------------------------------
@@ -258,6 +301,9 @@ def record(asserted, residual, substitutions, taken_equal, taken_narrow,
         return
     free_names = frozenset(
         name for name, _sort in free_symbols_cached(residual))
+    from mythril_tpu_torch.service.interleave import current_origin
+
+    state.origins[key] = current_origin()
     state.prefix_memo[key] = PrefixSnapshot(
         key_terms=tuple(asserted),
         residual=tuple(residual),
@@ -271,6 +317,7 @@ def record(asserted, residual, substitutions, taken_equal, taken_narrow,
     state.lengths[len(key)] = state.lengths.get(len(key), 0) + 1
     while len(state.prefix_memo) > PREFIX_MEMO_MAX:
         old_key, _old = state.prefix_memo.popitem(last=False)
+        state.origins.pop(old_key, None)
         live = state.lengths.get(len(old_key), 0) - 1
         if live <= 0:
             state.lengths.pop(len(old_key), None)

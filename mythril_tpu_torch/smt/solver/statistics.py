@@ -146,6 +146,27 @@ class SolverStatistics:
         "resilience_worker_requeues",
         # calls guarded by the deadline runner (resilience/deadline.py)
         "deadline_runner_calls",
+        # the serve daemon (serve/daemon.py): admission outcomes, the
+        # cross-request batches with the requests and distinct tenants
+        # each carried (behind the serve_tenant_window_share gauge), and
+        # the requests requeued, answered incomplete and completed
+        "serve_requests_admitted",
+        "serve_requests_rejected",
+        "serve_requests_requeued",
+        "serve_requests_incomplete",
+        "serve_requests_completed",
+        "serve_batches",
+        "serve_batch_requests",
+        "serve_batch_tenants",
+        # the sharded fleet (fleet/): routing decisions, requests re-routed
+        # to a surviving shard, crash-only shard restarts, and the shared
+        # network tier's entries served, stored and quarantined on read
+        "fleet_shard_routes",
+        "fleet_requeues",
+        "fleet_shard_restarts",
+        "net_tier_hits",
+        "net_tier_stores",
+        "net_tier_verify_rejects",
         # the engine (laser/svm.py, analysis/module/loader.py): detection
         # modules the static reachability gate skipped, fork-prune solves
         # skipped on inert cones, and fork sides pruned on a drained
@@ -204,6 +225,10 @@ class SolverStatistics:
         # the deadline runner's queue hand-offs: each guarded call's wall
         # less the call's own wall on the runner thread
         "deadline_handoff_wall",
+        # the serve daemon: summed queue wait of admitted requests, and
+        # the drain (stop admitting to the final heartbeat)
+        "serve_admission_wall",
+        "serve_drain_wall",
     )
     # resilience event name -> the counter it rolls up into
     _RESILIENCE_EVENT_COUNTERS = {
@@ -469,6 +494,72 @@ class SolverStatistics:
         contract's query in this process (:520)."""
         self._add("xcontract_dedup_hits", count)
 
+    def add_serve_admission(self, admitted: bool) -> None:
+        """One admission decision of the serve daemon: admitted into the
+        bounded queue, or rejected (the explicit backpressure answer)
+        (mythril_tpu/smt/solver/statistics.py:743)."""
+        self._add("serve_requests_admitted" if admitted
+                  else "serve_requests_rejected")
+
+    def add_serve_wait_seconds(self, seconds: float) -> None:
+        """Queue wait of one admitted request (submit to its batch)."""
+        self._add("serve_admission_wall", seconds)
+
+    def add_serve_batch(self, requests: int, tenants: int) -> None:
+        """One cross-request batch handed to the coordinator: `requests`
+        requests of `tenants` distinct tenants share its windows."""
+        if self.enabled:
+            self.serve_batches += 1
+            self.serve_batch_requests += requests
+            self.serve_batch_tenants += tenants
+
+    def add_serve_outcome(self, outcome: str) -> None:
+        """Terminal disposition of one serve request: completed (ok or
+        error), requeued (goes round once more) or incomplete."""
+        name = {"completed": "serve_requests_completed",
+                "requeued": "serve_requests_requeued",
+                "incomplete": "serve_requests_incomplete"}.get(outcome)
+        if name is not None:
+            self._add(name)
+
+    def add_serve_drain_seconds(self, seconds: float) -> None:
+        self._add("serve_drain_wall", seconds)
+
+    def add_fleet_route(self, count: int = 1) -> None:
+        """One digest-keyed routing decision (fleet/router.py)."""
+        self._add("fleet_shard_routes", count)
+
+    def add_fleet_requeue(self, count: int = 1) -> None:
+        """A fleet request re-routed to a surviving shard after its first
+        shard died or faulted mid-proxy."""
+        self._add("fleet_requeues", count)
+
+    def add_fleet_shard_restart(self, count: int = 1) -> None:
+        """One crash-only shard restart by the fleet supervisor."""
+        self._add("fleet_shard_restarts", count)
+
+    def add_net_tier_hit(self, count: int = 1) -> None:
+        """A shared network-tier entry served to this process (stored by
+        any shard, replay-verified before it is trusted)."""
+        self._add("net_tier_hits", count)
+
+    def add_net_tier_store(self, count: int = 1) -> None:
+        """An entry this process published into the shared network tier."""
+        self._add("net_tier_stores", count)
+
+    def add_net_tier_verify_reject(self, count: int = 1) -> None:
+        """A shared entry that failed verification on the reading shard and
+        was quarantined there as a safe miss."""
+        self._add("net_tier_verify_rejects", count)
+
+    @property
+    def serve_tenant_window_share(self) -> float:
+        """Mean requests each tenant contributed a serve batch (1.0: every
+        batch held one request a tenant) (:861)."""
+        if not self.serve_batch_tenants:
+            return 0.0
+        return self.serve_batch_requests / self.serve_batch_tenants
+
     def add_cube_dispatch(self, cubes: int, refuted: int = 0) -> None:
         """One cube-and-conquer pass: `cubes` pinned replicas of a hard
         cone rode a ragged stream; `refuted` came back modelless
@@ -664,6 +755,8 @@ class SolverStatistics:
         out["coalesce_occupancy"] = round(self.coalesce_occupancy, 4)
         out["frontier_batch_occupancy"] = round(
             self.frontier_batch_occupancy, 4)
+        out["serve_tenant_window_share"] = round(
+            self.serve_tenant_window_share, 4)
         out["prepare_suffix_hist"] = dict(self.prepare_suffix_hist)
         out["interp_opcode_wall"] = {
             op: [count, round(seconds, 4)]

@@ -195,6 +195,20 @@ def _prep_partition(prep):
         return None
 
 
+def _count_net_tier(store, stats, event: str) -> None:
+    """Mirror a persistent-tier event into the net_tier_* counters when the
+    store is the fleet's shared network tier (fleet/netstore.py), so
+    serving across processes shows apart from a private disk tier."""
+    if stats is None or not getattr(store, "is_network", False):
+        return
+    if event == "hit":
+        stats.add_net_tier_hit()
+    elif event == "store":
+        stats.add_net_tier_store()
+    elif event == "reject":
+        stats.add_net_tier_verify_reject()
+
+
 def _probe_component_assembly(store, solver, prep, stats, origin=None):
     """Disk-tier probe at component granularity: when the whole-instance
     fingerprint misses but every non-trivial component of the partitioned
@@ -236,6 +250,7 @@ def _probe_component_assembly(store, solver, prep, stats, origin=None):
         model = solver._reconstruct(prep, merged)
     except Exception:
         stats.add_persistent_verify_reject()
+        _count_net_tier(store, stats, "reject")
         return None
     for fingerprint in hit_fingerprints:
         _count_xcontract_hit(fingerprint, origin, stats)
@@ -268,6 +283,7 @@ def _persist_component_entries(store, prep, bits, stats,
                 comp_nv, comp_cnf, component.roots, comp_dense)
             if store.store_sat(fingerprint, comp_nv, comp_bits):
                 stats.add_persistent_store()
+                _count_net_tier(store, stats, "store")
             _record_fingerprint_origin(fingerprint, origin)
     except Exception:
         pass  # persistence is best-effort; never break a solve
@@ -308,6 +324,8 @@ def _probe_persistent_store(store, fingerprint, solver, prep, crosscheck,
         assembled = _probe_component_assembly(store, solver, prep, stats,
                                               origin=origin)
         stats.add_persistent_lookup(hit=assembled is not None)
+        if assembled is not None:
+            _count_net_tier(store, stats, "hit")
         return fingerprint, assembled
     if entry.verdict == "sat":
         try:
@@ -316,9 +334,11 @@ def _probe_persistent_store(store, fingerprint, solver, prep, crosscheck,
             model = solver._reconstruct(prep, entry.bits)
         except Exception:
             stats.add_persistent_verify_reject()
+            _count_net_tier(store, stats, "reject")
             stats.add_persistent_lookup(hit=False)
             return fingerprint, None
         stats.add_persistent_lookup(hit=True)
+        _count_net_tier(store, stats, "hit")
         _count_xcontract_hit(fingerprint, origin, stats)
         return fingerprint, ("sat", model, True)
     if crosscheck and not entry.crosschecked:
@@ -327,6 +347,7 @@ def _probe_persistent_store(store, fingerprint, solver, prep, crosscheck,
         stats.add_persistent_lookup(hit=False)
         return fingerprint, None
     stats.add_persistent_lookup(hit=True)
+    _count_net_tier(store, stats, "hit")
     _count_xcontract_hit(fingerprint, origin, stats)
     return fingerprint, ("unsat", None, entry.crosschecked)
 
@@ -365,6 +386,7 @@ def _persist_result(fingerprint, prep, status, bits=None,
     _record_fingerprint_origin(fingerprint, origin)
     if stored and stats is not None:
         stats.add_persistent_store()
+        _count_net_tier(store, stats, "store")
 
 
 def get_model(
@@ -720,13 +742,24 @@ def clear_result_tiers() -> None:
     _fingerprint_origins.clear()
 
 
-def clear_caches() -> None:
+def clear_caches(session: Optional[str] = None) -> None:
     """Drop every piece of process-global solve state: the memory tiers,
     the per-origin blasters, the scheduler's buffer and the store handle
     (the disk tier itself survives), the incremental
     memos, the aig_opt session and result cache, the partition cache, the
     router (its calibration and breaker) and the session fuses; and, once
-    the engine's front (core.py) is loaded, its reset_engine_state."""
+    the engine's front (core.py) is loaded, its reset_engine_state.
+
+    With `session` (the serve daemon's per-tenant eviction,
+    mythril_tpu/support/model.py:831) only that session's origins lose
+    their memory tiers, quick-sat deques, blasters and prefix snapshots;
+    the shared strash table, the disk tier, the scheduler, the router,
+    the session fuses and every other tenant's memos stay."""
+    if session is not None:
+        from mythril_tpu_torch.service import tenancy
+
+        tenancy.evict_session(session)
+        return
     clear_result_tiers()
     core = sys.modules.get("mythril_tpu_torch.core")
     if core is not None:

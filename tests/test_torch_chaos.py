@@ -374,11 +374,14 @@ def test_worker_death_requeues_then_degrades_in_process(spec,
 
 def test_every_wired_site_kind_pair_is_exercised():
     """Every (site, kind) pair the registry declares for a site the port
-    wires appears as an injected spec in this file or in
-    test_torch_resilience.py."""
+    wires appears as an injected spec in this file, in
+    test_torch_resilience.py, or in the serve and fleet chaos files (the
+    fleet's sites cross processes, so their cases live with the
+    fleet's)."""
     here = os.path.dirname(os.path.abspath(__file__))
     text = ""
-    for name in ("test_torch_chaos.py", "test_torch_resilience.py"):
+    for name in ("test_torch_chaos.py", "test_torch_resilience.py",
+                 "test_torch_chaos_serve.py", "test_torch_fleet.py"):
         with open(os.path.join(here, name), encoding="utf-8") as fd:
             text += fd.read()
     missing = sorted(

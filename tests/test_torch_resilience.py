@@ -61,14 +61,14 @@ def test_registry_equals_the_reference_sites_kinds_and_actions():
 
 
 def test_not_ported_names_the_corpus_and_serve_sites():
-    """The corpus runs brought jobs.worker: it is registered and no longer
-    exempt; the serve and fleet sites wait for item 9."""
-    assert set(registry.NOT_PORTED) == {
-        "serve.request", "serve.admission", "serve.worker",
-        "fleet.shard", "fleet.route", "netstore.entry"}
-    assert "jobs.worker" in registry.FAULT_SITES
-    assert "jobs.worker" not in registry.NOT_PORTED
-    assert set(registry.NOT_PORTED.values()) == {9}
+    """The corpus runs brought jobs.worker and the serve slice the serve
+    and fleet sites: every one is registered and none is exempt any
+    more."""
+    assert registry.NOT_PORTED == {}
+    for site in ("jobs.worker", "serve.request", "serve.admission",
+                 "serve.worker", "fleet.shard", "fleet.route",
+                 "netstore.entry"):
+        assert site in registry.FAULT_SITES
 
 
 # -- event accounting ---------------------------------------------------------

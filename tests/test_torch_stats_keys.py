@@ -16,15 +16,6 @@ from tests.torch_helpers import run_analyze
 # keys of the JAX package's stats JSON whose surface the port has not
 # ported yet, with the ROADMAP.md §1 item that brings each
 NOT_PORTED = {
-    # 9: serve and fleet
-    "serve_requests_admitted": 9, "serve_requests_rejected": 9,
-    "serve_requests_requeued": 9, "serve_requests_incomplete": 9,
-    "serve_requests_completed": 9, "serve_batches": 9,
-    "serve_batch_requests": 9, "serve_batch_tenants": 9,
-    "serve_admission_wall": 9, "serve_drain_wall": 9,
-    "serve_tenant_window_share": 9, "fleet_shard_routes": 9,
-    "fleet_requeues": 9, "fleet_shard_restarts": 9, "net_tier_hits": 9,
-    "net_tier_stores": 9, "net_tier_verify_rejects": 9,
     # 10: autotune and the resolved knob stamp
     "autotune_candidates_tried": 10, "autotune_rejected_parity": 10,
     "autotune_rejected_regression": 10, "tuned_knobs_applied": 10,

@@ -13,6 +13,7 @@
     python3 chip_smoke.py --xla-only     # env, build, the xla phase
     python3 chip_smoke.py --corpus-only  # env, build, the corpus phase
     python3 chip_smoke.py --serve-only   # env, build, the serve phase
+    python3 chip_smoke.py --autotune-only  # env, build, the autotune phase
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
@@ -295,6 +296,36 @@ line):
           `device_fault` (or are refused with it), /healthz answers 503
           with ok false, and the process exits 2. --serve-only runs the
           host runs itself.
+  autotune  the autotune slice on the card, last, in a fresh cache
+          directory under chiprun_out/autotune/: (a) `python -m
+          mythril_tpu_torch autotune -f <KILLBILLY's creation code> -t 2
+          --candidates 3 --rounds 2 -v 4` in a new process (the whole
+          script: --candidates 1 --rounds 1): it must exit
+          0 with `tuned` or `no_improvement`, its platform the card's
+          name, no candidate failed, candidates_tried equal to the parity
+          and regression rejects plus the winner, its stats JSON's
+          autotune counters equal to its summary; it prints every child's
+          wall and K1 solve rounds (the search's log lines) and the gap
+          stages; when it persisted a profile, a second call (no --force)
+          must answer already_tuned with no child run; (b) the card's
+          profile written through calibration.save_tuned with
+          MYTHRIL_GPU_KERNEL=xla and MYTHRIL_GPU_CIRCUIT_STEPS=32, then
+          KILLBILLY -t 2 through the CLI in a new process
+          (autotune_child: K1's and K2's launches counted, the router's
+          calibration apart, and their largest solve-round launches
+          kept): both knobs have source tuned,
+          tuned_knobs_applied is 2, kernel_backend is xla, K2 launches
+          and K1 does not (no solve round either), findings equal the
+          host run's, and K2 is held bit for bit and timed on its
+          largest launch, at 32 steps, beside its bound; (c) the same with
+          MYTHRIL_GPU_KERNEL=pallas in the env: the knob's source is env,
+          tuned_knobs_applied 1, K1 launches and is held bit for bit and
+          timed on its largest launch; (d) a corrupt calibration.json:
+          tuned_profile_rejects 1, every knob from its default, the run
+          completes on K1 with the host's findings. The three runs of
+          (b)-(d) go side by side, each in its own process.
+          --autotune-only runs the host run itself.
+The whole script prints each phase's seconds in its "total" record.
 --telemetry-overhead runs the overhead legs alone, twice over (eight legs
 a contract).
 
@@ -346,7 +377,10 @@ random streams, and its time on the xla runs' largest launch with its
 split and walk lengths, then on the fallback's and the past-k1 stream;
 K1's and K6's launches in the corpus phase, and K1's time on its largest
 mixed-origin stream; the same of the serve phase, and the fleet shards'
-K1 solve rounds), the card's nvidia-smi line, and last {"ok": true,
+K1 solve rounds; the autotune phase's: the search children's K1 solve
+rounds, K1's launches under (c) and (d) and its time on (c)'s largest
+launch, K2's launches under (b) and its time there), the card's
+nvidia-smi line, and last {"ok": true,
 "device": {...}}. A copy of every JSON line goes to
 chiprun_out/chip_smoke.jsonl.
 """
@@ -357,6 +391,7 @@ import json
 import logging
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -651,14 +686,22 @@ def _bound(flat, v1, lanes, steps, caps):
 
 
 def _compare(flat, x, seed, steps, walk_depth, caps):
+    return _compare_timed(flat, x, seed, steps, walk_depth, caps)[0]
+
+
+def _compare_timed(flat, x, seed, steps, walk_depth, caps):
+    """K1 against its plain version on one launch's inputs: (max abs
+    error, which must be 0, and the plain run's ms, that one run timed as
+    the K2 and K3 holds time theirs)."""
     import torch
 
     from mythril_tpu_torch.gpu import ragged_kernel
 
     got_x, got_found = ragged_kernel.run_round_ragged_kernel(
         flat, x, seed, steps, walk_depth, caps)
-    want_x, want_found = ragged_kernel.run_round_ragged_plain(
-        flat, x, seed, steps, walk_depth, caps)
+    (want_x, want_found), plain_ms = _timed_once(
+        x.device, lambda: ragged_kernel.run_round_ragged_plain(
+            flat, x, seed, steps, walk_depth, caps))
     torch_sync(x.device)
     if not (torch.equal(got_x, want_x) and torch.equal(got_found,
                                                         want_found)):
@@ -667,7 +710,8 @@ def _compare(flat, x, seed, steps, walk_depth, caps):
             f"{int((got_x != want_x).sum())} x cells, "
             f"{int((got_found != want_found).sum())} found cells")
     return max(int((got_x - want_x).abs().max()),
-               int((got_found.int() - want_found.int()).abs().max()))
+               int((got_found.int() - want_found.int()).abs().max())), \
+        plain_ms
 
 
 def _global_path_stream():
@@ -1126,13 +1170,11 @@ def phase_router(device):
     lanes = ragged_kernel.pad_lanes(backend.num_restarts, caps)
     x = circuit.init_inputs(gen, lanes, caps.var_cap, device)
     steps, walk_depth = backend.CIRCUIT_STEPS, _walk_depth(stream)
-    err = _compare(flat, x, 19, steps, walk_depth, caps)
+    err, plain_ms = _compare_timed(flat, x, 19, steps, walk_depth, caps)
     # its time: launches made here are not counted
     launches_before = ragged_kernel.launches
     ms = _time_ms(lambda: ragged_kernel.run_round_ragged_kernel(
         flat, x, 19, steps, walk_depth, caps), repeats=5)
-    plain_ms = _time_ms(lambda: ragged_kernel.run_round_ragged_plain(
-        flat, x, 19, steps, walk_depth, caps), repeats=1)
     ragged_kernel.launches = launches_before
     bound_ms, bound_by, moved, ops = _bound(flat, stream.v1, lanes, steps,
                                             caps)
@@ -1998,13 +2040,13 @@ def _hold_stream(device, stream, window, counts, timed=True,
     lanes = ragged_kernel.pad_lanes(backend.num_restarts, caps)
     x = circuit.init_inputs(gen, lanes, caps.var_cap, device)
     steps, walk_depth = backend.CIRCUIT_STEPS, _walk_depth(stream)
-    err = _compare(flat, x, 23, steps, walk_depth, caps)
-    ms = plain_ms = None
+    err, plain_ms = _compare_timed(flat, x, 23, steps, walk_depth, caps)
+    ms = None
     if timed:
         ms = _time_ms(lambda: ragged_kernel.run_round_ragged_kernel(
             flat, x, 23, steps, walk_depth, caps), repeats=5)
-        plain_ms = _time_ms(lambda: ragged_kernel.run_round_ragged_plain(
-            flat, x, 23, steps, walk_depth, caps), repeats=1)
+    else:
+        plain_ms = None
     ragged_kernel.launches = launches
     bound_ms, bound_by, moved, ops = _bound(flat, stream.v1, lanes, steps,
                                             caps)
@@ -3375,6 +3417,522 @@ def serve_only(device) -> int:
     return 0
 
 
+# -- the autotune phase -------------------------------------------------------
+
+AUTOTUNE_CONTRACT = "killbilly"
+AUTOTUNE_TX = 2
+# the search's candidates and halving rounds: --autotune-only measures
+# three over two rounds; the whole script one over one round, which checks
+# the plumbing (a child's wall is mostly its start-up, PERF.md §5)
+AUTOTUNE_SEARCH = (3, 2)
+AUTOTUNE_SEARCH_WHOLE = (1, 1)
+AUTOTUNE_TIMEOUT = 900   # s for one search (its children included)
+# the profile (b)-(d) apply: K2 for every stream at 32 steps a round
+AUTOTUNE_PROFILE = {"MYTHRIL_GPU_KERNEL": "xla",
+                    "MYTHRIL_GPU_CIRCUIT_STEPS": 32}
+_CHILD_LINE = re.compile(r"autotune child (\S+): rc=(-?\d+) wall=([\d.]+) s "
+                         r"solver=(\S+) s k1_solve_rounds=(\S+)")
+
+
+@contextlib.contextmanager
+def _keep_largest_k1(largest, skip=None):
+    """Keep the largest K1 launch (lanes x gates) inside the block: the host
+    stream it was flattened from, a copy of its x, its seed, steps, walk
+    depth and capacities. A launch made while `skip()` is true is not
+    kept."""
+    from mythril_tpu_torch.gpu import ragged_kernel
+
+    flatten = ragged_kernel.flatten_stream
+    upload = ragged_kernel.device_flat
+    real = ragged_kernel.run_round_ragged_kernel
+    streams = {}
+
+    def flattened(stream, caps):
+        flat = flatten(stream, caps)
+        if flat is not None:
+            streams[id(flat)] = (flat, stream)
+        return flat
+
+    def uploaded(flat, device):
+        out = upload(flat, device)
+        if id(flat) in streams:
+            streams[id(out)] = (out, streams[id(flat)][1])
+        return out
+
+    def keep(flat, x, seed, steps, walk_depth, caps):
+        kept = streams.get(id(flat))
+        size = x.shape[0] * flat.num_gates
+        if kept is not None and kept[0] is flat \
+                and size > largest.get("size", -1) and not (skip and skip()):
+            largest.update(size=size, stream=kept[1],
+                           x=x.detach().cpu().clone(),
+                           seed=seed, steps=steps, walk_depth=walk_depth,
+                           caps=tuple(caps))
+        return real(flat, x, seed, steps, walk_depth, caps)
+
+    ragged_kernel.flatten_stream = flattened
+    ragged_kernel.device_flat = uploaded
+    ragged_kernel.run_round_ragged_kernel = keep
+    try:
+        yield largest
+    finally:
+        ragged_kernel.flatten_stream = flatten
+        ragged_kernel.device_flat = upload
+        ragged_kernel.run_round_ragged_kernel = real
+
+
+def _k2_kept(launch) -> dict:
+    """A kept K2 launch (_keep_largest_k2) as plain CPU data for
+    torch.save."""
+    return {"tensors": {key: value.cpu() for key, value
+                        in launch["xs"].tensors.items()},
+            "num_cones": launch["xs"].num_cones, "pages": launch["pages"],
+            "x": launch["x"].cpu(), "seed": launch["seed"],
+            "steps": launch["steps"], "walk_depth": launch["walk_depth"]}
+
+
+def _k2_restored(kept, device) -> dict:
+    """A launch saved by _k2_kept, uploaded again through device_stream."""
+    from mythril_tpu_torch.gpu import xla_kernel
+
+    stream = SimpleNamespace(
+        tensors={key: value.numpy() for key, value
+                 in kept["tensors"].items()},
+        num_cones=kept["num_cones"], pages=kept["pages"])
+    return {**kept, "xs": xla_kernel.device_stream(stream, device),
+            "x": kept["x"].to(device)}
+
+
+def autotune_child(out_path, argv) -> int:
+    """The port's CLI (`python -m mythril_tpu_torch` with `argv`) in this
+    process, with K1's and K2's launches counted and their largest
+    launches kept; both written to `out_path` (torch.save) when it ends.
+    The autotune phase runs it as `python3 -c` in a new process, so the
+    tuned profile is applied at that process's start, as for any
+    `analyze`. The router's calibration launches are counted apart and
+    never kept: the kept launches are the run's solve rounds."""
+    import torch
+
+    from mythril_tpu_torch.gpu import ragged_kernel, xla_kernel
+    from mythril_tpu_torch.gpu.router import QueryRouter
+    from mythril_tpu_torch.interfaces import cli
+
+    calls = {"k1": 0, "k2": 0, "k1_cal": 0, "k2_cal": 0}
+    calibrating = []
+    real_k1 = ragged_kernel.run_round_ragged_kernel
+    real_k2 = xla_kernel.run_round_xla_kernel
+
+    def k1(*a, **k):
+        calls["k1_cal" if calibrating else "k1"] += 1
+        return real_k1(*a, **k)
+
+    def k2(*a, **k):
+        calls["k2_cal" if calibrating else "k2"] += 1
+        return real_k2(*a, **k)
+
+    def measured(real):
+        def measure(*a, **k):
+            calibrating.append(1)
+            try:
+                return real(*a, **k)
+            finally:
+                calibrating.pop()
+        return measure
+
+    ragged_kernel.run_round_ragged_kernel = k1
+    xla_kernel.run_round_xla_kernel = k2
+    for name in ("_measure_kernel_rate", "_measure_xla_rate"):
+        setattr(QueryRouter, name, measured(getattr(QueryRouter, name)))
+    k1_largest, k2_largest = {}, {}
+    ragged_kernel.reset_launches()
+    xla_kernel.reset_launches()
+    rc = 0
+    sys.argv = ["mythril_tpu_torch", *argv]
+    with _keep_largest_k1(k1_largest, skip=lambda: bool(calibrating)), \
+            _keep_largest_k2(k2_largest, skip=lambda: bool(calibrating)):
+        try:
+            cli.main()
+        except SystemExit as done:
+            rc = done.code if isinstance(done.code, int) else 1
+    torch.save({"k1_launches": ragged_kernel.launches,
+                "k2_launches": xla_kernel.launches,
+                # the wrappers' calls, solve rounds and calibration apart:
+                # on the CPU the plain versions run and count no launch
+                "k1_calls": calls["k1"], "k2_calls": calls["k2"],
+                "k1_calibration_calls": calls["k1_cal"],
+                "k2_calibration_calls": calls["k2_cal"],
+                "k1": {key: value for key, value in k1_largest.items()
+                       if key != "size"} or None,
+                "k2": _k2_kept(k2_largest) if k2_largest else None},
+               out_path)
+    return rc
+
+
+def _autotune_search(device, folder, code_path, name, size, force=False):
+    """`python -m mythril_tpu_torch autotune` on KILLBILLY in a new process
+    (its stats JSON and each child's log line kept): a dict of the exit
+    code, the wall, the summary, the search's stats and the children's
+    (label, rc, wall, solver seconds, K1 solve rounds)."""
+    stats_path = os.path.join(folder, f"{name}_stats.json")
+    argv = [sys.executable, "-m", "mythril_tpu_torch", "autotune",
+            "-f", code_path, "-t", str(AUTOTUNE_TX),
+            "--candidates", str(size[0]), "--rounds", str(size[1]),
+            "-v", "4"]
+    if force:
+        argv.append("--force")
+    if device.type != "cuda":
+        argv += ["--torch-device", "cpu"]
+    start = time.monotonic()
+    done = subprocess.run(
+        argv, capture_output=True, text=True, timeout=AUTOTUNE_TIMEOUT,
+        env={**os.environ,
+             "MYTHRIL_GPU_CACHE_DIR": os.path.join(folder, "search_cache"),
+             "MYTHRIL_GPU_STATS_JSON": stats_path})
+    wall = time.monotonic() - start
+    with open(os.path.join(folder, f"{name}.stderr"), "w") as fd:
+        fd.write(done.stderr)
+    summary = stats = {}
+    if done.stdout.strip():
+        summary = json.loads(done.stdout.strip().splitlines()[-1])
+    if os.path.exists(stats_path):
+        with open(stats_path) as fd:
+            stats = json.load(fd)
+    children = [
+        {"label": m.group(1), "rc": int(m.group(2)),
+         "wall_s": float(m.group(3)), "solver_s": m.group(4),
+         "k1_solve_rounds": m.group(5)}
+        for m in map(_CHILD_LINE.search, done.stderr.splitlines()) if m]
+    return {"rc": done.returncode, "wall_s": wall, "summary": summary,
+            "stats": stats, "children": children,
+            "stderr": done.stderr[-1500:]}
+
+
+def _autotune_profile_run(device, folder, code_path, name, cache_dir,
+                          env_extra=None):
+    """KILLBILLY (-t 2) through the CLI in a new process that applies the
+    profile under `cache_dir` at its start (autotune_child): its exit code,
+    wall, stats JSON, findings and the kept launches."""
+    run_dir = os.path.join(folder, name)
+    os.makedirs(run_dir, exist_ok=True)
+    stats_path = os.path.join(run_dir, "stats.json")
+    kept_path = os.path.join(run_dir, "launches.pt")
+    argv = ["analyze", "-f", code_path, "-t", str(AUTOTUNE_TX), "-o", "json",
+            "--pruning-factor", "1", "--execution-timeout",
+            str(ANALYZE_TIMEOUT)]
+    if device.type != "cuda":
+        argv += ["--torch-device", "cpu"]
+    code = ("import sys, chip_smoke; "
+            f"sys.exit(chip_smoke.autotune_child({kept_path!r}, "
+            f"{argv!r}))")
+    env = {**os.environ, "MYTHRIL_GPU_CACHE_DIR": cache_dir,
+           "MYTHRIL_GPU_STATS_JSON": stats_path, **(env_extra or {})}
+    for knob in AUTOTUNE_PROFILE:
+        if knob not in (env_extra or {}):
+            env.pop(knob, None)
+    env.pop("MYTHRIL_GPU_AUTOTUNE", None)
+    from mythril_tpu_torch.tune import space
+
+    env_knobs = sorted(name for name in space.knob_names() if name in env)
+    start = time.monotonic()
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=ANALYZE_TIMEOUT + 120, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.monotonic() - start
+    if done.returncode not in (0, 1):
+        raise AssertionError(f"autotune: {name} exited {done.returncode}: "
+                             f"{done.stderr[-1500:]}")
+    import torch
+
+    issues = json.loads(done.stdout.strip().splitlines()[-1])["issues"]
+    with open(stats_path) as fd:
+        stats = json.load(fd)
+    return {"rc": done.returncode, "wall_s": wall, "stats": stats,
+            "findings": sorted([i["swc-id"], i["function"], i["address"],
+                                i["title"]] for i in issues),
+            "kept": torch.load(kept_path, weights_only=False),
+            "env_knobs": env_knobs}
+
+
+def _hold_k1_launch(device, kept, window, counts):
+    """K1 bit for bit against its plain version on a launch kept by
+    _keep_largest_k1 (its own x, seed, steps and walk depth), both timed
+    there; launches made here are not counted. Emits one record."""
+    from mythril_tpu_torch.gpu import ragged_kernel
+
+    launches = ragged_kernel.launches
+    caps = ragged_kernel.KernelCaps(*kept["caps"])
+    stream = kept["stream"]
+    flat = ragged_kernel.device_flat(
+        ragged_kernel.flatten_stream(stream, caps), device)
+    x = kept["x"].to(device)
+    args = (kept["seed"], kept["steps"], kept["walk_depth"])
+    err, plain_ms = _compare_timed(flat, x, *args, caps)
+    ms = None
+    if device.type == "cuda":
+        ms = _time_ms(lambda: ragged_kernel.run_round_ragged_kernel(
+            flat, x, *args, caps), repeats=5)
+    ragged_kernel.launches = launches
+    bound_ms, bound_by, moved, ops = _bound(flat, stream.v1, x.shape[0],
+                                            args[1], caps)
+    emit({"phase": "autotune", "window": window,
+          **_stream_fields(stream, flat), "lanes": x.shape[0],
+          "steps": args[1], "walk_depth": args[2], **counts,
+          "bit_identical": True, "max_abs_err": err,
+          "ms": ms if ms is not None else "not measured",
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "bytes": moved, "ops": ops})
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _solve_launches(kept, kernel, on_card) -> int:
+    """A kernel's solve-round launches in an autotune_child run: its
+    wrapper's calls outside the router's calibration (on the card, where
+    the module's count must also equal every call made)."""
+    calls = kept[f"{kernel}_calls"]
+    if on_card and kept[f"{kernel}_launches"] != (
+            calls + kept[f"{kernel}_calibration_calls"]):
+        raise AssertionError(f"autotune: {kernel}'s launch count "
+                             f"{kept[kernel + '_launches']} is not its "
+                             f"calls' {calls} + calibration "
+                             f"{kept[kernel + '_calibration_calls']}")
+    return calls
+
+
+def _profile_leg_record(leg, run):
+    stats = run["stats"]
+    kept = run["kept"]
+    return {"phase": "autotune", "leg": leg, "rc": run["rc"],
+            "wall_s": round(run["wall_s"], 3),
+            "kernel_backend": stats.get("kernel_backend"),
+            "tuned_knobs_applied": stats.get("tuned_knobs_applied"),
+            "tuned_profile_rejects": stats.get("tuned_profile_rejects"),
+            "knobs": {name: stats["knobs"][name]
+                      for name in AUTOTUNE_PROFILE},
+            "k1_launches": kept["k1_launches"],
+            "k1_solve_rounds": stats.get("kernel_launches"),
+            "k2_launches": kept["k2_launches"],
+            "k1_calls": kept["k1_calls"], "k2_calls": kept["k2_calls"],
+            "k1_calibration_calls": kept["k1_calibration_calls"],
+            "k2_calibration_calls": kept["k2_calibration_calls"],
+            "k6_launches": stats.get("frontier_vmap_steps"),
+            "findings": run["findings"]}
+
+
+def phase_autotune(device, records=None, size=AUTOTUNE_SEARCH):
+    """The autotune slice on the card (see the module note): (a) the search
+    through `python -m mythril_tpu_torch autotune`; (b) a profile of
+    AUTOTUNE_PROFILE applied at an analyze start; (c) the env shadowing
+    the profile's kernel mode; (d) a corrupt profile. `records` holds the
+    analyze phase's host run of KILLBILLY (None: run here); `size` is the
+    search's (candidates, rounds). Returns the launches and holds for the
+    kernels line."""
+    from mythril_tpu_torch.service import calibration
+    from mythril_tpu_torch.tune import space
+
+    phase_start = time.monotonic()
+    on_card = device.type == "cuda"
+    platform = _platform_of(device)
+    folder = os.path.abspath(os.path.join(OUT_DIR, "autotune"))
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    code = _killbilly_creation()
+    code_path = os.path.join(folder, "killbilly.hex")
+    with open(code_path, "w") as fd:
+        fd.write(code)
+    if records is not None and AUTOTUNE_CONTRACT in records:
+        host = records[AUTOTUNE_CONTRACT]["cpu"]["findings"]
+    else:
+        _report, completed, record = _analyze_once(
+            device, code, AUTOTUNE_TX, ANALYZE_TIMEOUT, "cpu", {})
+        if not completed:
+            raise AssertionError("autotune: the host run did not complete")
+        host = record["findings"]
+
+    # (a) the search on the card
+    search = _autotune_search(device, folder, code_path, "search", size)
+    summary = search["summary"]
+    emit({"phase": "autotune", "leg": "search", "rc": search["rc"],
+          "wall_s": round(search["wall_s"], 3), "summary": summary,
+          "children": search["children"],
+          "counters": {key: search["stats"].get(key) for key in (
+              "autotune_candidates_tried", "autotune_rejected_parity",
+              "autotune_rejected_regression")}})
+    if search["rc"] != 0 or summary.get("autotune") not in (
+            "tuned", "no_improvement"):
+        raise AssertionError(f"autotune: the search failed: {summary}; "
+                             f"{search['stderr']}")
+    if summary["platform"] != platform:
+        raise AssertionError(f"autotune: the profile's platform "
+                             f"{summary['platform']!r} is not {platform!r}")
+    failed = [c for c in summary["candidates"] if c.get("fail")]
+    if failed:
+        raise AssertionError(f"autotune: candidates failed: {failed}")
+    tuned = summary["autotune"] == "tuned"
+    if summary["candidates_tried"] != (summary["rejected_parity"]
+                                       + summary["rejected_regression"]
+                                       + (1 if tuned else 0)):
+        raise AssertionError(f"autotune: the outcomes do not add up: "
+                             f"{summary}")
+    counters = search["stats"]
+    if (counters.get("autotune_candidates_tried"),
+            counters.get("autotune_rejected_parity"),
+            counters.get("autotune_rejected_regression")) != (
+            summary["candidates_tried"], summary["rejected_parity"],
+            summary["rejected_regression"]):
+        raise AssertionError(f"autotune: the search's stats JSON "
+                             f"disagrees with its summary: {counters}")
+    if len(search["children"]) < 1 + summary["candidates_tried"]:
+        raise AssertionError(f"autotune: {len(search['children'])} child "
+                             f"lines for {summary['candidates_tried']} "
+                             "candidates and the baseline")
+    again = None
+    if tuned:
+        again = _autotune_search(device, folder, code_path, "again", size)
+        emit({"phase": "autotune", "leg": "search-again",
+              "rc": again["rc"], "wall_s": round(again["wall_s"], 3),
+              "summary": again["summary"], "children": again["children"]})
+        if again["rc"] != 0 or again["summary"].get("autotune") \
+                != "already_tuned" or again["children"]:
+            raise AssertionError(f"autotune: a second search was not "
+                                 f"answered by the profile: {again}")
+
+    # (b)-(d) run side by side, each in its own process: the profile
+    # applied, the env over it, a corrupt profile; checked after
+    profile_cache = os.path.join(folder, "profile_cache")
+    with _env(MYTHRIL_GPU_CACHE_DIR=profile_cache):
+        if not calibration.save_tuned(platform, {
+                "knobs": dict(AUTOTUNE_PROFILE),
+                "probe_digest": "chip_smoke"}):
+            raise AssertionError("autotune: the profile was not saved")
+    corrupt_cache = os.path.join(folder, "corrupt_cache")
+    os.makedirs(corrupt_cache)
+    with open(os.path.join(corrupt_cache, "calibration.json"), "w") as fd:
+        fd.write("{ torn json")
+    legs = {"tuned": (profile_cache, None),
+            "env": (profile_cache, {"MYTHRIL_GPU_KERNEL": "pallas"}),
+            "corrupt": (corrupt_cache, None)}
+    runs, errors = {}, []
+
+    def run_leg(name):
+        try:
+            runs[name] = _autotune_profile_run(
+                device, folder, code_path, name, *legs[name])
+        except Exception as error:  # reported below, then the phase fails
+            errors.append(f"{name}: {error}")
+
+    threads = [threading.Thread(target=run_leg, args=(name,))
+               for name in legs]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    if errors:
+        raise AssertionError("autotune: " + "; ".join(errors))
+
+    # (b) a profile applied at an analyze start
+    tuned_run = runs["tuned"]
+    emit(_profile_leg_record("tuned", tuned_run))
+    stats = tuned_run["stats"]
+    kept = tuned_run["kept"]
+    want = {name: {"value": value, "source": "tuned"}
+            for name, value in AUTOTUNE_PROFILE.items()}
+    if any(stats["knobs"][name] != want[name] for name in want) \
+            or stats["tuned_knobs_applied"] != 2 \
+            or stats["kernel_backend"] != "xla":
+        raise AssertionError(f"autotune: the profile did not apply: "
+                             f"{_profile_leg_record('tuned', tuned_run)}")
+    if _solve_launches(kept, "k2", on_card) < 1 \
+            or _solve_launches(kept, "k1", on_card) != 0 \
+            or kept["k1_calibration_calls"] != 0 \
+            or stats["kernel_launches"] != 0 or kept["k2"] is None:
+        raise AssertionError(f"autotune: under the xla profile K2 must run "
+                             f"and K1 must not: "
+                             f"{_profile_leg_record('tuned', tuned_run)}")
+    if tuned_run["findings"] != host:
+        raise AssertionError(f"autotune: the tuned run's findings "
+                             f"{tuned_run['findings']} are not the host's "
+                             f"{host}")
+    launch = _k2_restored(kept["k2"], device)
+    if launch["steps"] != AUTOTUNE_PROFILE["MYTHRIL_GPU_CIRCUIT_STEPS"]:
+        raise AssertionError(f"autotune: K2 ran {launch['steps']} steps")
+    k2_hold = _hold_k2(device, launch, "autotune-profile",
+                       {"k2_launches": kept["k2_launches"]}, timed=True)
+
+    # (c) an explicit env var shadows the profile's kernel mode
+    env_run = runs["env"]
+    emit(_profile_leg_record("env", env_run))
+    stats, kept = env_run["stats"], env_run["kept"]
+    if stats["knobs"]["MYTHRIL_GPU_KERNEL"] != {"value": "pallas",
+                                               "source": "env"} \
+            or stats["knobs"]["MYTHRIL_GPU_CIRCUIT_STEPS"] != want[
+                "MYTHRIL_GPU_CIRCUIT_STEPS"] \
+            or stats["tuned_knobs_applied"] != 1 \
+            or _solve_launches(kept, "k1", on_card) < 1 \
+            or kept["k1"] is None or env_run["findings"] != host:
+        raise AssertionError(f"autotune: the env did not shadow the "
+                             f"profile: {_profile_leg_record('env', env_run)}")
+    k1_hold = _hold_k1_launch(device, kept["k1"], "autotune-env",
+                              {"k1_launches": kept["k1_launches"]})
+
+    # (d) a corrupt profile: counted, ignored, the run on the defaults
+    corrupt_run = runs["corrupt"]
+    emit(_profile_leg_record("corrupt", corrupt_run))
+    stats, kept = corrupt_run["stats"], corrupt_run["kept"]
+    # every knob from its default (one the child's env sets: from it)
+    sources = {name: entry["source"]
+               for name, entry in stats["knobs"].items()}
+    if stats["tuned_profile_rejects"] != 1 \
+            or stats["tuned_knobs_applied"] != 0 \
+            or sources != {name: "env" if name in corrupt_run["env_knobs"]
+                           else "default" for name in space.knob_names()} \
+            or not stats.get("completed") \
+            or _solve_launches(kept, "k1", on_card) < 1 \
+            or stats["kernel_backend"] != "pallas" \
+            or corrupt_run["findings"] != host:
+        raise AssertionError(f"autotune: the corrupt profile was not "
+                             f"ignored: "
+                             f"{_profile_leg_record('corrupt', corrupt_run)}")
+    seconds = time.monotonic() - phase_start
+    emit({"phase": "autotune", "seconds": round(seconds, 3),
+          "search_wall_s": round(search["wall_s"], 3),
+          "nvidia_smi": nvidia_smi_line() if on_card else "not measured"})
+    return {
+        "summary": summary,
+        "children": search["children"],
+        "k1_launches": {"env": env_run["kept"]["k1_launches"],
+                        "corrupt": corrupt_run["kept"]["k1_launches"]},
+        "k2_launches": {"tuned": tuned_run["kept"]["k2_launches"],
+                        "env": env_run["kept"]["k2_launches"],
+                        "corrupt": corrupt_run["kept"]["k2_launches"]},
+        "search_k1_solve_rounds": sum(
+            int(child["k1_solve_rounds"]) for child in search["children"]
+            if child["k1_solve_rounds"].isdigit()),
+        "k1_hold": k1_hold, "k2_hold": k2_hold,
+    }
+
+
+def _platform_of(device) -> str:
+    """The platform stamp of a run on `device`: the card's name, or
+    "cpu"."""
+    import torch
+
+    return torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+
+
+def autotune_only(device) -> int:
+    """Env, build and the autotune phase (with its own host run)."""
+    phase_build()
+    result = phase_autotune(device)
+    emit({"phase": "autotune", "k1_launches": result["k1_launches"],
+          "k2_launches": result["k2_launches"],
+          "search_k1_solve_rounds": result["search_k1_solve_rounds"],
+          "k2_profile_launch": {key: result["k2_hold"].get(key) for key in (
+              "ms", "plain_ms", "bound_ms", "bound_by")}})
+    return 0
+
+
 FORK_PREP_CONTRACTS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex")
 
 
@@ -4017,10 +4575,11 @@ def _env(**values):
 
 
 @contextlib.contextmanager
-def _keep_largest_k2(largest):
+def _keep_largest_k2(largest, skip=None):
     """Keep the largest K2 launch (lanes x levels x width) inside the
     block: largest gets "size", "xs", the stream's "pages", a copy of the
-    launch's "x", its "seed", "steps" and "walk_depth"."""
+    launch's "x", its "seed", "steps" and "walk_depth". A launch made
+    while `skip()` is true is not kept."""
     from mythril_tpu_torch.gpu import xla_kernel
 
     real = xla_kernel.run_round_xla_kernel
@@ -4034,7 +4593,7 @@ def _keep_largest_k2(largest):
 
     def keep(xs, x, seed, steps, walk_depth):
         size = x.shape[0] * xs.tensors["out_idx"].numel()
-        if size > largest.get("size", -1):
+        if size > largest.get("size", -1) and not (skip and skip()):
             largest.update(size=size, xs=xs, pages=pages.get(id(xs)),
                            x=x.clone(), seed=seed, steps=steps,
                            walk_depth=walk_depth)
@@ -4422,13 +4981,7 @@ def _k2_capture(device) -> dict:
     out = {}
     for name, launch in (("fallback", fallback), ("xla_largest", largest),
                          ("past_k1", past)):
-        out[name] = {"tensors": {key: value.cpu() for key, value
-                                 in launch["xs"].tensors.items()},
-                     "num_cones": launch["xs"].num_cones,
-                     "pages": launch["pages"],
-                     "x": launch["x"].cpu(), "seed": launch["seed"],
-                     "steps": launch["steps"],
-                     "walk_depth": launch["walk_depth"]}
+        out[name] = _k2_kept(launch)
     return out
 
 
@@ -4595,6 +5148,10 @@ def main() -> int:
             serve_only(device)
             print(smi, flush=True)
             return 0
+        if "--autotune-only" in sys.argv[1:]:
+            autotune_only(device)
+            print(smi, flush=True)
+            return 0
         if "--k3-split" in sys.argv[1:]:
             k3_split(device, sys.argv[sys.argv.index("--k3-split") + 1])
             print(smi, flush=True)
@@ -4603,21 +5160,36 @@ def main() -> int:
             k2_split(device, sys.argv[sys.argv.index("--k2-split") + 1])
             print(smi, flush=True)
             return 0
-        phase_build()
+        seconds = {}
+
+        def timed(name, fn, *args, **kwargs):
+            began = time.monotonic()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = round(time.monotonic() - began, 3)
+
+        timed("build", phase_build)
         with _preanalysis(False):
-            queries, verdicts, slice_launches = phase_slice(device)
-            max_err = phase_kernel(device, queries, verdicts)
-            timing = phase_timing(device, queries, verdicts)
-        router = phase_router(device)
-        frontier = phase_frontier(device)
-        analyze = phase_analyze(device)
-        bucketed = phase_bucketed(device, analyze["records"])
-        xla = phase_xla(device, analyze["records"])
-        phase_telemetry_overhead(device)
-        resilience = phase_resilience(device)
-        corpus = phase_corpus(device, analyze["records"])
-        serve = phase_serve(device, analyze["records"])
-        emit({"phase": "total", "seconds": time.monotonic() - start})
+            queries, verdicts, slice_launches = timed(
+                "slice", phase_slice, device)
+            max_err = timed("kernel", phase_kernel, device, queries,
+                            verdicts)
+            timing = timed("timing", phase_timing, device, queries, verdicts)
+        router = timed("router", phase_router, device)
+        frontier = timed("frontier", phase_frontier, device)
+        analyze = timed("analyze", phase_analyze, device)
+        bucketed = timed("bucketed", phase_bucketed, device,
+                         analyze["records"])
+        xla = timed("xla", phase_xla, device, analyze["records"])
+        timed("telemetry-overhead", phase_telemetry_overhead, device)
+        resilience = timed("resilience", phase_resilience, device)
+        corpus = timed("corpus", phase_corpus, device, analyze["records"])
+        serve = timed("serve", phase_serve, device, analyze["records"])
+        autotune = timed("autotune", phase_autotune, device,
+                         analyze["records"], AUTOTUNE_SEARCH_WHOLE)
+        emit({"phase": "total", "seconds": time.monotonic() - start,
+              "by_phase": seconds})
     except Exception as error:
         import traceback
 
@@ -4658,11 +5230,23 @@ def main() -> int:
                                  serve["mixed_k1_launches"],
                              "serve_warm_repeat": serve["warm_k1_launches"],
                              "serve_fleet_shards_solve_rounds":
-                                 serve["fleet_k1_launches"]},
+                                 serve["fleet_k1_launches"],
+                             # the autotune phase: the search's children
+                             # (their solve rounds, from their stats),
+                             # and the analyze runs under the profile
+                             # with the env's pallas (c) and under a
+                             # corrupt profile (d)
+                             "autotune_search_children_solve_rounds":
+                                 autotune["search_k1_solve_rounds"],
+                             "autotune_env_shadows_profile":
+                                 autotune["k1_launches"]["env"],
+                             "autotune_corrupt_profile":
+                                 autotune["k1_launches"]["corrupt"]},
         "max_abs_err": max(max_err, router["max_abs_err"],
                            analyze["max_abs_err"],
                            resilience["max_abs_err"],
-                           corpus["max_abs_err"], serve["max_abs_err"]),
+                           corpus["max_abs_err"], serve["max_abs_err"],
+                           autotune["k1_hold"]["max_abs_err"]),
         # times of one round on the largest stream the compared analyze
         # runs launched; the router's and the slice's streams beside them
         "ms": analyze["ms"],
@@ -4682,6 +5266,9 @@ def main() -> int:
         "corpus_mixed_stream": corpus["mixed_stream"],
         # and of the serve daemon's five requests
         "serve_mixed_stream": serve["mixed_stream"],
+        # the autotune phase's largest launch under the env's pallas over
+        # a profile of 32 steps
+        "autotune_env_launch": autotune["k1_hold"],
     }, {
         "name": "frontier_step",
         "route": "cuda",
@@ -4765,8 +5352,12 @@ def main() -> int:
         "launches_by_path": {**xla["launches_by_path"],
                              "analyze": analyze["k2_launches"],
                              "analyze_stress": analyze["k2_stress"],
-                             "serve_daemon": serve["launches"]["xla_round"]},
-        "max_abs_err": xla["max_abs_err"],
+                             "serve_daemon": serve["launches"]["xla_round"],
+                             # the analyze run under the tuned xla profile
+                             "autotune_tuned_profile":
+                                 autotune["k2_launches"]["tuned"]},
+        "max_abs_err": max(xla["max_abs_err"],
+                           autotune["k2_hold"]["max_abs_err"]),
         # one round on the largest launch of the xla analyze runs; its
         # split (steps=0, walk_depth=0) and the plain run's walk lengths,
         # then the fallback leg's largest launch and the past-k1 stream
@@ -4780,6 +5371,10 @@ def main() -> int:
         "walks": xla["walks"],
         "fallback_launch": xla["fallback"],
         "past_k1_stream": xla["past_k1"],
+        # the largest launch under the tuned profile (xla, 32 steps)
+        "autotune_profile_launch": {key: autotune["k2_hold"].get(key)
+                                    for key in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by")},
     }]})
     with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w") as fd:
         fd.write("\n".join(_lines) + "\n")

@@ -18,9 +18,10 @@ streams. The device and every kernel are resolved and built here before
 any worker or slot thread starts. The port's rule over the JAX package's:
 a DeviceFault stops the whole run, from a worker (re-raised through the
 pool, never rerun in process) or from a slot thread (the coordinator
-cancels the other slots, and it is re-raised here). The tuned profile,
-the statespace and graph dumps, and loading from solidity, foundry or RPC
-wait for later slices."""
+cancels the other slots, and it is re-raised here). The tuned profile
+(tune/) is applied at the start of fire_lasers and of each worker, before
+the kernels are built. The statespace and graph dumps, and loading from
+solidity, foundry or RPC wait for later slices."""
 
 import logging
 import time
@@ -134,6 +135,15 @@ class MythrilAnalyzer:
         from mythril_tpu_torch.observe import flightrec, metrics
 
         reset_engine_state()
+        stats = SolverStatistics()
+        stats.enabled = True
+        # the tuned profile (tune/): installed as the knobs' tuned tier
+        # before any consumer reads its knobs and before the kernels are
+        # built, since the kernel mode decides which are; once a process,
+        # an explicit env var always wins, MYTHRIL_GPU_AUTOTUNE=0 disables
+        from mythril_tpu_torch.tune import apply_tuned_profile
+
+        apply_tuned_profile()
         if args.solver_backend == "gpu":
             # the device backend needs its device and its kernels before
             # the first window: with no card and none named this raises
@@ -141,8 +151,6 @@ class MythrilAnalyzer:
             # before anything is explored; neither finishes on the host
             if resolve_device(args.torch_device).type == "cuda":
                 build_device_kernels()
-        stats = SolverStatistics()
-        stats.enabled = True
         # the fault-injection harness (resilience/faults.py): armed from
         # MYTHRIL_GPU_FAULTS or --inject-fault, disarmed when neither is
         # set; one configure per run, so crossing counters start fresh
@@ -562,9 +570,10 @@ def _corpus_worker(payload):
     (mythril_tpu/core.py:732). Rebuilds the args singleton from the
     parent's, crosses the jobs.worker fault site (an `exit` plan kills the
     worker here: the shape a crashed worker shows the parent's watchdog),
-    resets the engine and the run's statistics, resolves the device and
-    loads the kernels the parent built (no nvcc here, and no build inside
-    a dispatch's hard deadline), and runs the one-contract path. Returns
+    resets the engine and the run's statistics, applies the tuned profile,
+    resolves the device and loads the kernels the parent built (no nvcc
+    here, and no build inside a dispatch's hard deadline), and runs the
+    one-contract path. Returns
     (idx, issues, exceptions, stats snapshot, trace events, record): plain
     data that pickles back. The record holds the worker's pid, the kernel
     launches this task counted, its router's calibrated rates and its
@@ -590,6 +599,11 @@ def _corpus_worker(payload):
     stats = SolverStatistics()
     stats.reset()  # a pool worker may take several contracts
     stats.enabled = True
+    # spawn starts a new interpreter: the parent's applied profile does
+    # not cross into it, so the worker applies its own before the build
+    from mythril_tpu_torch.tune import apply_tuned_profile
+
+    apply_tuned_profile()
     flightrec.install()
     tracer = get_tracer()
     if getattr(args, "trace", None) or os.environ.get(TRACE_ENV):

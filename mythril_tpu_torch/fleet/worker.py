@@ -4,9 +4,9 @@ supervisor as
     python -m mythril_tpu_torch.fleet.worker --shard-id N --announce PATH \
         [--solver-backend gpu|cpu] [--torch-device DEVICE]
 
-(mythril_tpu.fleet.worker on the port's sources, without the tuned
-profile, which comes with autotune). The worker owns what the one-process
-daemon owns and adds nothing: being a shard is the supervisor's routing
+(mythril_tpu.fleet.worker on the port's sources). It applies the tuned
+profile (tune/) before its daemon is built, as `serve` does. The worker
+owns what the one-process daemon owns and adds nothing: being a shard is the supervisor's routing
 and the shared network tier it mounts through MYTHRIL_GPU_NET_TIER_DIR
 (inherited env). With that tier mounted the worker takes the disk cache
 mode, so every verdict it settles is published where the fleet can serve
@@ -54,9 +54,14 @@ def main(argv=None) -> int:
     )
     from mythril_tpu_torch.service.store import atomic_write_json
     from mythril_tpu_torch.support.args import args as global_args
+    from mythril_tpu_torch.tune import apply_tuned_profile
 
     global_args.solver_backend = parsed.solver_backend
     global_args.torch_device = parsed.torch_device
+    # the daemon reads its batch width and the device path its knobs at
+    # construction: the profile is installed first (keyed by the device
+    # just set)
+    apply_tuned_profile()
     if net_tier_dir():
         # publish every settled verdict into the fleet-shared tier
         global_args.solve_cache = "disk"

@@ -129,6 +129,13 @@ def get_device_backend(device=None) -> "DeviceSolverBackend":
     return _backends[device]
 
 
+def reset_backends() -> None:
+    """Drop every device's backend, its pack caches, counters and seed with
+    it: the next get_device_backend builds one that re-reads its knobs
+    (tune.apply_tuned_profile)."""
+    _backends.clear()
+
+
 class DeviceSolverBackend:
     CIRCUIT_STEPS = 64
     STALL_ROUNDS = 2  # stop after this many rounds with no new solves

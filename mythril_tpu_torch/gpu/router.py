@@ -32,9 +32,11 @@ to the ragged round (backend.try_solve_batch_ragged):
               stream's byte budget or push the estimated round past the
               chunk budget (0.8 x min(round budget, dispatch deadline)),
               and in "pallas" mode K1's variable space or cone slots; in
-              "xla" mode the combined space past circuit.MAX_VARS, and in
-              evidence mode a window of two or more origins at
-              MIXED_CHUNK_CONES_CPU (2) cones a chunk. The estimate
+              "xla" mode the combined space past circuit.MAX_VARS, and a
+              window of two or more origins at
+              MYTHRIL_GPU_RAGGED_CHUNK_CONES cones a chunk (0, the
+              default: MIXED_CHUNK_CONES_CPU (2) in evidence mode, no cap
+              on a card). The estimate
               charges the live kernel's calibrated rate over the bucketed
               combined rectangle.
   calibration once per process and kernel mode (persisted under
@@ -147,7 +149,9 @@ log = logging.getLogger(__name__)
 LEVEL_CAP_FLOOR = 640
 CELL_FLOOR = 1 << 20
 CAL_STEPS = 8  # micro-calibration round length (tiny on purpose)
-ROUND_BUDGET_S = 4.0  # device seconds one stream's round may plan for
+# device seconds one stream's round may plan for
+# (MYTHRIL_GPU_ROUND_BUDGET)
+ROUND_BUDGET_S = 4.0
 # the bucketed path's default caps (the JAX package's raised defaults: the
 # production analyze cones levelize at 513-540 levels through get_model
 # and 772-800 at the batched fork-pruning seam)
@@ -157,8 +161,9 @@ DEFAULT_CELL_CAP = 1 << 22
 DEFAULT_VAR_CAP_CPU = 1 << 15
 DEFAULT_VAR_CAP_DEVICE = 1 << 16
 # "xla" mode on the CPU: cones a stream of a window of two or more origins
-# (mythril_tpu's auto value when it measured no XLA compile; no cap on a
-# card, as there)
+# when MYTHRIL_GPU_RAGGED_CHUNK_CONES is 0 (mythril_tpu derives its value
+# from its XLA compile time, 2 when it measured none; K2 compiles nothing
+# per shape, so the port keeps the constant; no cap on a card, as there)
 MIXED_CHUNK_CONES_CPU = 2
 
 
@@ -240,7 +245,8 @@ class QueryRouter:
         self._caps = None
         self._bucketed_calibrated = False
         self._breaker = StageBreaker("device.dispatch")
-        self.round_budget_s = ROUND_BUDGET_S
+        self.round_budget_s = env_float("MYTHRIL_GPU_ROUND_BUDGET",
+                                        ROUND_BUDGET_S)
         self.max_waste_s = env_float("MYTHRIL_GPU_DEVICE_MAX_WASTE", -1.0)
         self.host_direct_levels = int(
             env_float("MYTHRIL_GPU_HOST_DIRECT_LEVELS", 24))
@@ -251,6 +257,11 @@ class QueryRouter:
         self.ragged_window_cap = int(
             env_float("MYTHRIL_GPU_RAGGED_WINDOW_CAP", 4))
         self.ragged_windows = 0
+        # "xla" mode: cones a stream of a window of two or more origins
+        # (0: MIXED_CHUNK_CONES_CPU in evidence mode, no cap on a card;
+        # any other value is absolute)
+        self.ragged_chunk_cones = int(
+            env_float("MYTHRIL_GPU_RAGGED_CHUNK_CONES", 0))
         self.cube_min_levels = int(env_float("MYTHRIL_GPU_CUBE_MIN_LEVELS",
                                              CUBE_MIN_LEVELS_DEFAULT))
         # evidence-mode bucketed dispatches per process, and those made
@@ -960,8 +971,9 @@ class QueryRouter:
         bounds: in "pallas" mode K1's combined variable space and cone
         slots (a unit K1 cannot take at all gets a chunk of its own at
         its place in the window, which runs on K2); in "xla" mode
-        circuit.MAX_VARS and, in evidence mode, MIXED_CHUNK_CONES_CPU
-        cones a chunk of a window of two or more origins. The combined
+        circuit.MAX_VARS and ragged_chunk_cones cones a chunk of a window
+        of two or more origins (0: MIXED_CHUNK_CONES_CPU in evidence
+        mode, no cap on a card). The combined
         rectangle is tracked per level — summed real rows, bucketed — so
         the estimate follows the cells the stream carries. A cone over
         any bound alone was turned away at admission, so every chunk is
@@ -973,10 +985,10 @@ class QueryRouter:
             var_space, cone_cap = caps.var_cap, caps.cone_cap
         else:
             var_space, cone_cap = circuit.MAX_VARS, 0
-            if (self._evidence_mode()
-                    and len({unit.origin for unit in window
-                             if unit.origin is not None}) >= 2):
-                cone_cap = MIXED_CHUNK_CONES_CPU
+            if len({unit.origin for unit in window
+                    if unit.origin is not None}) >= 2:
+                cone_cap = self.ragged_chunk_cones or (
+                    MIXED_CHUNK_CONES_CPU if self._evidence_mode() else 0)
         chunks: List[List[_Unit]] = [[]]
         chunk_bytes = 0
         chunk_vars = 0  # combined page space (var 0 shared)

@@ -1,6 +1,7 @@
 """`myth`-compatible command line (reference mythril/interfaces/cli.py:976).
 
-Subcommands: analyze/a, serve, list-detectors, version, help. `analyze`
+Subcommands: analyze/a, serve, autotune, list-detectors, version, help.
+`analyze`
 exits with 0 when it found no issue and 1 when it found some (reference
 cli.py:875-878), and with 2 when the analysis failed: no device, a device
 fault, or an exception that cut a contract's analysis short (the partial
@@ -10,7 +11,11 @@ solve windows on the CUDA device by default (--solver-backend gpu);
 --solver-backend cpu the host CDCL alone. `serve` runs the multi-tenant
 daemon (serve/), or with --shards N > 1 the sharded fleet (fleet/), on
 the same device rules: it exits 0 after a SIGTERM drain and 2 without a
-device or once a device fault stopped it."""
+device or once a device fault stopped it. `autotune` (tune/search.py)
+measures candidate knob configurations on `analyze` children of the same
+device rules and persists the platform's winner as a tuned profile, which
+`analyze` and `serve` apply at start; it exits 2 when the baseline run
+failed (no device among others) and never falls back to the CPU."""
 
 import argparse
 import logging
@@ -81,6 +86,50 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("-v", "--verbose", type=int, default=2,
                        help="log level 0-5")
     add_analysis_args(serve)
+
+    autotune = subparsers.add_parser(
+        "autotune",
+        help="measured schedule search over the knob space: time "
+             "candidate configurations on a bounded probe (the first two "
+             "bench_inputs/corpus contracts by default) under a "
+             "byte-identical findings guard, and persist the platform's "
+             "winner as a tuned profile beside the calibration cache")
+    autotune.add_argument("-f", "--codefile", action="append",
+                          help="probe input file(s) of hex bytecode "
+                               "(default: bench_inputs/corpus)")
+    autotune.add_argument("--bin-runtime", action="store_true",
+                          help="treat probe inputs as runtime code")
+    autotune.add_argument("-t", "--transaction-count", type=int, default=1)
+    autotune.add_argument("--candidates", type=int, default=None,
+                          help="candidate configurations to measure "
+                               "(MYTHRIL_GPU_AUTOTUNE_CANDIDATES or 8)")
+    autotune.add_argument("--budget", type=float, default=None,
+                          help="per-candidate wall budget in seconds "
+                               "(MYTHRIL_GPU_AUTOTUNE_BUDGET or 180)")
+    autotune.add_argument("--rounds", type=int, default=None,
+                          help="successive-halving measurement rounds (2)")
+    autotune.add_argument("--min-delta", type=float, default=None,
+                          dest="min_delta",
+                          help="least relative improvement before a "
+                               "winner persists "
+                               "(MYTHRIL_GPU_AUTOTUNE_MIN_DELTA or 0.02); "
+                               "it must also beat the baseline walls' "
+                               "spread")
+    autotune.add_argument("--force", action="store_true",
+                          help="search again even when a tuned profile for "
+                               "this platform and probe exists")
+    autotune.add_argument("--solver-backend", default="gpu",
+                          choices=["gpu", "cpu"],
+                          help="the children's satisfiability backend "
+                               "(gpu, the default: the device path)")
+    autotune.add_argument("--torch-device", dest="torch_device",
+                          default=None,
+                          help="the children's torch device (default: the "
+                               "current CUDA device, an error without "
+                               "one; cpu runs the kernels' plain PyTorch "
+                               "versions)")
+    autotune.add_argument("-v", "--verbose", type=int, default=2,
+                          help="log level 0-5")
 
     subparsers.add_parser("list-detectors", help="list detection modules")
     subparsers.add_parser("version", help="print version")
@@ -314,13 +363,19 @@ def execute_command(parsed) -> int:
     if command == "serve":
         return serve_command(parsed)
 
+    if command == "autotune":
+        from mythril_tpu_torch.tune.search import run_autotune
+
+        return run_autotune(parsed)
+
     raise CliError(f"unknown command {command!r}")
 
 
 def serve_command(parsed) -> int:
     """`serve` (reference cli.py:454-493): the analysis flags go into the
     args singleton as an analyze run's would (every request inherits
-    them); one process runs the daemon, --shards N > 1 the fleet."""
+    them), the tuned profile is applied, and one process runs the daemon,
+    --shards N > 1 the fleet."""
     from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
     from mythril_tpu_torch.fleet import fleet_shards
     from mythril_tpu_torch.gpu.device import DeviceFault, NoDeviceError
@@ -331,7 +386,13 @@ def serve_command(parsed) -> int:
         serve_forever,
     )
 
+    from mythril_tpu_torch.tune import apply_tuned_profile
+
     MythrilAnalyzer(MythrilDisassembler(), cmd_args=parsed)
+    # the daemon reads its batch width and the device path its knobs at
+    # construction: the tuned profile goes in first, keyed by the device
+    # the flags just named (an explicit env var still wins)
+    apply_tuned_profile()
     port = parsed.port
     if port is None:
         port = int(os.environ.get(PORT_ENV) or DEFAULT_PORT)

@@ -221,6 +221,10 @@ def snapshot(seq: int = 0, final: bool = False) -> dict:
     # the sites that recorded an event so far
     sites = {site: dict(events)
              for site, events in list(stats.resilience_events.items())}
+    # the resolved knob configuration (value and source per knob), as the
+    # stats JSON carries it (tune/space.py)
+    from mythril_tpu_torch.tune import space as tune_space
+
     snap = stamp()
     snap.update({
         "seq": seq,
@@ -232,6 +236,7 @@ def snapshot(seq: int = 0, final: bool = False) -> dict:
         "histograms": histograms,
         "roofline": roofline_view,
         "resilience": sites,
+        "knobs": tune_space.resolved_config(),
     })
     return snap
 

@@ -4,7 +4,7 @@ port).
 
     python -m mythril_tpu_torch.observe.stats_keys
 
-Three invariants, numbered as in the JAX package's lint:
+Four invariants, numbered as in the JAX package's lint:
 
   1. every counter and timer of SolverStatistics._COUNTERS/_TIMERS is in
      the MYTHRIL_GPU_STATS_JSON emission (as_dict());
@@ -13,7 +13,11 @@ Three invariants, numbered as in the JAX package's lint:
   6. no orphan instruments: every instrument of the live registry
      (observe/metrics.REGISTRY) reaches the heartbeat snapshot
      (metrics.snapshot()), every stats-sourced one reaches as_dict(), and
-     every SolverStatistics counter and timer is a registered instrument.
+     every SolverStatistics counter and timer is a registered instrument;
+  7. the autotune loop's telemetry: every counter of tune.TUNE_COUNTERS is
+     a SolverStatistics field in as_dict(), and both as_dict() and the
+     heartbeat snapshot carry the "knobs" stamp with every registered
+     knob (tune/space.py).
 
 The JAX package's invariants 2, 3 and 5 hold the counters against its
 benchmark's roll-up, which the port does not have yet.
@@ -65,6 +69,24 @@ def violations() -> List[str]:
             failures.append(
                 f"registered instrument {instrument.name!r} missing from "
                 "the MYTHRIL_GPU_STATS_JSON emission (as_dict)")
+    from mythril_tpu_torch.tune import TUNE_COUNTERS
+    from mythril_tpu_torch.tune import space as tune_space
+
+    for name in TUNE_COUNTERS:
+        if name not in fields or name not in emitted:
+            failures.append(
+                f"tune counter {name!r} is not a SolverStatistics field "
+                "emitted in the stats JSON (as_dict)")
+    for section_name, section in (("as_dict()", emitted_dict.get("knobs")),
+                                  ("metrics.snapshot()", snap.get("knobs"))):
+        if not isinstance(section, dict):
+            failures.append(f"{section_name} does not emit the \"knobs\" "
+                            "configuration stamp")
+            continue
+        absent = sorted(set(tune_space.knob_names()) - set(section))
+        if absent:
+            failures.append(f"{section_name} \"knobs\" stamp is missing "
+                            "registered knobs: " + ", ".join(absent))
     registered = {instrument.name for instrument in metrics.REGISTRY}
     unregistered = sorted(set(fields) - registered)
     if unregistered:

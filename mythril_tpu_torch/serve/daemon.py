@@ -221,14 +221,21 @@ class ServeDaemon:
         from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
         from mythril_tpu_torch.support.args import args
 
+        from mythril_tpu_torch.tune import apply_tuned_profile
+
+        stats = SolverStatistics()
+        stats.enabled = True
+        # the entry point (serve, a fleet shard) applied the tuned profile
+        # before building this daemon, while the statistics were off: this
+        # repeat call counts its knobs now (it applies nothing new), before
+        # the kernel mode picks the kernels to build
+        apply_tuned_profile()
         if args.solver_backend == "gpu":
             # NoDeviceError without a card and without a device named; a
             # kernel that does not build raises here, before any request
             if resolve_device(args.torch_device).type == "cuda":
                 core.build_device_kernels()
         core.reset_engine_state()
-        stats = SolverStatistics()
-        stats.enabled = True
         faults.configure_from_env(getattr(args, "inject_fault", None))
         flightrec.install()
         self._heartbeat = metrics.start_heartbeat(

@@ -1,5 +1,5 @@
-"""Persistent router micro-calibration cache (mythril_tpu.service.calibration,
-measurement entries only).
+"""Persistent router micro-calibration cache and the tuned profiles
+(mythril_tpu.service.calibration).
 
 The router (gpu/router.py) measures its stage rates once per process —
 the live ragged kernel's cells per second on a small two-cone stream (K1's
@@ -12,7 +12,10 @@ kernels' measurements share it.
 
 Entries carry a schema stamp and a measurement timestamp; a schema bump
 or a malformed file degrades to re-measurement, never to a wrong rate.
-The JAX package's tuned-profile section waits for the autotune slice.
+
+The same file holds the autotune search's `tuned` section
+(mythril_tpu_torch/tune/): one measured profile per platform, versioned
+apart from the measurement entries (TUNED_SCHEMA_VERSION).
 """
 
 import json
@@ -27,6 +30,11 @@ from mythril_tpu_torch.support.lock import LockFile
 log = logging.getLogger(__name__)
 
 CALIBRATION_SCHEMA_VERSION = 1
+# schema of the per-platform `tuned` section, bumped apart from the
+# calibration schema: a stale tuned layout is ignored (a counted event)
+# without invalidating the measurements, and a calibration-schema bump
+# never drops a platform's still-valid profile
+TUNED_SCHEMA_VERSION = 1
 _FILENAME = "calibration.json"
 
 # kernel_cells_s (K1), xla_cells_s (K2) or per_cell_s (K3) gates an entry
@@ -92,15 +100,7 @@ def save_profile(platform: Optional[str], restarts: int, steps: int,
     try:
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with LockFile(path + ".lock"):
-            payload = {"schema": CALIBRATION_SCHEMA_VERSION, "entries": {}}
-            try:
-                with open(path) as fd:
-                    existing = json.load(fd)
-                if existing.get("schema") == CALIBRATION_SCHEMA_VERSION:
-                    payload = existing
-                    payload.setdefault("entries", {})
-            except (OSError, ValueError):
-                pass
+            payload = _payload_for_write(path)
             key = _key(platform, restarts, steps)
             entry = payload["entries"].get(key)
             payload["entries"][key] = {
@@ -112,3 +112,125 @@ def save_profile(platform: Optional[str], restarts: int, steps: int,
             atomic_write_json(path, payload)
     except OSError as error:
         log.info("could not persist calibration (%s)", error)
+
+
+def _payload_for_write(path: str) -> dict:
+    """The file's payload to merge a write into: the existing one when its
+    calibration schema is current, else a fresh one that still keeps the
+    existing `tuned` section (versioned on its own)."""
+    payload = {"schema": CALIBRATION_SCHEMA_VERSION, "entries": {}}
+    try:
+        with open(path) as fd:
+            existing = json.load(fd)
+    except (OSError, ValueError):
+        return payload
+    if not isinstance(existing, dict):
+        return payload
+    if existing.get("schema") == CALIBRATION_SCHEMA_VERSION \
+            and isinstance(existing.get("entries"), dict):
+        return existing
+    if isinstance(existing.get("tuned"), dict):
+        payload["tuned"] = existing["tuned"]
+    return payload
+
+
+# -- tuned profiles (mythril_tpu_torch/tune/) ---------------------------------
+#
+# The autotune search persists its measured winner as a per-platform
+# `tuned` section of the same file. Unlike the measurement entries it is an
+# operator's artifact, not a cache tier: load and save are not gated on
+# the disk tier, so a profile tuned once applies to every later run
+# whatever its --solve-cache mode, and clear_caches() (in-process state
+# only) never loses it. A platform is the port's platform stamp
+# (observe/metrics.torch_platform): the card's name, or "cpu".
+
+
+def _read_payload() -> dict:
+    try:
+        with open(_path()) as fd:
+            payload = json.load(fd)
+    except (OSError, ValueError):
+        return {}
+    return payload if isinstance(payload, dict) else {}
+
+
+def tuned_platforms() -> list:
+    """Platforms with a present (not necessarily valid) tuned entry: the
+    grounded fallback of tune.default_platform."""
+    section = _read_payload().get("tuned")
+    if not isinstance(section, dict):
+        return []
+    return sorted(name for name in section if isinstance(name, str))
+
+
+def measured_platforms() -> list:
+    """Platforms this machine's calibration measurements were taken on,
+    under the platform stamp's names: an entry key is "platform|rN|sM",
+    and the router keys a card's entries "cuda:<card name>"."""
+    entries = _read_payload().get("entries")
+    if not isinstance(entries, dict):
+        return []
+    names = set()
+    for key in entries:
+        if isinstance(key, str) and "|" in key:
+            name = key.split("|", 1)[0]
+            names.add(name[len("cuda:"):] if name.startswith("cuda:")
+                      else name)
+    return sorted(names)
+
+
+def load_tuned(platform: Optional[str]):
+    """(tuned profile, None) for this platform; (None, reject reason) for a
+    present but unusable section (an unreadable file, a stale schema,
+    malformed knobs: the caller counts the event); (None, None) when
+    nothing was tuned for it."""
+    if not platform:
+        return None, None
+    path = _path()
+    if not os.path.isfile(path):
+        return None, None
+    try:
+        with open(path) as fd:
+            payload = json.load(fd)
+    except (OSError, ValueError):
+        return None, "unreadable"
+    section = payload.get("tuned") if isinstance(payload, dict) else None
+    if not isinstance(section, dict):
+        return None, None if section is None else "malformed"
+    entry = section.get(platform)
+    if entry is None:
+        return None, None
+    if not isinstance(entry, dict):
+        return None, "malformed"
+    if entry.get("schema") != TUNED_SCHEMA_VERSION:
+        return None, "stale-schema"
+    knobs = entry.get("knobs")
+    if not isinstance(knobs, dict) or not knobs or not all(
+            isinstance(name, str) and isinstance(value, (int, float, str))
+            and not isinstance(value, bool)
+            for name, value in knobs.items()):
+        return None, "malformed"
+    return entry, None
+
+
+def save_tuned(platform: Optional[str], entry: dict) -> bool:
+    """Persist one platform's tuned profile (the schema stamp and the time
+    added here), read-modify-write under the measurement entries' lock so
+    a concurrent calibration save cannot tear the section."""
+    if not platform or not isinstance(entry.get("knobs"), dict):
+        return False
+    path = _path()
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with LockFile(path + ".lock"):
+            payload = _payload_for_write(path)
+            tuned = payload.get("tuned")
+            if not isinstance(tuned, dict):
+                tuned = {}
+            tuned[platform] = {**entry, "schema": TUNED_SCHEMA_VERSION,
+                               "tuned_at": int(time.time())}
+            payload["tuned"] = tuned
+            return atomic_write_json(path, payload)
+    except OSError as error:
+        log.info("could not persist tuned profile (%s)", error)
+        return False

@@ -14,7 +14,11 @@ Flush triggers (bounded window):
            with the gpu backend's ragged path, where one launch covers a
            window)
   age      a submit arriving after the oldest buffered entry has waited
-           COALESCE_MS (6 ms)
+           MYTHRIL_GPU_COALESCE_MS (default 6 ms)
+
+MYTHRIL_GPU_COALESCE_MS=0 disables coalescing: solve_batch and
+solve_fork_batch become direct get_models_batch calls and submit() solves
+at once.
 
 Synchronous host code (time.monotonic checks, no threads of its own).
 Every flush is counted in SolverStatistics (window_flushes,
@@ -53,7 +57,7 @@ from mythril_tpu_torch.support.env import env_float
 
 log = logging.getLogger(__name__)
 
-COALESCE_MS = 6.0
+COALESCE_MS = 6.0  # default of MYTHRIL_GPU_COALESCE_MS
 DEFAULT_COALESCE_MAX = 16
 # on the gpu backend ONE ragged launch covers a whole window regardless
 # of shape, so a wider window buys amortization
@@ -92,6 +96,8 @@ class CoalescingScheduler:
     def __init__(self):
         from mythril_tpu_torch.support.args import args
 
+        self.window_ms = env_float("MYTHRIL_GPU_COALESCE_MS",
+                                   COALESCE_MS)
         default_max = DEFAULT_COALESCE_MAX
         # widen only where one launch can cover the window: the ragged
         # path on the gpu backend
@@ -111,13 +117,24 @@ class CoalescingScheduler:
         self._buffer: List[tuple] = []
         self._oldest: Optional[float] = None
 
+    @property
+    def enabled(self) -> bool:
+        return self.window_ms > 0
+
     def pending(self) -> int:
         return len(self._buffer)
 
     def submit(self, constraints, crosscheck: Optional[bool] = None
                ) -> SolveHandle:
-        """Buffer one query; returns a handle."""
+        """Buffer one query; returns a handle. With coalescing disabled the
+        query is solved at once."""
         handle = SolveHandle(self)
+        if not self.enabled:
+            from mythril_tpu_torch.support.model import get_models_batch
+
+            handle._resolve(
+                get_models_batch([constraints], crosscheck=crosscheck)[0])
+            return handle
         self._buffer_one(handle, constraints, crosscheck)
         if len(self._buffer) >= self.max_batch:
             self.flush()
@@ -130,7 +147,7 @@ class CoalescingScheduler:
         now = time.monotonic()
         if (self._buffer and self._oldest is not None
                 and interleave.active() is None
-                and (now - self._oldest) * 1000.0 >= COALESCE_MS):
+                and (now - self._oldest) * 1000.0 >= self.window_ms):
             # the window expired while nobody demanded a result: flush the
             # stale cohort before starting a new one. Under the interleave
             # coordinator the age trigger is suspended: parked bundles wait
@@ -150,7 +167,12 @@ class CoalescingScheduler:
         ONE window flush regardless of max_batch (the caller bounds the
         bundle; splitting it would split its stream). Under the interleave
         coordinator the bundle parks instead: the baton passes to sibling
-        analyses, whose bundles join the same window."""
+        analyses, whose bundles join the same window. With coalescing
+        disabled it is a direct get_models_batch call."""
+        if not self.enabled:
+            from mythril_tpu_torch.support.model import get_models_batch
+
+            return get_models_batch(constraint_sets, crosscheck=crosscheck)
         handles = []
         for constraints in constraint_sets:
             handle = SolveHandle(self)
@@ -174,7 +196,13 @@ class CoalescingScheduler:
         already-buffered traffic flushes first so the pair indices stay
         aligned with the bundle. Under it the bundle joins the shared
         window like any other traffic, each pair tagged with a token the
-        flush turns back into the fork_pairs hint."""
+        flush turns back into the fork_pairs hint. With coalescing
+        disabled it is a direct get_models_batch call."""
+        if not self.enabled:
+            from mythril_tpu_torch.support.model import get_models_batch
+
+            return get_models_batch(constraint_sets, crosscheck=crosscheck,
+                                    fork_pairs=pairs)
         from mythril_tpu_torch.service import interleave
 
         coordinator = interleave.active()

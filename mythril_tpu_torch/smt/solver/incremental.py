@@ -64,6 +64,23 @@ PREFIX_MEMO_MAX = 32
 # clone cost and retained memory would outweigh the resume win
 SNAPSHOT_NODE_CAP = 200_000
 
+
+def _prefix_memo_max() -> int:
+    """Live prefix-memo cap: MYTHRIL_GPU_PREFIX_MEMO_MAX (env or tuned
+    profile) over PREFIX_MEMO_MAX, read at use so a profile applied at
+    start-up reaches it."""
+    from mythril_tpu_torch.support.env import env_int
+
+    return env_int("MYTHRIL_GPU_PREFIX_MEMO_MAX", PREFIX_MEMO_MAX)
+
+
+def _snapshot_node_cap() -> int:
+    """Live snapshot-size cap: MYTHRIL_GPU_SNAPSHOT_NODE_CAP (env or tuned
+    profile) over SNAPSHOT_NODE_CAP."""
+    from mythril_tpu_torch.support.env import env_int
+
+    return env_int("MYTHRIL_GPU_SNAPSHOT_NODE_CAP", SNAPSHOT_NODE_CAP)
+
 # mirrors propagate_equalities' max_rounds for the suffix fixpoint
 SUFFIX_ROUNDS = 8
 
@@ -292,7 +309,7 @@ def record(asserted, residual, substitutions, taken_equal, taken_narrow,
     live object)."""
     if not asserted:
         return
-    if len(lowering.cache) > SNAPSHOT_NODE_CAP:
+    if len(lowering.cache) > _snapshot_node_cap():
         return
     state = _state()
     key = tuple(id(t) for t in asserted)
@@ -315,7 +332,7 @@ def record(asserted, residual, substitutions, taken_equal, taken_narrow,
         lowered=tuple(lowered),
     )
     state.lengths[len(key)] = state.lengths.get(len(key), 0) + 1
-    while len(state.prefix_memo) > PREFIX_MEMO_MAX:
+    while len(state.prefix_memo) > _prefix_memo_max():
         old_key, _old = state.prefix_memo.popitem(last=False)
         state.origins.pop(old_key, None)
         live = state.lengths.get(len(old_key), 0) - 1

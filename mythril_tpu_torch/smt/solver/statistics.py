@@ -167,6 +167,16 @@ class SolverStatistics:
         "net_tier_hits",
         "net_tier_stores",
         "net_tier_verify_rejects",
+        # the autotune loop (tune/): search candidates measured, those
+        # rejected by the findings-parity guard and those measured no
+        # better than the default configuration, tuned knobs live in this
+        # process (applied and not shadowed by an explicit env var), and
+        # corrupt or stale tuned profiles ignored at apply time
+        "autotune_candidates_tried",
+        "autotune_rejected_parity",
+        "autotune_rejected_regression",
+        "tuned_knobs_applied",
+        "tuned_profile_rejects",
         # the engine (laser/svm.py, analysis/module/loader.py): detection
         # modules the static reachability gate skipped, fork-prune solves
         # skipped on inert cones, and fork sides pruned on a drained
@@ -560,6 +570,37 @@ class SolverStatistics:
             return 0.0
         return self.serve_batch_requests / self.serve_batch_tenants
 
+    def add_autotune_candidate(self) -> None:
+        """One candidate configuration measured by the autotune search."""
+        if self.enabled:
+            self.autotune_candidates_tried += 1
+
+    def add_autotune_rejected(self, parity: bool) -> None:
+        """A tried candidate rejected: `parity`, its probe findings were not
+        byte-identical to the default configuration's (its wall never
+        ranked); otherwise it was not persisted (no better than the
+        default within the margin, dropped by a halving round, or failed
+        or timed out under its budget). candidates_tried always equals
+        parity + regression + (1 if a winner persisted)."""
+        if self.enabled:
+            if parity:
+                self.autotune_rejected_parity += 1
+            else:
+                self.autotune_rejected_regression += 1
+
+    def add_tuned_knobs_applied(self, count: int) -> None:
+        """Tuned-profile knobs live in this process (installed at start and
+        not shadowed by an explicit env var)."""
+        if self.enabled:
+            self.tuned_knobs_applied += count
+
+    def add_tuned_profile_reject(self) -> None:
+        """A persisted tuned profile ignored at apply time (a corrupt file,
+        a stale schema, unregistered or malformed knobs), counted so a run
+        on the defaults says why."""
+        if self.enabled:
+            self.tuned_profile_rejects += 1
+
     def add_cube_dispatch(self, cubes: int, refuted: int = 0) -> None:
         """One cube-and-conquer pass: `cubes` pinned replicas of a hard
         cone rode a ragged stream; `refuted` came back modelless
@@ -783,6 +824,12 @@ class SolverStatistics:
             "sites": sites,
             "faults_active": faults.active_spec(),
         }
+        # the resolved knob configuration (value and source tier per
+        # knob: env, cli, tuned or default), so every stats artifact names
+        # the schedule that produced it (tune/space.py)
+        from mythril_tpu_torch.tune import space as tune_space
+
+        out["knobs"] = tune_space.resolved_config()
         # the kernel mode that produced the device figures
         # (MYTHRIL_GPU_KERNEL: "pallas" or "xla"), as mythril_tpu stamps
         # it; the device itself is in the "device" section

@@ -14,13 +14,9 @@ from tests.test_analysis import KILLBILLY, wrap_creation
 from tests.torch_helpers import run_analyze
 
 # keys of the JAX package's stats JSON whose surface the port has not
-# ported yet, with the ROADMAP.md §1 item that brings each
-NOT_PORTED = {
-    # 10: autotune and the resolved knob stamp
-    "autotune_candidates_tried": 10, "autotune_rejected_parity": 10,
-    "autotune_rejected_regression": 10, "tuned_knobs_applied": 10,
-    "tuned_profile_rejects": 10, "knobs": 10,
-}
+# ported yet, with the ROADMAP.md §1 item that brings each (none since
+# item 10 brought the autotune counters and the knob stamp)
+NOT_PORTED = {}
 # the Pallas round's counters under the port's names (K1 is a CUDA kernel)
 RENAMED = {"pallas_launches": "kernel_launches",
            "pallas_cells_stepped": "kernel_cells_stepped"}

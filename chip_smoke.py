@@ -14,6 +14,8 @@
     python3 chip_smoke.py --corpus-only  # env, build, the corpus phase
     python3 chip_smoke.py --serve-only   # env, build, the serve phase
     python3 chip_smoke.py --autotune-only  # env, build, the autotune phase
+    python3 chip_smoke.py --mesh-only    # env, build, the mesh phase
+    python3 chip_smoke.py --options-only  # env, build, the options phase
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
@@ -90,10 +92,11 @@ line):
           easm_to_code) at -t 2 and the four bench_inputs/corpus contracts
           at -t 1, each with an execution timeout of 600 s that the runs
           must not reach, then bench_inputs/stress_dispatch.hex at -t 1
-          with a fixed 10 s each (reported, its findings compared only if
+          with a fixed 5 s each (reported, its findings compared only if
           both runs completed; 120 s before the frontier phase came, 60 s
           before the corpus phase came, 30 s before the serve phase came,
-          cut to keep the script inside its time limit). KILLBILLY and
+          10 s before the mesh and options phases came, cut to keep the
+          script inside its time limit). KILLBILLY and
           xc_dispatch_a.hex run a third time, on the host CDCL with the
           frontier stepped by K6 (MYTHRIL_GPU_FRONTIER_BACKEND=cuda): the
           report must equal the host run's byte for byte, and the frontier
@@ -325,6 +328,38 @@ line):
           completes on K1 with the host's findings. The three runs of
           (b)-(d) go side by side, each in its own process.
           --autotune-only runs the host run itself.
+  options the engine options analyze reads, after the analyze phase:
+          KILLBILLY -t 2 on the host and the device backend under
+          --enable-summaries, --enable-state-merging and (its runtime
+          code, whose selectors the prioritiser ranks)
+          --disable-incremental-txs (the whole script: summaries only):
+          the findings must be equal at issue granularity and non-empty,
+          K1 must run solve rounds and K6 launch (counted from just
+          before the device run to just after it; under summaries no
+          state takes the batched frontier, in the JAX package too, so
+          K6 must not launch), and every K1 launch
+          of the device run is held bit for bit against its plain
+          version, the largest timed; then -j and -g of KILLBILLY -t 1
+          through the CLI in this process on both backends: the
+          device's statespace JSON byte for byte the host's, its vis.js
+          page the same node and edge sets, none empty (written under
+          chiprun_out/options/).
+  mesh    K4, after the bucketed phase: graft.dryrun_multichip on a
+          virtual mesh of 8 shards on the card (4 x 2; the whole script:
+          4 shards, 2 x 2, leg 1 only): the pinned contract's analyze
+          harvested on the host, leg 1 solving its shallow 256-bit cones
+          with host-checked models and leg 2 executing the deep ones.
+          Every K4 round is held as it returns: each shard's x and found
+          bit for bit against run_round_circuit_plain on its blocks with
+          its folded seed (on the host, in 4 spawned processes while the
+          dryrun goes on, every one waited for; the first round on the
+          card too, its plain runs timed there), solved against
+          found.any over mp; launches are counted by shard. K4 is then
+          timed under CUDA events on leg 1's first round (leg 1 is one
+          batch) beside K3 on the same batch unsharded. Its bound is the
+          slowest device's share: each dp block's tables read once a
+          device, x and found per shard (on a virtual mesh, K3's bound
+          on the batch unsharded).
 The whole script prints each phase's seconds in its "total" record.
 --telemetry-overhead runs the overhead legs alone, twice over (eight legs
 a contract).
@@ -379,7 +414,10 @@ K1's and K6's launches in the corpus phase, and K1's time on its largest
 mixed-origin stream; the same of the serve phase, and the fleet shards'
 K1 solve rounds; the autotune phase's: the search children's K1 solve
 rounds, K1's launches under (c) and (d) and its time on (c)'s largest
-launch, K2's launches under (b) and its time there), the card's
+launch, K2's launches under (b) and its time there; K1's and K6's
+launches under each option leg and K1's in the -j/-g dumps; K4's launches
+by shard in the mesh phase, its time on leg 1's round, the plain runs'
+sum, its bound and K3 unsharded beside it), the card's
 nvidia-smi line, and last {"ok": true,
 "device": {...}}. A copy of every JSON line goes to
 chiprun_out/chip_smoke.jsonl.
@@ -409,7 +447,7 @@ FORK_PAIRS = 16    # the fork window: 32 queries
 SEED = 20261016
 OUT_DIR = "chiprun_out"
 ANALYZE_TIMEOUT = 600   # s per analyze run; the runs must complete inside
-STRESS_TIMEOUT = 10     # s per stress_dispatch run, a measurement
+STRESS_TIMEOUT = 5      # s per stress_dispatch run, a measurement
 FRONTIER_RUNS = 100     # random runs K6 is held against its plain version
 FRONTIER_EDGE_BIAS = 0.25
 # analyze runs repeated on the host CDCL with the frontier stepped by K6
@@ -1815,7 +1853,8 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
     largest frontier batch K6 steps;
     `frontier_backend` pins the frontier's step (None: auto, which is the
     host step for solver_backend "cpu" and K6 for "gpu"); `engine` adds
-    CLI options (e.g. {"no_frontier_fork": True}); `telemetry` names the
+    CLI options (e.g. {"no_frontier_fork": True}; "bin_runtime" loads
+    `code` as runtime code); `telemetry` names the
     run's folder of telemetry artifacts, all on and checked (None: none
     written)."""
     from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
@@ -1861,12 +1900,14 @@ def _analyze_once(device, code, tx_count, timeout, solver_backend, largest,
     launches_before = ragged_kernel.launches
     k2_before = xla_kernel.launches
     frontier_kernel.reset_launches()  # K6's count for this run starts here
+    engine = dict(engine or {})
+    bin_runtime = engine.pop("bin_runtime", False)
     cmd_args = SimpleNamespace(
         execution_timeout=timeout, transaction_count=tx_count,
         max_depth=128, solver_backend=solver_backend,
-        torch_device=device_arg, pruning_factor=1.0, **(engine or {}))
+        torch_device=device_arg, pruning_factor=1.0, **engine)
     disassembler = MythrilDisassembler()
-    disassembler.load_from_bytecode(code)
+    disassembler.load_from_bytecode(code, bin_runtime=bin_runtime)
     calibration = {}
     ring = dump = None
     with (_telemetry_env(telemetry, CHECKED_RING_CAP) if telemetry
@@ -3271,6 +3312,7 @@ def _serve_fleet(device, inputs, records, failures):
     merged /metrics equal the shards' own snapshots summed. Returns each
     shard's K1 solve rounds (kernel_launches)."""
     folder = os.path.join(OUT_DIR, "serve-fleet")
+    shutil.rmtree(folder, ignore_errors=True)  # a fresh network tier
     net = os.path.join(folder, "net-tier")
     extra = ["--shards", "2", "-t", "1"]
     if device.type != "cuda":
@@ -3435,11 +3477,12 @@ _CHILD_LINE = re.compile(r"autotune child (\S+): rc=(-?\d+) wall=([\d.]+) s "
 
 
 @contextlib.contextmanager
-def _keep_largest_k1(largest, skip=None):
+def _keep_largest_k1(largest, skip=None, every=None):
     """Keep the largest K1 launch (lanes x gates) inside the block: the host
     stream it was flattened from, a copy of its x, its seed, steps, walk
     depth and capacities. A launch made while `skip()` is true is not
-    kept."""
+    kept. `every`, a list, gets each launch kept the same way, and None
+    for a launch whose stream was not tracked (its caller fails on it)."""
     from mythril_tpu_torch.gpu import ragged_kernel
 
     flatten = ragged_kernel.flatten_stream
@@ -3462,12 +3505,16 @@ def _keep_largest_k1(largest, skip=None):
     def keep(flat, x, seed, steps, walk_depth, caps):
         kept = streams.get(id(flat))
         size = x.shape[0] * flat.num_gates
-        if kept is not None and kept[0] is flat \
-                and size > largest.get("size", -1) and not (skip and skip()):
-            largest.update(size=size, stream=kept[1],
-                           x=x.detach().cpu().clone(),
-                           seed=seed, steps=steps, walk_depth=walk_depth,
-                           caps=tuple(caps))
+        launch = None
+        if kept is not None and kept[0] is flat and not (skip and skip()):
+            launch = dict(size=size, stream=kept[1],
+                          x=x.detach().cpu().clone(), seed=seed,
+                          steps=steps, walk_depth=walk_depth,
+                          caps=tuple(caps))
+        if launch is not None and size > largest.get("size", -1):
+            largest.update(launch)
+        if every is not None and not (skip and skip()):
+            every.append(launch)
         return real(flat, x, seed, steps, walk_depth, caps)
 
     ragged_kernel.flatten_stream = flattened
@@ -3653,10 +3700,12 @@ def _autotune_profile_run(device, folder, code_path, name, cache_dir,
             "env_knobs": env_knobs}
 
 
-def _hold_k1_launch(device, kept, window, counts):
+def _hold_k1_launch(device, kept, window, counts, phase="autotune",
+                    timed=True):
     """K1 bit for bit against its plain version on a launch kept by
     _keep_largest_k1 (its own x, seed, steps and walk depth), both timed
-    there; launches made here are not counted. Emits one record."""
+    there (K1 only when `timed`); launches made here are not counted.
+    Emits one record of `phase`."""
     from mythril_tpu_torch.gpu import ragged_kernel
 
     launches = ragged_kernel.launches
@@ -3668,13 +3717,13 @@ def _hold_k1_launch(device, kept, window, counts):
     args = (kept["seed"], kept["steps"], kept["walk_depth"])
     err, plain_ms = _compare_timed(flat, x, *args, caps)
     ms = None
-    if device.type == "cuda":
+    if device.type == "cuda" and timed:
         ms = _time_ms(lambda: ragged_kernel.run_round_ragged_kernel(
             flat, x, *args, caps), repeats=5)
     ragged_kernel.launches = launches
     bound_ms, bound_by, moved, ops = _bound(flat, stream.v1, x.shape[0],
                                             args[1], caps)
-    emit({"phase": "autotune", "window": window,
+    emit({"phase": phase, "window": window,
           **_stream_fields(stream, flat), "lanes": x.shape[0],
           "steps": args[1], "walk_depth": args[2], **counts,
           "bit_identical": True, "max_abs_err": err,
@@ -3933,6 +3982,474 @@ def autotune_only(device) -> int:
     return 0
 
 
+# -- the mesh phase: K4 on a virtual mesh ------------------------------------
+
+MESH_SHARDS = 8        # --mesh-only: dryrun_multichip(8, virtual=True)
+MESH_SHARDS_WHOLE = 4  # the whole script: dryrun_multichip(4, virtual=True)
+K4_REPEATS = 5
+HOLD_WORKERS = 4       # processes running the mesh phase's host holds
+
+
+def _hold_k4_shard(placed, grid, out, i, j, seed, steps, walk_depth,
+                   on):
+    """Shard (i, j) of a K4 round against run_round_circuit_plain on its
+    blocks with its folded seed, the plain run on device `on`: (max abs
+    error, which must be 0, and the plain run's ms). Raises unless bit for
+    bit."""
+    import torch
+
+    from mythril_tpu_torch.gpu import circuit, circuit_kernel
+
+    tables = {key: value.to(on) for key, value
+              in placed.tables[i][j].items()}
+    x = grid.block(i, j).to(on)
+    (want_x, want_found), ms = _timed_once(
+        on, lambda: circuit_kernel.run_round_circuit_plain(
+            tables, x, circuit.shard_seed(seed, i * 7919 + j), steps,
+            walk_depth))
+    got_x, got_found = out[0].block(i, j).to(on), out[1].block(i, j).to(on)
+    if not (torch.equal(got_x, want_x) and torch.equal(got_found,
+                                                        want_found)):
+        raise AssertionError(
+            f"mesh: K4's shard ({i}, {j}) disagrees with the plain round: "
+            f"{int((got_x != want_x).sum())} x cells, "
+            f"{int((got_found != want_found).sum())} found cells")
+    return max(int((got_x - want_x).abs().max()),
+               int((got_found.int() - want_found.int()).abs().max())), ms
+
+
+def _plain_round_on_host(tables, x, seed, steps, walk_depth):
+    """run_round_circuit_plain on numpy blocks, in a process of the mesh
+    phase's pool (one thread each: the pool's processes run side by side).
+    Returns (x, found) as numpy arrays."""
+    import torch
+
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    torch.set_num_threads(1)
+    out_x, found = circuit_kernel.run_round_circuit_plain(
+        {key: torch.from_numpy(value) for key, value in tables.items()},
+        torch.from_numpy(x), seed, steps, walk_depth)
+    return out_x.numpy(), found.numpy()
+
+
+@contextlib.contextmanager
+def _hold_every_k4_round(device, kept):
+    """Every K4 round the backend runs inside the block, held: each
+    shard's (x, found) bit for bit against run_round_circuit_plain on that
+    shard's blocks with its folded seed, and solved against found.any
+    over mp. The plain runs go on the host, in HOLD_WORKERS spawned
+    processes while the dryrun goes on (at one query slot and four lanes
+    a shard the plain round's small ops run faster there than on the
+    card); every one is waited for and compared when the block ends, and
+    the pool is shut down. The first round, kept for the timing (the
+    dryrun's leg 1 runs first), is held on `device` too, its plain runs
+    timed there. Each shard's calls of K3's wrapper are counted by (dp,
+    mp) index (on the card each is a launch), and the rounds by batch (a
+    batch a placement of tables)."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.gpu import circuit, circuit_kernel
+
+    real_make = circuit.make_sharded_round
+    real_launch = circuit_kernel.run_round_circuit_kernel
+    shard_of = {}
+    kept.update(batches=[], by_shard={}, max_abs_err=0, launches=0)
+    placements = []
+    host_tables = {}  # dp block -> its tables on the host, this placement
+    pending = []  # (shard, round, K4's x and found, the plain run)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        HOLD_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+
+    def host(tensor):
+        return tensor.detach().cpu().numpy().copy()
+
+    def launch(tensors, x, seed, steps, walk_depth, layout=None):
+        shard = shard_of.get(id(x))
+        before = circuit_kernel.launches
+        out = real_launch(tensors, x, seed, steps, walk_depth,
+                          layout=layout)
+        if shard is not None:
+            key = f"{shard[0]},{shard[1]}"
+            kept["by_shard"][key] = kept["by_shard"].get(key, 0) + 1
+            kept["launches"] += circuit_kernel.launches - before
+        return out
+
+    def make(mesh, steps, walk_depth):
+        fn = real_make(mesh, steps, walk_depth)
+
+        def held(placed, grid, seed):
+            if not placements or placements[-1] is not placed:
+                placements.append(placed)
+                kept["batches"].append(0)
+                host_tables.clear()
+            inputs = [[host(grid.block(i, j)) for j in range(mesh.mp)]
+                      for i in range(mesh.dp)]
+            shard_of.clear()
+            shard_of.update({id(grid.block(i, j)): (i, j)
+                             for i in range(mesh.dp)
+                             for j in range(mesh.mp)})
+            out = fn(placed, grid, seed)
+            shard_of.clear()
+            launches = circuit_kernel.launches
+            first = "placed" not in kept
+            plain_ms, err = 0.0, 0
+            for i in range(mesh.dp):
+                if i not in host_tables:
+                    host_tables[i] = {key: host(value) for key, value
+                                      in placed.tables[i][0].items()}
+                for j in range(mesh.mp):
+                    pending.append((
+                        (i, j), sum(kept["batches"]), host(out[0].block(
+                            i, j)), host(out[1].block(i, j)),
+                        pool.submit(_plain_round_on_host, host_tables[i],
+                                    inputs[i][j], circuit.shard_seed(
+                                        seed, i * circuit.SHARD_DP_STRIDE
+                                        + j), steps, walk_depth)))
+                    if first:
+                        shard_err, ms = _hold_k4_shard(
+                            placed, grid, out, i, j, seed, steps,
+                            walk_depth, device)
+                        err, plain_ms = max(err, shard_err), plain_ms + ms
+            if not torch.equal(out[2].cpu(),
+                               out[1].gather("cpu").any(dim=1)):
+                raise AssertionError("mesh: K4's solved is not found.any "
+                                     "over mp")
+            circuit_kernel.launches = launches  # the holds launch nothing
+            kept["batches"][-1] += 1
+            kept["max_abs_err"] = max(kept["max_abs_err"], err)
+            if first:
+                kept.update(mesh=mesh, placed=placed, seed=seed,
+                            steps=steps, walk_depth=walk_depth,
+                            plain_ms=plain_ms, grid=circuit.ShardGrid(
+                                mesh, [[block.clone() for block in row]
+                                       for row in grid.blocks]))
+            return out
+
+        return held
+
+    circuit.make_sharded_round = make
+    circuit_kernel.run_round_circuit_kernel = launch
+    try:
+        yield kept
+        for shard, round_index, got_x, got_found, plain in pending:
+            want_x, want_found = plain.result()
+            if not (np.array_equal(got_x, want_x)
+                    and np.array_equal(got_found, want_found)):
+                raise AssertionError(
+                    f"mesh: K4's shard {shard} in round {round_index} "
+                    f"disagrees with the plain round: "
+                    f"{int((got_x != want_x).sum())} x cells, "
+                    f"{int((got_found != want_found).sum())} found cells")
+            kept["max_abs_err"] = max(
+                kept["max_abs_err"],
+                int(np.abs(got_x.astype(np.int64) - want_x).max()),
+                int(np.abs(got_found.astype(np.int64)
+                           - want_found).max()))
+        kept["held_shard_rounds"] = len(pending)
+    finally:
+        circuit.make_sharded_round = real_make
+        circuit_kernel.run_round_circuit_kernel = real_launch
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _k4_bound(placed, grid, steps, walk_depth):
+    """The least time of one K4 round: the slowest device's share, the
+    devices running in parallel. A device reads the tables of each dp
+    block placed on it once (a block's mp shards on one device share one
+    copy, whose second read comes from L2), and moves each of its shards'
+    x in and out and found out; its operations are its shards' (counted
+    as _k3_bound counts each shard's blocks). On a virtual mesh (every
+    shard on one device) this is K3's bound on the batch unsharded."""
+    mesh = grid.mesh
+    shares = {}  # device -> [bytes, ops, dp blocks whose tables it read]
+    for i in range(mesh.dp):
+        for j in range(mesh.mp):
+            tables, block = placed.tables[i][j], grid.block(i, j)
+            share = shares.setdefault(mesh.shard(i, j), [0, 0, set()])
+            if i not in share[2]:
+                share[2].add(i)
+                share[0] += _k3_table_bytes(tables)
+            share[0] += _k3_lane_bytes(block)
+            share[1] += _k3_bound(tables, block, steps, walk_depth)[3]
+    times = [(max(moved / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S),
+              moved, ops) for moved, ops, _blocks in shares.values()]
+    slowest, moved, ops = max(times)
+    return (slowest * 1e3, "bytes" if moved / HBM_BYTES_PER_S
+            >= ops / CUDA_CORE_OPS_PER_S else "operations", moved, ops)
+
+
+def _time_k4(device, kept):
+    """K4 under CUDA events on the kept round (its own inputs and seed),
+    beside K3 on the same batch unsharded (the dp blocks' tables and the
+    lanes gathered, with the round's seed); neither counted."""
+    import torch
+
+    from mythril_tpu_torch.gpu import circuit, circuit_kernel
+
+    mesh, placed, grid = kept["mesh"], kept["placed"], kept["grid"]
+    args = (kept["steps"], kept["walk_depth"])
+    launches = circuit_kernel.launches
+    fn = circuit.make_sharded_round(mesh, *args)
+    tensors = {key: torch.cat([placed.tables[i][0][key]
+                               for i in range(mesh.dp)]).contiguous()
+               for key in circuit.TENSOR_KEYS}
+    x = grid.gather(mesh.lead).contiguous()
+    layout = circuit_kernel.circuit_layout(tensors)
+    k4_ms = k3_ms = None
+    if device.type == "cuda":
+        k4_ms = _time_ms(lambda: fn(placed, grid, kept["seed"]), K4_REPEATS)
+        k3_ms = _time_ms(lambda: circuit_kernel.run_round_circuit_kernel(
+            tensors, x, kept["seed"], *args, layout=layout), K4_REPEATS)
+    circuit_kernel.launches = launches
+    bound_ms, bound_by, moved, ops = _k4_bound(placed, grid, *args)
+    k3_bound = _k3_bound(tensors, x, *args)
+    q_count, lanes, v1 = x.shape
+    return {"queries": q_count, "lanes": lanes, "v1": v1,
+            "levels": tensors["out_idx"].shape[1],
+            "width": tensors["out_idx"].shape[2], "steps": args[0],
+            "walk_depth": args[1], "dp": mesh.dp, "mp": mesh.mp,
+            "ms": k4_ms, "plain_ms": kept["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": moved, "ops": ops,
+            "k3_unsharded_ms": k3_ms, "k3_unsharded_bound_ms": k3_bound[0],
+            "k3_unsharded_bound_by": k3_bound[1]}
+
+
+def phase_mesh(device, shards=MESH_SHARDS, deep=True):
+    """graft.dryrun_multichip(shards, virtual=True) on the card (leg 2 with
+    `deep`), every K4 round held per shard (_hold_every_k4_round), then K4
+    timed on leg 1's first round beside K3 unsharded. The K3 launches K4
+    made are counted from just before the dryrun to just after it."""
+    from mythril_tpu_torch import graft
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    kept = {}
+    circuit_kernel.reset_launches()  # the dryrun's count starts here
+    start = time.monotonic()
+    with _hold_every_k4_round(device, kept):
+        summary = graft.dryrun_multichip(shards, device=device, virtual=True,
+                                         deep=deep)
+    launches = circuit_kernel.launches  # ... and ends here
+    wall = time.monotonic() - start
+    if device.type == "cuda" and launches != kept["launches"]:
+        raise AssertionError(f"mesh: K3 launched {launches} times, K4's "
+                             f"shards {kept['launches']}")
+    if summary["dp"] * summary["mp"] != shards or not kept["batches"] \
+            or len(kept["by_shard"]) != shards:
+        raise AssertionError(f"mesh: K4 did not run every shard of a "
+                             f"{shards}-shard mesh ({summary}, launches by "
+                             f"shard {kept['by_shard']})")
+    if len(kept["batches"]) != (2 if deep else 1):
+        raise AssertionError(f"mesh: K4 rounds by batch "
+                             f"{kept['batches']}")
+    if kept["held_shard_rounds"] != sum(kept["by_shard"].values()) \
+            or kept["held_shard_rounds"] != shards * sum(kept["batches"]):
+        raise AssertionError(f"mesh: {kept['held_shard_rounds']} shard "
+                             f"rounds held, K3 called by shard "
+                             f"{kept['by_shard']}")
+    timed = _time_k4(device, kept)
+    emit({"phase": "mesh", "shards": shards, "placement":
+          summary["placement"], "summary": summary,
+          "wall_s": round(wall, 3), "k4_rounds_by_leg": kept["batches"],
+          "launches_by_shard": kept["by_shard"], "k3_launches": launches,
+          "held_shard_rounds": kept["held_shard_rounds"],
+          "bit_identical": True, "max_abs_err": kept["max_abs_err"],
+          **{key: ("not measured" if value is None else value)
+             for key, value in timed.items()}})
+    return {**timed, "launches": launches,
+            "launches_by_shard": kept["by_shard"],
+            "max_abs_err": kept["max_abs_err"]}
+
+
+def mesh_only(device) -> int:
+    """Env, build and the mesh phase at MESH_SHARDS, both legs."""
+    phase_build()
+    phase_mesh(device)
+    return 0
+
+
+# -- the options phase: the engine options analyze reads ----------------------
+
+# leg -> (CLI fields, runtime code): KILLBILLY -t 2 under each option; the
+# prioritiser ranks the runtime code's selectors (a creation run's code
+# has no function entries to rank)
+OPTION_LEGS = {"summaries": ({"enable_summaries": True}, False),
+               "state_merging": ({"enable_state_merging": True}, False),
+               "incremental_txs_off": ({"disable_incremental_txs": True},
+                                       True)}
+OPTION_LEGS_WHOLE = ("summaries",)
+
+
+def _cli_dump(device, flag, path, code, solver_backend):
+    """The port's CLI, in process: `analyze -c code -t 1 flag path` on
+    `solver_backend` (the card, or the named CPU device); its K1 launches."""
+    from mythril_tpu_torch.gpu import ragged_kernel
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.laser import cfg
+    from mythril_tpu_torch.laser.function_managers import (
+        keccak_function_manager,
+    )
+    from mythril_tpu_torch.laser.state.world_state import WorldState
+    from mythril_tpu_torch.laser.transaction.models import tx_id_manager
+    from mythril_tpu_torch.support.args import args
+    from mythril_tpu_torch.support.model import clear_caches
+
+    # the transaction ids, node uids, balance arrays and hash symbols
+    # counted from the start, as in a new process: the dump carries them
+    tx_id_manager.restart_counter()
+    cfg._next_uid[0] = 0
+    WorldState.next_balance_id = 1
+    keccak_function_manager.reset()
+    argv = ["analyze", "-c", code, "-t", "1", flag, path,
+            "--execution-timeout", str(ANALYZE_TIMEOUT), "--solver-backend",
+            solver_backend]
+    if solver_backend == "gpu" and device.type != "cuda":
+        argv += ["--torch-device", str(device)]
+    args.reset()
+    clear_caches()
+    before = ragged_kernel.launches
+    try:
+        code_rc = cli.execute_command(cli.build_parser().parse_args(argv))
+    finally:
+        args.reset()
+    if code_rc != 0:
+        raise AssertionError(f"options: {flag} exited {code_rc}")
+    with open(path) as handle:
+        return handle.read(), ragged_kernel.launches - before
+
+
+def _graph_sets(html):
+    found = re.findall(r"new vis\.DataSet\((\[.*?\])\);\n", html)
+    if len(found) != 2:
+        raise AssertionError("options: -g wrote no vis.js node and edge "
+                             "sets")
+    return [sorted(json.dumps(item, sort_keys=True)
+                   for item in json.loads(text)) for text in found]
+
+
+def _statespace_dumps(device):
+    """-j and -g of KILLBILLY -t 1 on the host and the device backend: the
+    device's -j byte for byte the host's, its -g the same node and edge
+    sets, each non-empty (the CPU tests hold both to the JAX package)."""
+    folder = os.path.join(OUT_DIR, "options")
+    os.makedirs(folder, exist_ok=True)
+    code = _killbilly_creation()
+    out = {}
+    for flag, name in (("-j", "statespace.json"), ("-g", "graph.html")):
+        for backend in ("cpu", "gpu"):
+            out[flag, backend] = _cli_dump(
+                device, flag, os.path.join(folder, f"{backend}-{name}"),
+                code, backend)
+    if out["-j", "gpu"][0] != out["-j", "cpu"][0]:
+        raise AssertionError("options: -j on the device differs from the "
+                             "host's")
+    dump = json.loads(out["-j", "gpu"][0])
+    nodes, edges = _graph_sets(out["-g", "gpu"][0])
+    if _graph_sets(out["-g", "cpu"][0]) != [nodes, edges]:
+        raise AssertionError("options: -g on the device differs from the "
+                             "host's")
+    if not (dump["nodes"] and dump["edges"] and nodes and edges):
+        raise AssertionError("options: an empty statespace dump")
+    record = {"phase": "options", "leg": "dumps",
+              "statespace_json_bytes": len(out["-j", "gpu"][0]),
+              "statespace_nodes": len(dump["nodes"]),
+              "statespace_edges": len(dump["edges"]),
+              "graph_nodes": len(nodes), "graph_edges": len(edges),
+              "k1_launches": out["-j", "gpu"][1] + out["-g", "gpu"][1]}
+    emit(record)
+    return record
+
+
+def phase_options(device, legs=tuple(OPTION_LEGS)):
+    """KILLBILLY -t 2 under each option leg, on the host and the device
+    backend: the findings equal at issue granularity, K1 and K6 launched
+    (counted from just before the device run to just after it: solve
+    rounds past the calibration's; no K6 step under summaries, whose
+    execute_state hook keeps the states off the batched frontier, as in
+    the JAX package), every K1 launch held bit for bit
+    against its plain version (the largest timed); then the -j and -g
+    dumps (_statespace_dumps). Returns the launches by leg."""
+    runtime = None
+    launches = {"k1": {}, "k6": {}}
+    err = 0
+    timed = {}
+    for leg in legs:
+        engine, on_runtime = OPTION_LEGS[leg]
+        if on_runtime:
+            from mythril_tpu_torch.disasm.asm import easm_to_code
+
+            runtime = runtime or easm_to_code(KILLBILLY_EASM).hex()
+            code, engine = runtime, {**engine, "bin_runtime": True}
+        else:
+            code = _killbilly_creation()
+        _report, host_done, host = _analyze_once(
+            device, code, 2, ANALYZE_TIMEOUT, "cpu", {}, engine=engine)
+        every = []
+        with _keep_largest_k1({}, every=every):
+            _report, done, record = _analyze_once(
+                device, code, 2, ANALYZE_TIMEOUT, "gpu", {}, engine=engine)
+        k1, k6 = record["kernel_launches"], record["k6_launches"]
+        solve_k1 = k1 - record["calibration_launches"]
+        # every K1 launch kept, so every one is held below (on the CPU the
+        # plain version runs and counts no launch)
+        if None in every or (device.type == "cuda" and len(every) != k1):
+            raise AssertionError(
+                f"options: {leg}: {every.count(None)} of "
+                f"{len(every)} K1 calls untracked, {k1} launches counted")
+        emit({"phase": "options", "leg": leg, "engine": engine,
+              "host_wall_s": host["wall_s"], "device_wall_s":
+              record["wall_s"], "k1_launches": k1,
+              "k1_calibration_launches": record["calibration_launches"],
+              "k6_launches": k6, "k1_kept": len(every),
+              "frontier": record["frontier"],
+              "device_batch_queries": record["device_batch_queries"],
+              "device_batch_hits": record["device_batch_hits"],
+              "aig_device_component_hits":
+                  record["aig_device_component_hits"],
+              "findings": record["findings"],
+              "host_findings": host["findings"]})
+        if not (done and host_done):
+            raise AssertionError(f"options: {leg} did not complete")
+        if record["findings"] != host["findings"]:
+            raise AssertionError(
+                f"options: {leg}: findings {record['findings']} differ "
+                f"from the host backend's {host['findings']}")
+        if not host["findings"]:
+            raise AssertionError(f"options: {leg} found nothing")
+        # the summary plugin's execute_state hook keeps every state off
+        # the batched frontier, in the JAX package too: no K6 step there
+        stepped = record["frontier"]["frontier_vmap_steps"]
+        if solve_k1 <= 0 or (k6 == 0) != (leg == "summaries") \
+                or (stepped == 0) != (leg == "summaries"):
+            raise AssertionError(f"options: {leg}: K1 {solve_k1} solve "
+                                 f"rounds, K6 {k6} launches, {stepped} "
+                                 f"batched steps")
+        largest = max(every, key=lambda launch: launch["size"])
+        for index, launch in enumerate(every):
+            held = _hold_k1_launch(device, launch, f"{leg}-{index}",
+                                   {"leg": leg}, phase="options",
+                                   timed=launch is largest)
+            err = max(err, held["max_abs_err"])
+            if launch is largest and (
+                    held["ms"] is not None or not timed):
+                timed.setdefault(leg, held)
+        launches["k1"][leg], launches["k6"][leg] = k1, k6
+    dumps = _statespace_dumps(device)
+    return {"launches": launches, "max_abs_err": err, "timed": timed,
+            "dump_k1_launches": dumps["k1_launches"]}
+
+
+def options_only(device) -> int:
+    """Env, build and the options phase, every leg."""
+    phase_build()
+    phase_options(device)
+    return 0
+
+
 FORK_PREP_CONTRACTS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex")
 
 
@@ -4050,13 +4567,10 @@ def _k3_bound(tensors, x, steps, walk_depth):
     with a real gate."""
     from mythril_tpu_torch.gpu import circuit_kernel
 
-    q_count, lanes, v1 = x.shape
+    lanes = x.shape[1]
     gates = int((tensors["out_idx"] > 0).sum())
-    tables = gates * 4 * len(circuit_kernel.LEVEL_KEYS) + sum(
-        tensors[key].numel() * 4
-        for key in circuit_kernel.VAR_KEYS + circuit_kernel.ROOT_KEYS)
     rows = circuit_kernel.level_rows(tensors)
-    moved = tables + q_count * lanes * v1 * 4 * 2 + q_count * lanes
+    moved = _k3_table_bytes(tensors) + _k3_lane_bytes(x)
     live_roots = int((tensors["root_mask"] == 1).sum())
     ops = lanes * (steps + 1) * (3 * gates + 2 * live_roots)
     byte_s, op_s = moved / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
@@ -4064,6 +4578,23 @@ def _k3_bound(tensors, x, steps, walk_depth):
     return (max(byte_s, op_s) * 1e3,
             "bytes" if byte_s >= op_s else "operations", moved, ops,
             steps * (levels + walk_depth) + levels)
+
+
+def _k3_table_bytes(tensors):
+    """The tables a K3 round must read: the five level entries of each
+    real gate and the per-variable and root tables of every query slot."""
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    gates = int((tensors["out_idx"] > 0).sum())
+    return gates * 4 * len(circuit_kernel.LEVEL_KEYS) + sum(
+        tensors[key].numel() * 4
+        for key in circuit_kernel.VAR_KEYS + circuit_kernel.ROOT_KEYS)
+
+
+def _k3_lane_bytes(x):
+    """x [Q, R, V1] int32 in and out, found [Q, R] bool out."""
+    q_count, lanes, v1 = x.shape
+    return q_count * lanes * v1 * 4 * 2 + q_count * lanes
 
 
 @contextlib.contextmanager
@@ -5152,6 +5683,14 @@ def main() -> int:
             autotune_only(device)
             print(smi, flush=True)
             return 0
+        if "--mesh-only" in sys.argv[1:]:
+            mesh_only(device)
+            print(smi, flush=True)
+            return 0
+        if "--options-only" in sys.argv[1:]:
+            options_only(device)
+            print(smi, flush=True)
+            return 0
         if "--k3-split" in sys.argv[1:]:
             k3_split(device, sys.argv[sys.argv.index("--k3-split") + 1])
             print(smi, flush=True)
@@ -5179,8 +5718,11 @@ def main() -> int:
         router = timed("router", phase_router, device)
         frontier = timed("frontier", phase_frontier, device)
         analyze = timed("analyze", phase_analyze, device)
+        options = timed("options", phase_options, device, OPTION_LEGS_WHOLE)
         bucketed = timed("bucketed", phase_bucketed, device,
                          analyze["records"])
+        mesh = timed("mesh", phase_mesh, device, MESH_SHARDS_WHOLE,
+                     deep=False)
         xla = timed("xla", phase_xla, device, analyze["records"])
         timed("telemetry-overhead", phase_telemetry_overhead, device)
         resilience = timed("resilience", phase_resilience, device)
@@ -5241,12 +5783,20 @@ def main() -> int:
                              "autotune_env_shadows_profile":
                                  autotune["k1_launches"]["env"],
                              "autotune_corrupt_profile":
-                                 autotune["k1_launches"]["corrupt"]},
+                                 autotune["k1_launches"]["corrupt"],
+                             # the options phase: KILLBILLY -t 2 under
+                             # each engine option on the device backend,
+                             # and the -j and -g dumps
+                             **{f"options_{leg}": count for leg, count
+                                in options["launches"]["k1"].items()},
+                             "options_statespace_dumps":
+                                 options["dump_k1_launches"]},
         "max_abs_err": max(max_err, router["max_abs_err"],
                            analyze["max_abs_err"],
                            resilience["max_abs_err"],
                            corpus["max_abs_err"], serve["max_abs_err"],
-                           autotune["k1_hold"]["max_abs_err"]),
+                           autotune["k1_hold"]["max_abs_err"],
+                           options["max_abs_err"]),
         # times of one round on the largest stream the compared analyze
         # runs launched; the router's and the slice's streams beside them
         "ms": analyze["ms"],
@@ -5288,7 +5838,9 @@ def main() -> int:
                              "corpus_jobs_workers":
                                  corpus["jobs_k6_launches"],
                              "serve_daemon":
-                                 serve["launches"]["frontier_step"]},
+                                 serve["launches"]["frontier_step"],
+                             **{f"options_{leg}": count for leg, count
+                                in options["launches"]["k6"].items()}},
         "max_abs_err": max(frontier["max_abs_err"],
                            analyze["k6"]["max_abs_err"]),
         # one launch on the largest frontier batch (rows x micro-ops) the
@@ -5375,6 +5927,32 @@ def main() -> int:
         "autotune_profile_launch": {key: autotune["k2_hold"].get(key)
                                     for key in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by")},
+    }, {
+        "name": "sharded_round",
+        "route": "cuda",
+        # K4: K3's kernel a shard, plus the gather and MAX over mp
+        "source": "mythril_tpu_torch/csrc/circuit_round.cu",
+        # an XLA program, not a Pallas kernel: shard_map of
+        # run_round_circuit_batch with a pmax over "mp"
+        "replaces": "mythril_tpu/tpu/circuit.py:631",
+        # the main path's launches: the mesh phase's dryrun (leg 1 on a
+        # virtual 2 x 2 mesh), the shards' K3 launches
+        "launches": mesh["launches"],
+        "launches_by_path": {"mesh_dryrun": mesh["launches"]},
+        "launches_by_shard": mesh["launches_by_shard"],
+        "max_abs_err": mesh["max_abs_err"],
+        # one K4 round on leg 1's batch, its first round (every shard's
+        # launch queued on the card's stream before any gather), beside
+        # K3 on the same batch unsharded; the bound is the slowest
+        # device's share (on this virtual mesh, K3's unsharded bound)
+        "ms": mesh["ms"],
+        "plain_ms": mesh["plain_ms"],
+        "bound_ms": mesh["bound_ms"],
+        "bound_by": mesh["bound_by"],
+        "library_ms": None,
+        "k3_unsharded_ms": mesh["k3_unsharded_ms"],
+        "mesh": {key: mesh[key] for key in ("dp", "mp", "queries", "lanes",
+                                            "v1", "levels", "steps")},
     }]})
     with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w") as fd:
         fd.write("\n".join(_lines) + "\n")

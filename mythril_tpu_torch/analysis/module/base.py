@@ -99,6 +99,39 @@ class DetectionModule:
             # query had no answer: the analysis stops with it instead
             device_mod.raise_recorded_fault()
         if result:
+            from mythril_tpu_torch.support.args import args
+
+            if args.use_issue_annotations and \
+                    self.entry_point == EntryPoint.CALLBACK:
+                # summaries mode: direct results would be solved under
+                # parametric (summary-symbol) state — a false-positive
+                # source; carry them as annotations for substituted
+                # re-solving instead (reference base.py:94)
+                from mythril_tpu_torch.analysis.issue_annotation import (
+                    IssueAnnotation,
+                )
+                from mythril_tpu_torch.smt import And
+
+                # modules that solved precise conditions (e.g. suicide's
+                # attacker constraints) annotate themselves; only add the
+                # coarse reachability fallback for issues they didn't, or a
+                # weaker duplicate could confirm a false positive on
+                # substituted re-solving
+                already = {
+                    id(a.issue)
+                    for a in target.annotations
+                    if isinstance(a, IssueAnnotation)
+                }
+                for issue in result:
+                    if id(issue) in already:
+                        continue
+                    target.annotate(IssueAnnotation(
+                        conditions=[And(
+                            *target.world_state.constraints)],
+                        issue=issue,
+                        detector=self,
+                    ))
+                return result
             self.issues.extend(result)
             if self.auto_cache:
                 self.update_cache(result)

@@ -167,6 +167,25 @@ def check_potential_issues(global_state) -> None:
             description_tail=potential_issue.description_tail,
             transaction_sequence=transaction_sequence,
         )
-        potential_issue.detector.issues.append(issue)
-        potential_issue.detector.update_cache([issue])
+        from mythril_tpu_torch.support.args import args
+
+        if args.use_issue_annotations:
+            # summaries mode: carry the proof obligation on the state so
+            # the summary plugin can re-solve it under substitution
+            from mythril_tpu_torch.analysis.issue_annotation import (
+                IssueAnnotation,
+            )
+            from mythril_tpu_torch.smt import And
+
+            global_state.annotate(IssueAnnotation(
+                conditions=[And(
+                    *(list(global_state.world_state.constraints)
+                      + list(potential_issue.constraints))
+                )],
+                issue=issue,
+                detector=potential_issue.detector,
+            ))
+        else:
+            potential_issue.detector.issues.append(issue)
+            potential_issue.detector.update_cache([issue])
     annotation.potential_issues = unsatisfied

@@ -102,10 +102,10 @@ class SymExecWrapper:
 
         # batched frontier (laser/frontier/): on for analysis runs unless
         # gated off, but never when a full per-instruction statespace was
-        # compulsorily requested (graph dumps expect interior snapshots of
-        # straight-line runs, which batched steps elide; the default
-        # analyze statespace only feeds POST modules, which key on
-        # fork/call/return snapshots runs never contain)
+        # compulsorily requested (--statespace-json / graph dumps expect
+        # interior snapshots of straight-line runs, which batched steps
+        # elide; the default analyze statespace only feeds POST modules,
+        # which key on fork/call/return snapshots runs never contain)
         from mythril_tpu_torch.laser import frontier
 
         self.laser = LaserEVM(
@@ -122,6 +122,13 @@ class SymExecWrapper:
             vmap_frontier=frontier.enabled() and not compulsory_statespace,
         )
         self.laser.extend_strategy(BoundedLoopsStrategy, loop_bound=loop_bound)
+
+        if not args.incremental_txs:
+            from mythril_tpu_torch.laser.tx_prioritiser import RfTxPrioritiser
+
+            self.laser.tx_prioritiser = RfTxPrioritiser(
+                contract, model_path=getattr(args, "rf_model_path", None)
+            )
 
         # engine plugins (pruners/coverage/etc.) are registered here
         from mythril_tpu_torch.laser.plugin.loader import LaserPluginLoader
@@ -141,6 +148,18 @@ class SymExecWrapper:
             plugin_loader.load(DependencyPrunerBuilder())
         if not args.disable_iprof:
             plugin_loader.load(InstructionProfilerBuilder())
+        if args.enable_state_merging:
+            from mythril_tpu_torch.laser.plugin.plugins import (
+                StateMergePluginBuilder,
+            )
+
+            plugin_loader.load(StateMergePluginBuilder())
+        if args.enable_summaries:
+            from mythril_tpu_torch.laser.plugin.plugins.summary import (
+                SymbolicSummaryPluginBuilder,
+            )
+
+            plugin_loader.load(SymbolicSummaryPluginBuilder())
         plugin_loader.instrument_virtual_machine(self.laser)
 
         if not args.disable_coverage_strategy:

@@ -20,8 +20,9 @@ a DeviceFault stops the whole run, from a worker (re-raised through the
 pool, never rerun in process) or from a slot thread (the coordinator
 cancels the other slots, and it is re-raised here). The tuned profile
 (tune/) is applied at the start of fire_lasers and of each worker, before
-the kernels are built. The statespace and graph dumps, and loading from
-solidity, foundry or RPC wait for later slices."""
+the kernels are built. The statespace and graph dumps (-j, -g) explore
+the first contract's whole statespace and report no issue. Loading
+from solidity, foundry or RPC waits for a later slice."""
 
 import logging
 import time
@@ -112,17 +113,22 @@ class MythrilAnalyzer:
             for field in (
                 "solver_timeout", "execution_timeout", "create_timeout",
                 "max_depth", "loop_bound", "transaction_count",
-                "pruning_factor", "call_depth_limit", "disable_iprof",
+                "pruning_factor", "call_depth_limit", "solver_log",
+                "unconstrained_storage", "parallel_solving", "disable_iprof",
                 "disable_mutation_pruner", "disable_dependency_pruning",
-                "solver_backend", "torch_device",
+                "enable_state_merging", "enable_summaries", "solver_backend",
+                "torch_device",
                 "solve_cache", "transaction_sequences", "beam_width",
-                "disable_coverage_strategy", "no_preanalysis",
+                "disable_coverage_strategy", "jobs", "corpus_interleave",
+                "no_preanalysis",
                 "no_aig_opt", "no_incremental_prep", "no_vmap_frontier",
-                "no_frontier_fork", "no_ragged", "trace", "heartbeat",
-                "inject_fault", "jobs", "corpus_interleave",
+                "no_ragged", "no_frontier_fork", "trace", "heartbeat",
+                "inject_fault",
             ):
                 if hasattr(cmd_args, field) and getattr(cmd_args, field) is not None:
                     setattr(args, field, getattr(cmd_args, field))
+            if getattr(cmd_args, "disable_incremental_txs", False):
+                args.incremental_txs = False
         # auto pruning factor (reference :78-82)
         if args.pruning_factor is None:
             args.pruning_factor = 1.0 if args.execution_timeout > 300 else 0.0
@@ -294,6 +300,48 @@ class MythrilAnalyzer:
             log.info(self._phase_split(contract.name, contract_start,
                                        solver_before, device_before, stats))
         return issues, exceptions
+
+    def _explore_statespace(self, contract):
+        """The SymExecWrapper of the -j and -g dumps (reference
+        mythril_analyzer.py:84-121): the whole statespace, the batched
+        frontier off, the callback modules attached as in the reference.
+        The device backend resolves its device and builds its kernels
+        first, as fire_lasers does, and the execution budget ends with
+        the exploration."""
+        reset_engine_state()
+        if args.solver_backend == "gpu" \
+                and resolve_device(args.torch_device).type == "cuda":
+            build_device_kernels()
+        try:
+            return SymExecWrapper(
+                contract,
+                self.address,
+                self.strategy,
+                max_depth=args.max_depth,
+                execution_timeout=args.execution_timeout,
+                transaction_count=args.transaction_count,
+                compulsory_statespace=True,
+            )
+        finally:
+            time_handler.start_execution(None)
+
+    def dump_statespace(self, contract=None) -> str:
+        """JSON statespace dump (reference mythril_analyzer.py:84)."""
+        import json
+
+        from mythril_tpu_torch.analysis.traceexplore import (
+            get_serializable_statespace,
+        )
+
+        sym = self._explore_statespace(contract or self.contracts[0])
+        return json.dumps(get_serializable_statespace(sym))
+
+    def graph_html(self, contract=None, enable_physics: bool = False) -> str:
+        """Interactive vis.js CFG html (reference mythril_analyzer.py:105)."""
+        from mythril_tpu_torch.analysis.callgraph import generate_graph
+
+        sym = self._explore_statespace(contract or self.contracts[0])
+        return generate_graph(sym, physics=enable_physics)
 
     def _fire_lasers_parallel(self, modules, tx_count):
         """Corpus-level parallelism (mythril_tpu/core.py:411): the

@@ -37,7 +37,7 @@ from mythril_tpu_torch.gpu import (
     ragged_kernel,
     xla_kernel,
 )
-from mythril_tpu_torch.gpu.device import resolve_device
+from mythril_tpu_torch.gpu.device import mesh_over, resolve_device
 from mythril_tpu_torch.observe.tracer import span as trace_span
 from mythril_tpu_torch.preanalysis import cubes
 from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
@@ -73,6 +73,24 @@ def _pow2_slots(dp: int, n: int) -> int:
     while q < n:
         q *= 2
     return q
+
+
+def _redraw_sharded(grid, fresh, unsolved, half: int) -> None:
+    """The bucketed round's re-draw on a mesh: lanes [0, half) of the whole
+    lane axis take `fresh` ([Q, half, V1]) where `unsolved` ([Q, 1, 1]),
+    in each shard's block that holds some of them, in place."""
+    mesh = grid.mesh
+    for i in range(mesh.dp):
+        for j in range(mesh.mp):
+            block = grid.block(i, j)
+            qs, rs = block.shape[:2]
+            lo, hi = j * rs, min((j + 1) * rs, half)
+            if lo >= hi:
+                continue
+            rows = slice(i * qs, (i + 1) * qs)
+            block[:, :hi - lo] = torch.where(
+                unsolved[rows].to(block.device),
+                fresh[rows, lo:hi].to(block.device), block[:, :hi - lo])
 
 
 def _circuit_struct_key(aig, roots) -> tuple:
@@ -123,10 +141,10 @@ _backends = {}
 def get_device_backend(device=None) -> "DeviceSolverBackend":
     """The process-global backend of `device` (None = the CUDA device;
     raises without one). Pack caches and counters live on it."""
-    device = resolve_device(device)
-    if device not in _backends:
-        _backends[device] = DeviceSolverBackend(device=device)
-    return _backends[device]
+    resolved = resolve_device(device)
+    if resolved not in _backends:
+        _backends[resolved] = DeviceSolverBackend(device=device)
+    return _backends[resolved]
 
 
 def reset_backends() -> None:
@@ -141,8 +159,18 @@ class DeviceSolverBackend:
     STALL_ROUNDS = 2  # stop after this many rounds with no new solves
 
     def __init__(self, num_restarts: Optional[int] = None,
-                 device=None):
+                 device=None, mesh_devices: Optional[Sequence] = None):
         self.device = resolve_device(device)
+        # the bucketed path's dp x mp mesh (_get_mesh): over these devices
+        # when given (a device may repeat: a virtual mesh), else 1x1 on a
+        # card the caller named by its index, else every visible card, or
+        # 1x1 on the CPU
+        self._mesh_devices = (None if mesh_devices is None
+                              else tuple(mesh_devices))
+        self._named_card = (device is not None
+                            and self.device.index is not None)
+        self._mesh = None
+        self._sharded_rounds = {}  # (steps, walk_depth) -> K4's round
         # explicit constructor arg wins; the env var only sets the default
         if num_restarts is None:
             num_restarts = env_int("MYTHRIL_GPU_RESTARTS", 64)
@@ -262,10 +290,36 @@ class DeviceSolverBackend:
 
     # -- the bucketed path (circuit_kernel.py) ---------------------------------
 
-    def padded_query_slots(self, n: int) -> int:
-        """Query-axis padding of a bucketed launch of n live queries (one
-        card: the pow2 ramp from 1) — occupancy accounting."""
-        return _pow2_slots(1, n)
+    def padded_query_slots(self, n: int, single_device: bool = False) -> int:
+        """Query-axis padding of a bucketed launch of n live queries (the
+        pow2 ramp from the mesh's dp, from 1 with `single_device`) —
+        occupancy accounting."""
+        dp = 1 if single_device else self._get_mesh().dp
+        return _pow2_slots(dp, n)
+
+    def _get_mesh(self):
+        """The dp x mp mesh of the bucketed path (mesh_over's rule): over
+        the constructor's `mesh_devices`, else every visible card when the
+        backend's device is a card the caller did not name by its index
+        (no device, or "cuda"), else 1x1 on the backend's device: a named
+        card (`--torch-device cuda:1`) confines the work to it."""
+        if self._mesh is None:
+            if self._mesh_devices is not None:
+                devices = self._mesh_devices
+            elif self.device.type == "cuda" and not self._named_card:
+                devices = [torch.device("cuda", index) for index
+                           in range(torch.cuda.device_count())]
+            else:
+                devices = [self.device]
+            self._mesh = mesh_over(devices)
+        return self._mesh
+
+    def _get_sharded_round(self, steps: int, walk_depth: int):
+        key = (steps, walk_depth)
+        if key not in self._sharded_rounds:
+            self._sharded_rounds[key] = circuit.make_sharded_round(
+                self._get_mesh(), steps, walk_depth)
+        return self._sharded_rounds[key]
 
     def _platform_caps(self) -> Tuple[int, int, int]:
         """The router's (level, cell, var) eligibility caps."""
@@ -300,12 +354,14 @@ class DeviceSolverBackend:
         size_caps: Optional[Tuple[int, int, int]] = None,
         num_restarts: Optional[int] = None,
         steps: Optional[int] = None,
+        prefer_single_device: bool = False,
         packed_hint: Optional[Sequence] = None,
     ) -> List[Optional[List[bool]]]:
         """Solve many blasted queries with the per-query round in one
-        launch a round. `problems` entries are (num_vars, clauses,
-        (aig, root_lits[, dense])). Returns per-query model bits or None
-        (the caller's CDCL settles misses and alone proves UNSAT).
+        launch a round (one a shard on a mesh). `problems` entries are
+        (num_vars, clauses, (aig, root_lits[, dense])). Returns per-query
+        model bits or None (the caller's CDCL settles misses and alone
+        proves UNSAT).
 
         Each cone is padded to the batch's 1.5x shape bucket (levels,
         width, variables, roots), the query axis to a power of two with
@@ -316,11 +372,20 @@ class DeviceSolverBackend:
         evidence profile on the CPU); `packed_hint` (aligned with
         `problems`) supplies PackedCircuits the router already built.
 
+        On a mesh of more than one shard (_get_mesh) the round is K4
+        (circuit.make_sharded_round): the query axis padded to a power of
+        two from dp and split over dp, the restart lanes rounded up to a
+        multiple of mp and split over mp, the tables and their layouts
+        placed on the shards once a batch. `prefer_single_device` skips
+        the mesh and pads the query axis from 1 (the router's evidence
+        profile on the CPU, as in the JAX package).
+
         Rounds run until every query is solved, STALL_ROUNDS rounds pass
         without a new solve, or the budget is spent. A query solved in
         one round keeps that lane's assignment; between rounds the first
-        half of each unsolved query's lanes is re-drawn from a seeded
-        generator on the backend's device."""
+        half of each unsolved query's lanes (of the whole lane axis,
+        across shard boundaries) is re-drawn from a seeded generator on
+        the backend's device."""
         results: List[Optional[List[bool]]] = [None] * len(problems)
         if size_caps is not None:
             level_cap, cell_cap, v1_cap = size_caps
@@ -364,11 +429,19 @@ class DeviceSolverBackend:
         v1 = shape_bucket(max(p.v1 for p in pcs))
         n_roots = shape_bucket(max(p.num_roots for p in pcs))
         walk_depth = min(n_levels + 4, circuit.MAX_LEVELS)
+        if prefer_single_device:
+            mesh, dp, mp = None, 1, 1
+        else:
+            mesh = self._get_mesh()
+            dp, mp = mesh.dp, mesh.mp
+        multi = dp * mp > 1
         if num_restarts is None:
             num_restarts = self.num_restarts
         if steps is None:
             steps = self.CIRCUIT_STEPS
-        q = _pow2_slots(1, len(packed))
+        if multi and num_restarts % mp:
+            num_restarts += mp - num_restarts % mp
+        q = _pow2_slots(dp, len(packed))
         shape_key = (n_levels, width, v1, n_roots)
 
         with trace_span("device.ship", cat="device", slots=q):
@@ -383,14 +456,21 @@ class DeviceSolverBackend:
             # batch assembly of resident tables, on the device
             tensors = {key: torch.cat([entry[key] for entry in padded])
                        for key in circuit.TENSOR_KEYS}
-            # the kernel's records and real-gate stream, once per batch
-            layout = circuit_kernel.circuit_layout(tensors)
+            # the kernel's records and real-gate stream, once per batch (on
+            # a mesh: placed on each shard, a layout each)
+            if multi:
+                placed = circuit.shard_tables(mesh, tensors)
+            else:
+                layout = circuit_kernel.circuit_layout(tensors)
         solve_start = time.monotonic()
 
         generator = torch.Generator(device=self.device)
         generator.manual_seed(self._seed)
         x = torch.randint(0, 2, (q, num_restarts, v1), generator=generator,
                           device=self.device, dtype=torch.int32)
+        if multi:
+            x = circuit.shard_lanes(mesh, x)
+            round_fn = self._get_sharded_round(steps, walk_depth)
         # sticky per-slot results: a query solved in round k keeps its
         # model even if later rounds re-randomize
         solved = np.zeros((q,), dtype=bool)
@@ -401,25 +481,36 @@ class DeviceSolverBackend:
                         levels=n_levels, width=width,
                         restarts=num_restarts) as kernel_span:
             while True:
-                x, found = circuit_kernel.run_round_circuit_kernel(
-                    tensors, x,
-                    seed=(self._seed * 1000003 + rounds) & 0x7FFFFFFF,
-                    steps=steps, walk_depth=walk_depth, layout=layout)
+                seed = (self._seed * 1000003 + rounds) & 0x7FFFFFFF
+                if multi:
+                    # solved is the mp MAX; only a newly solved slot's
+                    # lanes come back to the host
+                    x, found, round_solved = round_fn(placed, x, seed)
+                    round_solved = round_solved.cpu().numpy()
+                else:
+                    x, found = circuit_kernel.run_round_circuit_kernel(
+                        tensors, x, seed=seed, steps=steps,
+                        walk_depth=walk_depth, layout=layout)
+                    found_host = found.cpu().numpy()
+                    round_solved = found_host.any(axis=1)
                 rounds += 1
                 self.flips += q * num_restarts * steps
                 # the calibration's cell unit: each step resimulates the
                 # bucket's levels x width cells plus a walk (the 2x), per
                 # padded query slot
                 self.cells_stepped += q * steps * 2 * n_levels * width
-                found_host = found.cpu().numpy()
-                round_solved = found_host.any(axis=1)
                 newly = round_solved & ~solved
                 if newly.any():
                     stall = 0
-                    x_host = x.cpu().numpy()
+                    x_host = None if multi else x.cpu().numpy()
                     for slot in np.nonzero(newly)[0]:
-                        lane = int(np.argmax(found_host[slot]))
-                        best_rows[int(slot)] = x_host[slot, lane].copy()
+                        slot = int(slot)
+                        if multi:
+                            lane = int(np.argmax(found.row(slot).numpy()))
+                            best_rows[slot] = x.row(slot)[lane].numpy()
+                        else:
+                            lane = int(np.argmax(found_host[slot]))
+                            best_rows[slot] = x_host[slot, lane].copy()
                 else:
                     stall += 1
                 solved |= round_solved
@@ -434,7 +525,11 @@ class DeviceSolverBackend:
                         device=self.device, dtype=torch.int32)
                     unsolved = torch.as_tensor(
                         ~solved, device=self.device)[:, None, None]
-                    x[:, :half] = torch.where(unsolved, fresh, x[:, :half])
+                    if multi:
+                        _redraw_sharded(x, fresh, unsolved, half)
+                    else:
+                        x[:, :half] = torch.where(unsolved, fresh,
+                                                  x[:, :half])
             kernel_span.set(rounds=rounds)
         self.solve_seconds += time.monotonic() - solve_start
 

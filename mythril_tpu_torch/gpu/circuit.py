@@ -26,10 +26,12 @@ literal value = x[var] ^ neg). Level tensors [L, G]; per-var gate tables
 [V1]. Padding gates read and write var 0 with value 0 — a no-op.
 """
 
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
+
+from mythril_tpu_torch.gpu.ragged_kernel import _MASK32, _hash32
 
 # caps: circuits past these take the CDCL path
 MAX_LEVELS = 4096
@@ -382,3 +384,143 @@ def init_inputs(generator: torch.Generator, num_restarts: int, v1: int,
                       device=device, dtype=torch.int32)
     x[:, 0] = 0
     return x
+
+
+# -- K4: the bucketed round sharded over a dp x mp mesh -----------------------
+
+# a shard's id, dp index * SHARD_DP_STRIDE + mp index, as the JAX package
+# folds it into its keys (mythril_tpu/tpu/circuit.py:648-650)
+SHARD_DP_STRIDE = 7919
+_C_SHARD = 0x2545F491
+
+
+def shard_seed(seed: int, shard_id: int) -> int:
+    """A round's seed folded with a shard id, the port's twin of
+    `jax.random.fold_in(key, shard_id)`: the 32-bit mix
+    hash32(seed ^ hash32((shard_id + C_SHARD) mod 2^32)), cut to the 31
+    bits the kernels take. Shard 0 folds too, as in the reference."""
+    folded = _hash32((int(seed) & _MASK32)
+                     ^ _hash32((int(shard_id) + _C_SHARD) & _MASK32))
+    return int(folded) & 0x7FFFFFFF
+
+
+class ShardGrid:
+    """One array sharded over a mesh: blocks[i][j] is shard (i, j)'s block
+    on its device, the query axis split over dp, the lane axis over mp
+    (the reference's P("dp", "mp", ...))."""
+
+    def __init__(self, mesh, blocks):
+        self.mesh = mesh
+        self.blocks = tuple(tuple(row) for row in blocks)
+
+    def block(self, i: int, j: int) -> torch.Tensor:
+        return self.blocks[i][j]
+
+    def row(self, slot: int, device="cpu") -> torch.Tensor:
+        """Query slot `slot`'s whole lane axis (the mp blocks of its dp
+        block joined) on `device`."""
+        qs = self.blocks[0][0].shape[0]
+        return torch.cat([block[slot % qs].to(device)
+                          for block in self.blocks[slot // qs]])
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole array on `device` (default: the mesh's lead)."""
+        device = self.mesh.lead if device is None else device
+        return torch.cat([torch.cat([b.to(device) for b in row], dim=1)
+                          for row in self.blocks], dim=0)
+
+
+def shard_lanes(mesh, x: torch.Tensor) -> ShardGrid:
+    """x [Q, R, V1] split into contiguous blocks, Q over dp and R over mp,
+    each on its shard's device."""
+    q_count, lanes = x.shape[:2]
+    if q_count % mesh.dp or lanes % mesh.mp:
+        raise ValueError(f"x of shape {tuple(x.shape)} does not split over "
+                         f"a {mesh.dp} x {mesh.mp} mesh")
+    qs, rs = q_count // mesh.dp, lanes // mesh.mp
+    return ShardGrid(mesh, [
+        [x[i * qs:(i + 1) * qs, j * rs:(j + 1) * rs].to(
+            mesh.shard(i, j)).contiguous() for j in range(mesh.mp)]
+        for i in range(mesh.dp)])
+
+
+class ShardedTables(NamedTuple):
+    """A batch's tables placed on a mesh: tables[i][j] is dp block i's
+    TENSOR_KEYS on shard (i, j)'s device and layouts[i][j] its
+    circuit_layout (K3's side input). Shards of one dp block on one device
+    share one copy and one layout."""
+    mesh: object
+    tables: tuple
+    layouts: tuple
+
+
+def shard_tables(mesh, tensors: dict) -> ShardedTables:
+    """Place a batch's tables (every TENSOR_KEYS array with a leading
+    query axis, Q divisible by dp) on the mesh, and build each placed
+    block's circuit_layout once."""
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    q_count = tensors["out_idx"].shape[0]
+    if q_count % mesh.dp:
+        raise ValueError(f"{q_count} query slots do not split over dp "
+                         f"{mesh.dp}")
+    qs = q_count // mesh.dp
+    placed = {}
+    tables, layouts = [], []
+    for i in range(mesh.dp):
+        row_tables, row_layouts = [], []
+        for j in range(mesh.mp):
+            device = mesh.shard(i, j)
+            if (i, device) not in placed:
+                block = {key: tensors[key][i * qs:(i + 1) * qs].to(
+                    device).contiguous() for key in TENSOR_KEYS}
+                placed[i, device] = (block,
+                                     circuit_kernel.circuit_layout(block))
+            block, layout = placed[i, device]
+            row_tables.append(block)
+            row_layouts.append(layout)
+        tables.append(tuple(row_tables))
+        layouts.append(tuple(row_layouts))
+    return ShardedTables(mesh, tuple(tables), tuple(layouts))
+
+
+def make_sharded_round(mesh, steps: int, walk_depth: int):
+    """K4, the twin of mythril_tpu/tpu/circuit.py make_sharded_round
+    (:631-669): the bucketed round with queries sharded over the mesh's
+    "dp" axis and restart lanes over "mp", each shard's seed folded with
+    its shard id, and the solved verdict reduced over "mp".
+
+    Returns fn(placed, x, seed) -> (x, found, solved). `placed` is
+    shard_tables' placement of a batch's tables (a leading query axis
+    divisible by dp), x shard_lanes' grid of the lanes [Q, R, V1] (R
+    divisible by mp). Each shard runs K3
+    (circuit_kernel.run_round_circuit_kernel: the CUDA kernel on a card,
+    the plain round on CPU tensors) on its own blocks with
+    shard_seed(seed, dp index * 7919 + mp index), on its device's current
+    stream; every launch is queued before anything is gathered. x and
+    found come back as ShardGrids ([Q, R, V1] and [Q, R] when gathered);
+    solved [Q] bool, on the mesh's lead device, is the MAX over a query's
+    mp shards of its lanes' found (the reference's pmax)."""
+    from mythril_tpu_torch.gpu import circuit_kernel
+
+    def sharded_round(placed, grid, seed):
+        xs, founds = [], []
+        for i in range(mesh.dp):
+            row_x, row_found = [], []
+            for j in range(mesh.mp):
+                # K3's wrapper launches on the shard's device's stream
+                out_x, found = circuit_kernel.run_round_circuit_kernel(
+                    placed.tables[i][j], grid.block(i, j),
+                    shard_seed(seed, i * SHARD_DP_STRIDE + j), steps,
+                    walk_depth, layout=placed.layouts[i][j])
+                row_x.append(out_x)
+                row_found.append(found)
+            xs.append(row_x)
+            founds.append(row_found)
+        lead = mesh.lead
+        solved = torch.cat([
+            torch.stack([found.any(dim=1).to(lead) for found in row])
+            .any(dim=0) for row in founds])
+        return ShardGrid(mesh, xs), ShardGrid(mesh, founds), solved
+
+    return sharded_round

@@ -184,7 +184,7 @@ def level_rows(tensors: dict) -> torch.Tensor:
     live = tensors["out_idx"] > 0
     width = live.shape[2]
     col = torch.arange(1, width + 1, device=live.device, dtype=torch.int32)
-    return (live.to(torch.int32) * col).amax(dim=2).to(torch.int32) \
+    return torch.where(live, col, 0).amax(dim=2).to(torch.int32) \
         .contiguous() if width else torch.zeros(
             live.shape[:2], dtype=torch.int32, device=live.device)
 
@@ -404,15 +404,21 @@ def run_round_circuit_plain(tensors: dict, x: torch.Tensor, seed: int,
     q_count, lanes, v1 = x.shape
     device = x.device
     rows = level_rows(tensors).amax(dim=0).tolist() if q_count else []
-    # (a, an, b, bn, out) of each level's cells up to its last live one
+    # (a, an, b, bn, out, live) of each level's cells up to its last live
+    # one, the indices expanded over the lanes once for every step
     levels = []
     for level, width in enumerate(rows):
         if width:  # a level of padding alone writes 0 into var 0: no-op
             cells = {key: tensors[key][:, level, :width]
                      for key in LEVEL_KEYS}
-            levels.append((cells["a_var"].long(), cells["a_neg"],
-                           cells["b_var"].long(), cells["b_neg"],
-                           cells["out_idx"].long()))
+            shape = (q_count, lanes, width)
+            levels.append((
+                cells["a_var"].long()[:, None, :].expand(shape),
+                cells["a_neg"][:, None, :],
+                cells["b_var"].long()[:, None, :].expand(shape),
+                cells["b_neg"][:, None, :],
+                cells["out_idx"].long()[:, None, :].expand(shape),
+                (cells["out_idx"] > 0).to(torch.int32)[:, None, :]))
     ga_var, gb_var = tensors["ga_var"].long(), tensors["gb_var"].long()
     ga_neg, gb_neg = tensors["ga_neg"], tensors["gb_neg"]
     is_gate = tensors["is_gate"]
@@ -431,13 +437,9 @@ def run_round_circuit_plain(tensors: dict, x: torch.Tensor, seed: int,
 
     def simulate(x):
         x[:, :, 0] = 0
-        for a, an, b, bn, out in levels:
-            width = out.shape[1]
-            shape = (q_count, lanes, width)
-            va = x.gather(2, a[:, None, :].expand(shape)) ^ an[:, None, :]
-            vb = x.gather(2, b[:, None, :].expand(shape)) ^ bn[:, None, :]
-            value = (va & vb) * (out > 0).to(torch.int32)[:, None, :]
-            x.scatter_(2, out[:, None, :].expand(shape), value)
+        for a, an, b, bn, out, live in levels:
+            value = (x.gather(2, a) ^ an) & (x.gather(2, b) ^ bn)
+            x.scatter_(2, out, value * live)
 
     def violated(x):
         vals = x.gather(2, root_var[:, None, :].expand(-1, lanes, -1))

@@ -85,7 +85,9 @@ the per-query round (backend.try_solve_batch_circuit):
               each side is a query of its own.
   dispatch    admitted units group by the 1.5x bucket of their depth; the
               fullest bucket goes first, one backend call each (its
-              query axis padded to a power of two). In evidence mode at
+              query axis padded to a power of two from the mesh's dp;
+              on a mesh of more than one shard the round is K4). In
+              evidence mode no mesh (prefer_single_device) and at
               most MYTHRIL_GPU_CPU_DISPATCH_CAP (default 2) dispatches a
               process, each trimmed to MYTHRIL_GPU_CPU_BATCH_SLOTS
               (default 2) queries; the rest go to the host CDCL, counted
@@ -1083,6 +1085,9 @@ class QueryRouter:
         if evidence:
             max_slots = max(1, int(env_float(
                 "MYTHRIL_GPU_CPU_BATCH_SLOTS", 2)))
+            # the plain round serializes on the host: no mesh, query slots
+            # padded from 1 (mythril_tpu/tpu/router.py:1064-1070)
+            profile = dict(profile, prefer_single_device=True)
         for level in sorted(buckets, key=lambda b: -len(buckets[b])):
             if ((evidence and self.dispatches >= self.cpu_dispatch_cap)
                     or self._breaker.state == breaker_mod.OPEN):
@@ -1109,8 +1114,8 @@ class QueryRouter:
             hits = sum(1 for bits in group_bits if bits is not None)
             if stats is not None:
                 stats.add_device_dispatch(
-                    len(group), self.backend.padded_query_slots(len(group)),
-                    elapsed)
+                    len(group), self.backend.padded_query_slots(
+                        len(group), single_device=evidence), elapsed)
             self.record_dispatch(hits, elapsed, ragged=False)
             with trace_span("router.land", cat="router", units=len(group)):
                 self._apply_group_bits(group, group_bits, results, states,

@@ -166,6 +166,8 @@ def add_analysis_args(parser) -> None:
     parser.add_argument("--loop-bound", type=int, default=3)
     parser.add_argument("--call-depth-limit", type=int, default=3)
     parser.add_argument("--pruning-factor", type=float, default=None)
+    parser.add_argument("--unconstrained-storage", action="store_true")
+    parser.add_argument("--parallel-solving", action="store_true")
     parser.add_argument("--jobs", type=int, default=1,
                         help="analyze the contracts in N spawn worker "
                              "processes sharing the card")
@@ -177,6 +179,7 @@ def add_analysis_args(parser) -> None:
                              "the same slots one contract at a time, 0 = "
                              "off; MYTHRIL_GPU_CORPUS_INTERLEAVE wins over "
                              "it")
+    parser.add_argument("--solver-log", help="directory for SMT2 query dumps")
     parser.add_argument("--solver-backend", default="gpu",
                         choices=["gpu", "cpu"],
                         help="satisfiability backend: gpu (default) sends "
@@ -268,13 +271,22 @@ def add_analysis_args(parser) -> None:
     parser.add_argument("--disable-coverage-strategy", action="store_true")
     parser.add_argument("--disable-dependency-pruning", action="store_true")
     parser.add_argument("--disable-iprof", action="store_true")
+    parser.add_argument("--enable-state-merging", action="store_true")
+    parser.add_argument("--enable-summaries", action="store_true")
     parser.add_argument("--transaction-sequences",
                         help="pinned function sequences, e.g. [[0xa9059cbb],[-1]]")
+    parser.add_argument("--disable-incremental-txs", action="store_true",
+                        dest="disable_incremental_txs",
+                        help="explore prioritizer-ranked function sequences "
+                             "instead of incremental tx ordering")
 
 
 def add_output_args(parser) -> None:
     parser.add_argument("-o", "--outform", default="text",
                         choices=["text", "markdown", "json", "jsonv2"])
+    parser.add_argument("-g", "--graph", help="write CFG html to this path")
+    parser.add_argument("-j", "--statespace-json",
+                        help="dump statespace json to this path")
 
 
 def configure_logging(verbosity: int) -> None:
@@ -340,6 +352,16 @@ def execute_command(parsed) -> int:
             disassembler, cmd_args=parsed, strategy=strategy)
         modules = parsed.modules.split(",") if parsed.modules else None
         try:
+            if getattr(parsed, "graph", None):
+                html = analyzer.graph_html(enable_physics=False)
+                with open(parsed.graph, "w") as handle:
+                    handle.write(html)
+                return 0
+            if getattr(parsed, "statespace_json", None):
+                dump = analyzer.dump_statespace()
+                with open(parsed.statespace_json, "w") as handle:
+                    handle.write(dump)
+                return 0
             report = analyzer.fire_lasers(
                 modules=modules, transaction_count=parsed.transaction_count
             )

@@ -1,5 +1,5 @@
-"""The engine plugins the analyze path loads (the state-merge, summary and
-trace plugins of the JAX package wait for a later slice)."""
+"""The engine plugins the analyze path loads; the summary plugin
+(summary.py) is imported where --enable-summaries loads it."""
 
 from mythril_tpu_torch.laser.plugin.plugins.coverage import (  # noqa: F401
     CoveragePluginBuilder,
@@ -15,4 +15,10 @@ from mythril_tpu_torch.laser.plugin.plugins.call_depth_limiter import (  # noqa:
 )
 from mythril_tpu_torch.laser.plugin.plugins.dependency_pruner import (  # noqa: F401
     DependencyPrunerBuilder,
+)
+from mythril_tpu_torch.laser.plugin.plugins.state_merge import (  # noqa: F401
+    StateMergePluginBuilder,
+)
+from mythril_tpu_torch.laser.plugin.plugins.trace import (  # noqa: F401
+    TraceFinderBuilder,
 )

@@ -125,6 +125,8 @@ class LaserEVM:
 
         self.time: Optional[float] = None
         self._start_time: Optional[float] = None
+        # optional selector-ranking provider (laser/tx_prioritiser.py)
+        self.tx_prioritiser = None
 
     # -- hook registration ---------------------------------------------------
 
@@ -205,6 +207,11 @@ class LaserEVM:
         from mythril_tpu_torch.laser.transaction.symbolic import execute_message_call
 
         pinned_sequences = self._parse_transaction_sequences()
+        if pinned_sequences is None and getattr(self, "tx_prioritiser", None):
+            # non-ordered exploration: the prioritizer pins the selector
+            # order per tx (reference svm.py:241-250 via rf_prioritiser)
+            pinned_sequences = self.tx_prioritiser.predict_sequences(
+                self.transaction_count)
         self._fire("start_execute_transactions")
         self.executed_transactions = True
         for i in range(self.transaction_count):

@@ -14,12 +14,21 @@ class _Args:
         self.loop_bound = 3
         self.transaction_count = 2
         self.pruning_factor = None             # None -> auto
+        self.unconstrained_storage = False
+        self.parallel_solving = False
         self.call_depth_limit = 3
+        self.iteration_count = 0
+        self.solver_log = None
+        self.sparse_pruning = False
+        self.incremental_txs = True
+        self.use_issue_annotations = False
         self.use_integer_module = True
         self.disable_dependency_pruning = False
         self.disable_mutation_pruner = False
         self.disable_coverage_strategy = False
         self.disable_iprof = False
+        self.enable_state_merging = False
+        self.enable_summaries = False
         # gpu: batched windows go through the router to K1 on the device
         # (torch_device below); cpu: the host CDCL alone
         self.solver_backend = "gpu"            # gpu | cpu

@@ -65,6 +65,13 @@ from mythril_tpu_torch.support.time_handler import time_handler
 # Engine-internal pruning UNSATs stay single-opinion by default.
 _in_detection_context = False
 
+# When set to a list, every blasted query that reaches a real solve is
+# recorded as (prep, status) (mythril_tpu/support/model.py:70-74): the
+# multichip dryrun (graft.dryrun_multichip) harvests analyze-derived
+# circuits this way and re-solves them on the mesh. Never set in normal
+# runs.
+capture_sink: Optional[List] = None
+
 
 @contextmanager
 def detection_context():
@@ -451,6 +458,8 @@ def _get_model_impl(
         solver.unsat_crosscheck = crosscheck
         solver.add(raw_constraints)
         status = solver.check()
+        if capture_sink is not None and getattr(solver, "last_prep", None):
+            capture_sink.append((solver.last_prep, status))
         if status == SAT:
             return solver.model()
         if status == UNSAT:
@@ -493,6 +502,8 @@ def _get_model_impl(
             raise UnsatError()
 
         status = solver._solve_prepared(prep)
+        if capture_sink is not None:
+            capture_sink.append((prep, status))
         if status == SAT:
             model = solver.model()
             if key is not None:
@@ -701,6 +712,8 @@ def _get_models_batch_impl(constraint_sets, enforce_execution_time,
             solver.timeout = max(0.05,
                                  timeout_s - (time.monotonic() - start))
             status = solver._solve_prepared(prep)
+            if capture_sink is not None:
+                capture_sink.append((prep, status))
             tier, quick_cache = caches_for_origin(origin_of(idx))
             if status == SAT:
                 model = solver.model()

@@ -90,7 +90,7 @@ class FakeBackend:
             return None
         return pc
 
-    def padded_query_slots(self, n):
+    def padded_query_slots(self, n, single_device=False):
         q = 1
         while q < n:
             q *= 2

@@ -77,12 +77,13 @@ def watch_timeouts(package: str):
 
 def run_analyze(package: str, code_hex: str, tx_count: int, backend: str,
                 execution_timeout: int, device=None, pruning_factor=None,
-                modules=None, bin_runtime=False, frontier=True):
+                modules=None, bin_runtime=False, frontier=True, flags=None):
     """One `analyze` of `code_hex` through `package`'s MythrilAnalyzer from
     fresh process state (args, solve caches, the shared blaster).
     `frontier` sets the batched frontier alike in both packages: on (their
-    default) or off (--no-vmap-frontier). Returns the Report; asserts that
-    the exploration completed."""
+    default) or off (--no-vmap-frontier). `flags` are further CLI fields
+    by their dest (enable_summaries=True, ...), given alike to both.
+    Returns the Report; asserts that the exploration completed."""
     core = importlib.import_module(f"{package}.core")
     args = importlib.import_module(f"{package}.support.args").args
     model = importlib.import_module(f"{package}.support.model")
@@ -93,7 +94,7 @@ def run_analyze(package: str, code_hex: str, tx_count: int, backend: str,
     cmd_args = SimpleNamespace(
         execution_timeout=execution_timeout, transaction_count=tx_count,
         max_depth=128, solver_backend=backend, pruning_factor=pruning_factor,
-        no_vmap_frontier=not frontier)
+        no_vmap_frontier=not frontier, **(flags or {}))
     if package != "mythril_tpu":
         cmd_args.torch_device = device
     disassembler = core.MythrilDisassembler()

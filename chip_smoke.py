@@ -16,6 +16,7 @@
     python3 chip_smoke.py --autotune-only  # env, build, the autotune phase
     python3 chip_smoke.py --mesh-only    # env, build, the mesh phase
     python3 chip_smoke.py --options-only  # env, build, the options phase
+    python3 chip_smoke.py --inputs-only  # env, build, the inputs phase
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
@@ -344,6 +345,27 @@ line):
           device's statespace JSON byte for byte the host's, its vis.js
           page the same node and edge sets, none empty (written under
           chiprun_out/options/).
+  inputs  the inputs the CLI reads besides bytecode, after the options
+          phase, through the CLI in this process on both backends: (a)
+          `analyze -a ADDRESS --rpc 127.0.0.1:PORT -t 2` of a KILLBILLY
+          whose kill() reads an unlock flag from storage, served with
+          its storage by a pinned chain on 127.0.0.1 (a stdlib server in
+          a thread of this process): the findings equal at issue
+          granularity and non-empty, K1 solve rounds past the
+          calibration and K6 launches (counted from just before the
+          device run to just after it), eth_getCode and eth_getStorageAt
+          among the chain's requests; (b) `read-storage` in its position,
+          range, array and mapping forms, each line the pinned value at
+          the slot the layout's keccak math gives; (c) `safe-functions`
+          of KILLBILLY's runtime code at -t 2, the device's list the
+          host's (kill() flagged: no function safe); (d) `concolic` on a
+          two-way branch run with 7, flipping its JUMPI: the device's
+          JSON the host's, the flipped input 42, its K1 launches printed
+          (0 when every window settles before the router). Every K1
+          launch of (a) and (c), and (d)'s largest, is run again on the
+          card and held bit for bit against its plain version on the
+          host (6 spawned processes while the later legs go on), each
+          leg's largest timed.
   mesh    K4, after the bucketed phase: graft.dryrun_multichip on a
           virtual mesh of 8 shards on the card (4 x 2; the whole script:
           4 shards, 2 x 2, leg 1 only): the pinned contract's analyze
@@ -415,7 +437,9 @@ mixed-origin stream; the same of the serve phase, and the fleet shards'
 K1 solve rounds; the autotune phase's: the search children's K1 solve
 rounds, K1's launches under (c) and (d) and its time on (c)'s largest
 launch, K2's launches under (b) and its time there; K1's and K6's
-launches under each option leg and K1's in the -j/-g dumps; K4's launches
+launches under each option leg and K1's in the -j/-g dumps; K1's and
+K6's launches under each inputs leg and K1's time on their largest
+launch; K4's launches
 by shard in the mesh phase, its time on leg 1's round, the plain runs'
 sum, its bound and K3 unsharded beside it), the card's
 nvidia-smi line, and last {"ok": true,
@@ -4450,6 +4474,470 @@ def options_only(device) -> int:
     return 0
 
 
+INPUTS_ADDRESS = "0x" + "4b" * 20
+# KILLBILLY whose kill() first reads an unlock flag from storage slot 0:
+# `analyze -a` reaches the chain for the slot (eth_getStorageAt) as well
+# as for the code
+GUARDED_KILLBILLY_EASM = """
+    PUSH1 0x00
+    CALLDATALOAD
+    PUSH1 0xe0
+    SHR
+    DUP1
+    PUSH4 0x41c0e1b5
+    EQ
+    PUSH1 @kill
+    JUMPI
+    STOP
+:kill
+    JUMPDEST
+    PUSH1 0x00
+    SLOAD
+    PUSH1 @open
+    JUMPI
+    STOP
+:open
+    JUMPDEST
+    CALLER
+    SELFDESTRUCT
+"""
+# the concolic input: a branch on calldata[0:32] == 42, run with 7
+CONCOLIC_EASM = """
+    PUSH1 0x00
+    CALLDATALOAD
+    PUSH1 0x2a
+    EQ
+    PUSH1 @eq
+    JUMPI
+    STOP
+:eq
+    JUMPDEST
+    PUSH1 0x01
+    PUSH1 0x00
+    SSTORE
+    STOP
+"""
+READ_STORAGE_FORMS = ("1", "1,2", "2,2,array", "mapping,3,alice,bob")
+# processes holding the inputs phase's K1 launches against the plain round
+# on the host (a plain round there takes 0.6-21 s at the card's 64 lanes
+# and 64 steps)
+INPUTS_HOLD_WORKERS = 6
+
+
+def _slot_of(data: bytes) -> int:
+    from mythril_tpu_torch.utils.keccak import keccak256
+
+    return int.from_bytes(keccak256(data), "big")
+
+
+def _inputs_storage() -> dict:
+    """The pinned slots of INPUTS_ADDRESS: the unlock flag, two plain
+    slots, an array of two words at keccak(2) and a mapping at position 3
+    keyed "alice" and "bob"."""
+    array = _slot_of((2).to_bytes(32, "big"))
+    storage = {0: 1, 1: 0x2A, 2: 0x2B, array: 0x100, array + 1: 0x101}
+    for key, value in (("alice", 0xA11CE), ("bob", 0xB0B)):
+        storage[_slot_of(key.encode().ljust(32, b"\x00")
+                         + (3).to_bytes(32, "big"))] = value
+    return storage
+
+
+def _expected_storage_lines(form, storage) -> str:
+    """read-storage's output for `form` from the pinned table, by the
+    solidity layout's slot math."""
+    def word(slot):
+        return "0x" + storage.get(slot, 0).to_bytes(32, "big").hex()
+
+    parts = form.split(",")
+    if parts[0] == "mapping":
+        slots = [_slot_of(key.encode().ljust(32, b"\x00")
+                          + int(parts[1]).to_bytes(32, "big"))
+                 for key in parts[2:]]
+        if len(slots) == 1:
+            return f"{slots[0]}: {word(slots[0])}"
+        return "\n".join(f"{hex(slot)}: {word(slot)}" for slot in slots)
+    position = int(parts[0])
+    length = int(parts[1]) if len(parts) > 1 else 1
+    if len(parts) == 3 and parts[2] == "array":
+        position = _slot_of(position.to_bytes(32, "big"))
+    if length == 1:
+        return f"{position}: {word(position)}"
+    return "\n".join(f"{hex(slot)}: {word(slot)}"
+                     for slot in range(position, position + length))
+
+
+def _cli_run(device, argv, solver_backend=None):
+    """The port's CLI in this process from fresh solve state: (exit code,
+    stdout, K1 launches, of them the router's calibration's, K6 launches,
+    wall seconds). `solver_backend` adds the device flags (the named CPU
+    device off the card)."""
+    import io
+
+    from mythril_tpu_torch.gpu import frontier_kernel, ragged_kernel
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.smt.solver import frontend
+    from mythril_tpu_torch.support.args import args
+    from mythril_tpu_torch.support.model import clear_caches
+
+    argv = list(argv)
+    if solver_backend is not None:
+        argv += ["--solver-backend", solver_backend]
+        if solver_backend == "gpu" and device.type != "cuda":
+            argv += ["--torch-device", str(device)]
+    args.reset()
+    clear_caches()
+    frontend._global_blaster = None
+    before = ragged_kernel.launches
+    frontier_kernel.reset_launches()
+    calibration = {}
+    out = io.StringIO()
+    torch_sync(device)
+    start = time.monotonic()
+    try:
+        with _calibration_launches(calibration), \
+                contextlib.redirect_stdout(out):
+            code = cli.execute_command(cli.build_parser().parse_args(argv))
+        torch_sync(device)
+    finally:
+        args.reset()
+    return {"rc": code, "stdout": out.getvalue(),
+            "k1": ragged_kernel.launches - before,
+            "k1_calibration": calibration.get("launches", 0),
+            "k6": frontier_kernel.launches,
+            "wall_s": time.monotonic() - start}
+
+
+def _json_issue_keys(stdout):
+    return sorted([issue["swc-id"], issue["function"], issue["address"],
+                   issue["title"]]
+                  for issue in json.loads(stdout)["issues"])
+
+
+def _inputs_device_leg(device, leg, argv, every):
+    """One device-backend CLI run with every K1 launch kept in `every`
+    (on the card each launch must be kept)."""
+    with _keep_largest_k1({}, every=every):
+        run = _cli_run(device, argv, "gpu")
+    if None in every or (device.type == "cuda" and len(every) != run["k1"]):
+        raise AssertionError(f"inputs: {leg}: {every.count(None)} of "
+                             f"{len(every)} K1 calls untracked, {run['k1']} "
+                             f"launches counted")
+    return run
+
+
+def _k1_plain_on_host(flat, x, seed, steps, walk_depth, caps):
+    """run_round_ragged_plain on a host FlatStream and a numpy x, in a
+    process of the inputs phase's pool (one thread each): ((x, found) as
+    numpy arrays, the run's ms). The plain round's salts are integer
+    hashes, so its result does not depend on the device it runs on."""
+    import torch
+
+    from mythril_tpu_torch.gpu import ragged_kernel
+
+    torch.set_num_threads(1)
+    flat = ragged_kernel.device_flat(flat, torch.device("cpu"))
+    began = time.perf_counter()
+    out_x, found = ragged_kernel.run_round_ragged_plain(
+        flat, torch.from_numpy(x), seed, steps, walk_depth,
+        ragged_kernel.KernelCaps(*caps))
+    return (out_x.numpy(), found.numpy()), \
+        (time.perf_counter() - began) * 1e3
+
+
+def _warm_hold_worker() -> None:
+    """Import what a hold needs, so a pool process pays its start-up while
+    the phase's first legs run."""
+    import torch  # noqa: F401
+
+    from mythril_tpu_torch.gpu import ragged_kernel  # noqa: F401
+
+
+def _launch_key(host_flat, launch) -> str:
+    """A digest of one K1 launch's inputs: the flattened stream's tables,
+    x, seed, steps, walk depth and capacities. Two launches with one key
+    have one plain result (the router's calibration launches repeat in
+    every run)."""
+    import hashlib
+
+    digest = hashlib.sha1()
+    for name in sorted(host_flat.arrays):
+        digest.update(name.encode())
+        digest.update(host_flat.arrays[name].tobytes())
+    digest.update(launch["x"].numpy().tobytes())
+    digest.update(repr((launch["seed"], launch["steps"],
+                        launch["walk_depth"], launch["caps"])).encode())
+    return digest.hexdigest()
+
+
+def _submit_inputs_holds(device, leg, every, pool, pending,
+                         largest_only=False, plain_runs=None):
+    """Each kept K1 launch of `leg` (the largest alone with
+    `largest_only`) run again on `device` (its output kept on the host;
+    the largest also timed under CUDA events) and its plain version
+    submitted to the host pool, once for launches with the same inputs
+    (`plain_runs`, a dict shared by the phase's legs, maps _launch_key to
+    the submitted run); launches made here are not counted. The
+    comparisons wait for _collect_inputs_holds."""
+    from mythril_tpu_torch.gpu import ragged_kernel
+
+    if not every:
+        return
+    plain_runs = {} if plain_runs is None else plain_runs
+    launches = ragged_kernel.launches
+    largest = max(every, key=lambda launch: launch["size"])
+    for index, launch in enumerate(every):
+        if largest_only and launch is not largest:
+            continue
+        caps = ragged_kernel.KernelCaps(*launch["caps"])
+        host_flat = ragged_kernel.flatten_stream(launch["stream"], caps)
+        key = _launch_key(host_flat, launch)
+        if key not in plain_runs:
+            plain_runs[key] = pool.submit(
+                _k1_plain_on_host, host_flat, launch["x"].numpy(),
+                launch["seed"], launch["steps"], launch["walk_depth"],
+                tuple(caps))
+        flat = ragged_kernel.device_flat(host_flat, device)
+        x = launch["x"].to(device)
+        call = (launch["seed"], launch["steps"], launch["walk_depth"], caps)
+        got_x, got_found = ragged_kernel.run_round_ragged_kernel(flat, x,
+                                                                 *call)
+        ms = None
+        if device.type == "cuda" and launch is largest:
+            ms = _time_ms(lambda: ragged_kernel.run_round_ragged_kernel(
+                flat, x, *call), repeats=5)
+        pending.append(dict(
+            leg=leg, window=f"{leg}-{index}", launch=launch, flat=host_flat,
+            ms=ms, got=(got_x.cpu().numpy(), got_found.cpu().numpy()),
+            future=plain_runs[key]))
+    ragged_kernel.launches = launches
+
+
+def _collect_inputs_holds(pending) -> dict:
+    """Every submitted hold waited for and compared bit for bit (raises
+    otherwise), one record each; returns the largest error and the largest
+    launch's times and bound."""
+    import numpy as np
+
+    from mythril_tpu_torch.gpu import ragged_kernel
+
+    err, largest = 0, {}
+    for hold in pending:
+        (want_x, want_found), plain_ms = hold["future"].result()
+        got_x, got_found = hold["got"]
+        if not (np.array_equal(got_x, want_x)
+                and np.array_equal(got_found, want_found)):
+            raise AssertionError(
+                f"inputs: {hold['window']}: K1 disagrees with its plain "
+                f"version: {int((got_x != want_x).sum())} x cells, "
+                f"{int((got_found != want_found).sum())} found cells")
+        launch_err = max(int(np.abs(got_x.astype(np.int64) - want_x).max()),
+                         int(np.abs(got_found.astype(np.int64)
+                                    - want_found).max()))
+        err = max(err, launch_err)
+        launch, flat = hold["launch"], hold["flat"]
+        lanes = launch["x"].shape[0]
+        bound_ms, bound_by, moved, ops = _bound(
+            flat, launch["stream"].v1, lanes, launch["steps"],
+            ragged_kernel.KernelCaps(*launch["caps"]))
+        record = {"phase": "inputs", "window": hold["window"],
+                  **_stream_fields(launch["stream"], flat), "lanes": lanes,
+                  "steps": launch["steps"],
+                  "walk_depth": launch["walk_depth"], "leg": hold["leg"],
+                  "bit_identical": True, "max_abs_err": launch_err,
+                  "ms": (hold["ms"] if hold["ms"] is not None
+                         else "not measured"),
+                  "plain_ms": plain_ms, "plain_on": "host",
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "bytes": moved, "ops": ops}
+        emit(record)
+        if launch["size"] > largest.get("size", -1):
+            largest = {"leg": hold["leg"], "size": launch["size"],
+                       "ms": hold["ms"], "plain_ms": plain_ms,
+                       "plain_on": "host", "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+    return {"max_abs_err": err, "largest": largest}
+
+
+def phase_inputs(device):
+    """The inputs of item 12 on both backends, in this process, through
+    the CLI: (a) `analyze -a` of GUARDED_KILLBILLY at -t 2 over a pinned
+    chain on 127.0.0.1 (ethereum/interface/local.py), findings equal at
+    issue granularity and non-empty, K1 solve rounds past the calibration
+    and K6 launched, the chain's requests counted (eth_getCode and
+    eth_getStorageAt must reach it); (b) `read-storage` in its position,
+    range, array and mapping forms, each line the pinned table's value at
+    the slot math's slot; (c) `safe-functions` of KILLBILLY's runtime
+    code at -t 2, the device's list the host's (kill() flagged: no
+    function safe); (d) `concolic` of CONCOLIC_EASM run with 7, flipping its
+    JUMPI: the device's JSON the host's, the flipped input 42 (its K1
+    launches printed; 0 when every window settles before the router).
+    Every K1 launch of (a) and (c), and (d)'s largest, is held bit for
+    bit against its plain version, run on the host in INPUTS_HOLD_WORKERS
+    spawned processes while the later legs go on (the plain round's small
+    per-level ops take 0.16-10 s a launch on the card, 190 s for the
+    phase's launches one after another), one plain run for launches with
+    equal inputs; each leg's largest K1 launch is timed on the card."""
+    import concurrent.futures
+    import multiprocessing
+
+    from mythril_tpu_torch.disasm.asm import easm_to_code
+
+    for key in ("http_proxy", "HTTP_PROXY", "all_proxy", "ALL_PROXY"):
+        os.environ.pop(key, None)  # the chain is on this host
+    folder = os.path.join(OUT_DIR, "inputs")
+    os.makedirs(folder, exist_ok=True)
+    runtime = easm_to_code(GUARDED_KILLBILLY_EASM)
+    storage = _inputs_storage()
+    launches = {"k1": {}, "k6": {}}
+    pending = []
+    plain_runs = {}
+    began = time.monotonic()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        INPUTS_HOLD_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        warm = [pool.submit(_warm_hold_worker)
+                for _ in range(INPUTS_HOLD_WORKERS)]
+        held = _inputs_legs(device, folder, runtime, storage, launches,
+                            pool, pending, plain_runs)
+        for future in warm:
+            future.result()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    record = {"phase": "inputs", "leg": "total",
+              "seconds": time.monotonic() - began,
+              "k1_launches": launches["k1"], "k6_launches": launches["k6"],
+              "k1_held": len(pending), "k1_plain_runs": len(plain_runs),
+              **held}
+    emit(record)
+    return {"launches": launches, "max_abs_err": held["max_abs_err"],
+            "largest": held["largest"]}
+
+
+def _inputs_legs(device, folder, runtime, storage, launches, pool,
+                 pending, plain_runs):
+    """The four legs of phase_inputs; returns _collect_inputs_holds'."""
+    from mythril_tpu_torch.disasm.asm import easm_to_code
+    from mythril_tpu_torch.disasm.disassembly import Disassembly
+    from mythril_tpu_torch.ethereum.interface.local import LocalChain
+
+    with LocalChain({INPUTS_ADDRESS: {"code": "0x" + runtime.hex(),
+                                      "storage": storage,
+                                      "balance": 10 ** 18}}) as chain:
+        rpc = ["--rpc", f"127.0.0.1:{chain.port}"]
+        # (a) analyze -a
+        argv = ["analyze", "-a", INPUTS_ADDRESS, *rpc, "-t", "2", "-o",
+                "json", "--execution-timeout", str(ANALYZE_TIMEOUT)]
+        host = _cli_run(device, argv, "cpu")
+        requests_host = dict(chain.requests)
+        chain.requests.clear()
+        every = []
+        run = _inputs_device_leg(device, "analyze_a", argv, every)
+        requests = dict(chain.requests)
+        findings = _json_issue_keys(run["stdout"])
+        solve_k1 = run["k1"] - run["k1_calibration"]
+        emit({"phase": "inputs", "leg": "analyze_a", "rc": run["rc"],
+              "host_rc": host["rc"], "host_wall_s": host["wall_s"],
+              "device_wall_s": run["wall_s"], "k1_launches": run["k1"],
+              "k1_calibration_launches": run["k1_calibration"],
+              "k6_launches": run["k6"], "k1_kept": len(every),
+              "rpc_requests": requests, "rpc_requests_host": requests_host,
+              "findings": findings,
+              "host_findings": _json_issue_keys(host["stdout"])})
+        if run["rc"] != 1 or host["rc"] != 1:
+            raise AssertionError(f"inputs: analyze -a exited {run['rc']} "
+                                 f"(host {host['rc']}), not 1")
+        if not findings or findings != _json_issue_keys(host["stdout"]):
+            raise AssertionError("inputs: analyze -a findings differ from "
+                                 "the host backend's, or are empty")
+        if solve_k1 <= 0 or run["k6"] <= 0:
+            raise AssertionError(f"inputs: analyze -a: K1 {solve_k1} solve "
+                                 f"rounds, K6 {run['k6']} launches")
+        if not (requests.get("eth_getCode") and
+                requests.get("eth_getStorageAt")):
+            raise AssertionError(f"inputs: the chain saw {requests}")
+        _submit_inputs_holds(device, "analyze_a", every, pool, pending,
+                             plain_runs=plain_runs)
+        launches["k1"]["analyze_a"] = run["k1"]
+        launches["k6"]["analyze_a"] = run["k6"]
+        # (b) read-storage
+        for form in READ_STORAGE_FORMS:
+            out = _cli_run(device, ["read-storage", form, INPUTS_ADDRESS,
+                                    *rpc])
+            want = _expected_storage_lines(form, storage)
+            emit({"phase": "inputs", "leg": "read_storage", "form": form,
+                  "rc": out["rc"], "lines": out["stdout"].splitlines(),
+                  "equal": out["stdout"] == want + "\n"})
+            if out["rc"] != 0 or out["stdout"] != want + "\n":
+                raise AssertionError(f"inputs: read-storage {form} printed "
+                                     f"{out['stdout']!r}, not {want!r}")
+    # (c) safe-functions of KILLBILLY (runtime code: the selectors are
+    # read there)
+    argv = ["safe-functions", "-c", easm_to_code(KILLBILLY_EASM).hex(),
+            "--bin-runtime", "-t", "2", "--execution-timeout",
+            str(ANALYZE_TIMEOUT)]
+    host = _cli_run(device, argv, "cpu")
+    every = []
+    run = _inputs_device_leg(device, "safe_functions", argv, every)
+    emit({"phase": "inputs", "leg": "safe_functions", "rc": run["rc"],
+          "host_wall_s": host["wall_s"], "device_wall_s": run["wall_s"],
+          "k1_launches": run["k1"],
+          "k1_calibration_launches": run["k1_calibration"],
+          "k6_launches": run["k6"], "k1_kept": len(every),
+          "safe": run["stdout"].splitlines(),
+          "host_safe": host["stdout"].splitlines()})
+    if run["rc"] != 0 or host["rc"] != 0 or run["stdout"] != host["stdout"]:
+        raise AssertionError("inputs: safe-functions on the device differs "
+                             "from the host's")
+    if run["stdout"] != "0 functions are deemed safe in this contract:\n":
+        raise AssertionError(f"inputs: safe-functions printed "
+                             f"{run['stdout']!r}")
+    _submit_inputs_holds(device, "safe_functions", every, pool, pending,
+                         plain_runs=plain_runs)
+    launches["k1"]["safe_functions"] = run["k1"]
+    launches["k6"]["safe_functions"] = run["k6"]
+    # (d) concolic
+    code = easm_to_code(CONCOLIC_EASM)
+    jumpi = next(instr.address for instr in
+                 Disassembly(code).instruction_list
+                 if instr.opcode == "JUMPI")
+    path = os.path.join(folder, "concolic.json")
+    with open(path, "w") as handle:
+        json.dump({"initialState": {"accounts": {INPUTS_ADDRESS: {
+            "code": "0x" + code.hex(), "nonce": 0, "balance": "0x0",
+            "storage": {}}}},
+            "steps": [{"address": INPUTS_ADDRESS, "origin": "0x" + "ab" * 20,
+                       "input": "0x" + (7).to_bytes(32, "big").hex(),
+                       "value": "0x0"}]}, handle)
+    argv = ["concolic", path, "--branches", str(jumpi)]
+    host = _cli_run(device, argv, "cpu")
+    every = []
+    run = _inputs_device_leg(device, "concolic", argv, every)
+    output = json.loads(run["stdout"])
+    emit({"phase": "inputs", "leg": "concolic", "rc": run["rc"],
+          "host_wall_s": host["wall_s"], "device_wall_s": run["wall_s"],
+          "k1_launches": run["k1"],
+          "k1_calibration_launches": run["k1_calibration"],
+          "k1_kept": len(every), "output": output,
+          "equal": run["stdout"] == host["stdout"]})
+    if run["rc"] != 0 or run["stdout"] != host["stdout"]:
+        raise AssertionError("inputs: concolic on the device differs from "
+                             "the host's")
+    flipped = output[0]["steps"][-1]["input"] if output[0] else None
+    if flipped is None or int(flipped[2:66], 16) != 42:
+        raise AssertionError(f"inputs: concolic flipped to {flipped}")
+    _submit_inputs_holds(device, "concolic", every, pool, pending,
+                         largest_only=True, plain_runs=plain_runs)
+    launches["k1"]["concolic"] = run["k1"]
+    return _collect_inputs_holds(pending)
+
+
+def inputs_only(device) -> int:
+    """Env, build and the inputs phase."""
+    phase_build()
+    phase_inputs(device)
+    return 0
+
+
 FORK_PREP_CONTRACTS = ("xc_dispatch_a.hex", "xc_dispatch_b.hex")
 
 
@@ -5691,6 +6179,10 @@ def main() -> int:
             options_only(device)
             print(smi, flush=True)
             return 0
+        if "--inputs-only" in sys.argv[1:]:
+            inputs_only(device)
+            print(smi, flush=True)
+            return 0
         if "--k3-split" in sys.argv[1:]:
             k3_split(device, sys.argv[sys.argv.index("--k3-split") + 1])
             print(smi, flush=True)
@@ -5719,6 +6211,7 @@ def main() -> int:
         frontier = timed("frontier", phase_frontier, device)
         analyze = timed("analyze", phase_analyze, device)
         options = timed("options", phase_options, device, OPTION_LEGS_WHOLE)
+        inputs = timed("inputs", phase_inputs, device)
         bucketed = timed("bucketed", phase_bucketed, device,
                          analyze["records"])
         mesh = timed("mesh", phase_mesh, device, MESH_SHARDS_WHOLE,
@@ -5790,13 +6283,18 @@ def main() -> int:
                              **{f"options_{leg}": count for leg, count
                                 in options["launches"]["k1"].items()},
                              "options_statespace_dumps":
-                                 options["dump_k1_launches"]},
+                                 options["dump_k1_launches"],
+                             # the inputs phase: analyze -a over the
+                             # local chain, safe-functions and concolic's
+                             # flip pass on the device backend
+                             **{f"inputs_{leg}": count for leg, count
+                                in inputs["launches"]["k1"].items()}},
         "max_abs_err": max(max_err, router["max_abs_err"],
                            analyze["max_abs_err"],
                            resilience["max_abs_err"],
                            corpus["max_abs_err"], serve["max_abs_err"],
                            autotune["k1_hold"]["max_abs_err"],
-                           options["max_abs_err"]),
+                           options["max_abs_err"], inputs["max_abs_err"]),
         # times of one round on the largest stream the compared analyze
         # runs launched; the router's and the slice's streams beside them
         "ms": analyze["ms"],
@@ -5819,6 +6317,8 @@ def main() -> int:
         # the autotune phase's largest launch under the env's pallas over
         # a profile of 32 steps
         "autotune_env_launch": autotune["k1_hold"],
+        # the inputs phase's largest launch (of its three device legs)
+        "inputs_largest_launch": inputs["largest"],
     }, {
         "name": "frontier_step",
         "route": "cuda",
@@ -5840,7 +6340,9 @@ def main() -> int:
                              "serve_daemon":
                                  serve["launches"]["frontier_step"],
                              **{f"options_{leg}": count for leg, count
-                                in options["launches"]["k6"].items()}},
+                                in options["launches"]["k6"].items()},
+                             **{f"inputs_{leg}": count for leg, count
+                                in inputs["launches"]["k6"].items()}},
         "max_abs_err": max(frontier["max_abs_err"],
                            analyze["k6"]["max_abs_err"]),
         # one launch on the largest frontier batch (rows x micro-ops) the

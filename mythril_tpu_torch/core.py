@@ -21,8 +21,15 @@ pool, never rerun in process) or from a slot thread (the coordinator
 cancels the other slots, and it is re-raised here). The tuned profile
 (tune/) is applied at the start of fire_lasers and of each worker, before
 the kernels are built. The statespace and graph dumps (-j, -g) explore
-the first contract's whole statespace and report no issue. Loading
-from solidity, foundry or RPC waits for a later slice."""
+the first contract's whole statespace and report no issue.
+
+Inputs: bytecode, an on-chain address over JSON-RPC (load_from_address;
+the analyzer then hands the engine a DynLoader over the same client, so
+storage, balances and callee code are read lazily from the chain, and
+pre-analysis gates no module), solidity files through solc, and foundry
+build-info artifacts. get_state_variable_from_storage is `read-storage`'s
+slot math. A run with an RPC client analyzes its contracts one after the
+other, as in the JAX package."""
 
 import logging
 import time
@@ -78,8 +85,10 @@ def build_device_kernels() -> None:
 class MythrilDisassembler:
     """Loads bytecode into EVMContract objects."""
 
-    def __init__(self):
+    def __init__(self, eth=None, enable_online_lookup: bool = False):
+        self.eth = eth
         self.contracts: List[EVMContract] = []
+        self.enable_online_lookup = enable_online_lookup
 
     def load_from_bytecode(self, code: str, bin_runtime: bool = False,
                            name: Optional[str] = None) -> EVMContract:
@@ -89,6 +98,153 @@ class MythrilDisassembler:
             contract = EVMContract(creation_code=code, name=name or "MAIN")
         self.contracts.append(contract)
         return contract
+
+    def load_from_address(self, address: str) -> EVMContract:
+        if self.eth is None:
+            raise ValueError("no RPC client configured (use --rpc)")
+        code = self.eth.eth_getCode(address)
+        contract = EVMContract(code=code, name=address)
+        self.contracts.append(contract)
+        return contract
+
+    def load_from_solidity(self, solidity_files: List[str],
+                           solc_version: Optional[str] = None,
+                           solc_args: Optional[List[str]] = None):
+        from mythril_tpu_torch.solidity.soliditycontract import (
+            find_solc_version,
+            get_contracts_from_file,
+        )
+
+        solc_binary = (
+            find_solc_version(solc_version) if solc_version else None
+        )
+        contracts = []
+        for file in solidity_files:
+            contracts.extend(
+                get_contracts_from_file(file, solc_binary, solc_args))
+        self.contracts.extend(contracts)
+        return contracts
+
+    def load_from_foundry(self, project_root: Optional[str] = None,
+                          run_forge: bool = True):
+        """Analyze a foundry project: run `forge build --build-info` and load
+        every contract from the build-info artifacts (reference
+        mythril_disassembler.py:160-217). With run_forge=False only existing
+        artifacts are read — the offline-test path."""
+        import json
+        import os
+        import shutil
+        import subprocess
+
+        from mythril_tpu_torch.solidity.soliditycontract import (
+            get_contracts_from_foundry,
+        )
+
+        project_root = project_root or os.getcwd()
+        if run_forge:
+            forge = shutil.which("forge")
+            if forge is None:
+                raise ValueError(
+                    "forge binary not found (install foundry or pass "
+                    "pre-built artifacts)"
+                )
+            proc = subprocess.run(
+                [forge, "build", "--build-info", "--force"],
+                capture_output=True, text=True, cwd=project_root,
+            )
+            if proc.stderr:
+                log.error(proc.stderr)
+            if proc.returncode:
+                # stale artifacts would silently analyze the OLD bytecode
+                raise ValueError(
+                    f"forge build failed (rc={proc.returncode}); refusing to "
+                    "analyze stale artifacts"
+                )
+        build_dir = None
+        for candidate in (
+            os.path.join(project_root, "artifacts", "contracts", "build-info"),
+            os.path.join(project_root, "out", "build-info"),
+        ):
+            if os.path.isdir(candidate):
+                build_dir = candidate
+                break
+        if build_dir is None:
+            raise ValueError(
+                f"no foundry build-info directory under {project_root} "
+                "(did `forge build --build-info` run?)"
+            )
+        files = sorted(
+            (f for f in os.listdir(build_dir) if f.endswith(".json")),
+            key=lambda f: os.path.getmtime(os.path.join(build_dir, f)),
+        )
+        if not files:
+            raise ValueError(f"{build_dir} has no build-info artifacts")
+        contracts = []
+        for file in files:
+            with open(os.path.join(build_dir, file), encoding="utf8") as fd:
+                build_info = json.load(fd)
+            contracts.extend(get_contracts_from_foundry(build_info))
+        self.contracts.extend(contracts)
+        return contracts
+
+    def get_state_variable_from_storage(
+        self, address: str, params: Optional[List[str]] = None
+    ) -> str:
+        """Read storage slots over RPC, including solidity layout math for
+        arrays and mappings (reference mythril_disassembler.py:330-410):
+        `[position, length]` reads consecutive slots, `[pos, len, "array"]`
+        starts at keccak(pos), `["mapping", pos, key...]` reads
+        keccak(key ++ pos) per key."""
+        from mythril_tpu_torch.utils.keccak import keccak256
+
+        if self.eth is None:
+            raise ValueError("no RPC client configured (use --rpc)")
+        params = params or []
+        position, length, mappings = 0, 1, []
+
+        def slot_of(data: bytes) -> int:
+            return int.from_bytes(keccak256(data), byteorder="big")
+
+        try:
+            if params and params[0] == "mapping":
+                if len(params) < 3:
+                    raise ValueError("mapping requires a position and keys")
+                position = int(params[1])
+                position_bytes = int(position).to_bytes(32, "big")
+                for raw_key in params[2:]:
+                    key = raw_key.encode("utf8").ljust(32, b"\x00")
+                    mappings.append(slot_of(key + position_bytes))
+                length = len(mappings)
+                if length == 1:
+                    position = mappings[0]
+            else:
+                if len(params) >= 4:
+                    raise ValueError("too many parameters")
+                if len(params) >= 1:
+                    position = int(params[0])
+                if len(params) >= 2:
+                    length = int(params[1])
+                if len(params) == 3 and params[2] == "array":
+                    position = slot_of(int(position).to_bytes(32, "big"))
+        except ValueError as error:
+            raise ValueError(f"invalid storage index: {error}") from None
+
+        lines = []
+        if length == 1:
+            lines.append(
+                f"{position}: {self.eth.eth_getStorageAt(address, position)}"
+            )
+        elif mappings:
+            for slot in mappings:
+                lines.append(
+                    f"{hex(slot)}: {self.eth.eth_getStorageAt(address, slot)}"
+                )
+        else:
+            for slot in range(position, position + length):
+                lines.append(
+                    f"{hex(slot)}: {self.eth.eth_getStorageAt(address, slot)}"
+                )
+        return "\n".join(lines)
 
 
 class MythrilAnalyzer:
@@ -103,6 +259,7 @@ class MythrilAnalyzer:
     ):
         self.contracts = disassembler.contracts
         self.strategy = strategy
+        self.eth = disassembler.eth
         # one record a --jobs worker task: its pid, the kernel launches it
         # counted, its router's calibrated rates and its final metrics
         # snapshot (_corpus_worker)
@@ -181,7 +338,8 @@ class MythrilAnalyzer:
         exceptions: List[str] = []
         try:
             interleave_n = self._corpus_interleave_n()
-            if args.jobs > 1 and len(self.contracts) > 1:
+            if args.jobs > 1 and len(self.contracts) > 1 \
+                    and self.eth is None:
                 if interleave_n >= 1:
                     # worker processes cannot share a coalescing window, so
                     # no cross-contract stream forms there
@@ -191,7 +349,8 @@ class MythrilAnalyzer:
                         "windows); drop --jobs to interleave")
                 all_issues, exceptions = self._fire_lasers_parallel(
                     modules, tx_count)
-            elif interleave_n >= 1 and len(self.contracts) > 1:
+            elif interleave_n >= 1 and len(self.contracts) > 1 \
+                    and self.eth is None:
                 all_issues, exceptions = self._fire_lasers_interleaved(
                     modules, tx_count, stats, interleave_n)
             else:
@@ -265,6 +424,11 @@ class MythrilAnalyzer:
         contract_start = time.monotonic()
         solver_before = stats.solver_time if stats else 0.0
         device_before = stats.device_stats() if stats else {}
+        dynloader = None
+        if self.eth is not None:
+            from mythril_tpu_torch.support.loader import DynLoader
+
+            dynloader = DynLoader(self.eth)
         from mythril_tpu_torch.observe import span as trace_span
 
         try:
@@ -274,6 +438,7 @@ class MythrilAnalyzer:
                     contract,
                     self.address,
                     self.strategy,
+                    dynloader=dynloader,
                     max_depth=args.max_depth,
                     execution_timeout=args.execution_timeout,
                     loop_bound=args.loop_bound,

@@ -1,23 +1,36 @@
 """`myth`-compatible command line (reference mythril/interfaces/cli.py:976).
 
-Subcommands: analyze/a, serve, autotune, list-detectors, version, help.
-`analyze`
-exits with 0 when it found no issue and 1 when it found some (reference
-cli.py:875-878), and with 2 when the analysis failed: no device, a device
-fault, or an exception that cut a contract's analysis short (the partial
-report is printed). `analyze` runs the batched
-solve windows on the CUDA device by default (--solver-backend gpu);
---torch-device cpu runs the kernels' plain PyTorch versions instead, and
---solver-backend cpu the host CDCL alone. `serve` runs the multi-tenant
-daemon (serve/), or with --shards N > 1 the sharded fleet (fleet/), on
-the same device rules: it exits 0 after a SIGTERM drain and 2 without a
-device or once a device fault stopped it. `autotune` (tune/search.py)
-measures candidate knob configurations on `analyze` children of the same
-device rules and persists the platform's winner as a tuned profile, which
-`analyze` and `serve` apply at start; it exits 2 when the baseline run
-failed (no device among others) and never falls back to the CPU."""
+Subcommands: analyze/a, disassemble/d, list-detectors, function-to-hash,
+hash-to-address, safe-functions, serve, autotune, concolic/c, foundry,
+read-storage, version, help; --epic pipes a run through the rainbow filter
+(interfaces/epic.py) and exits with the run's code. Pip-installed
+`mythril_tpu_torch.plugins` entry points load at start (plugin/).
+
+`analyze` (and `foundry`, which analyzes a foundry project's build-info
+contracts) exits with 0 when it found no issue and 1 when it found some
+(reference cli.py:875-878), and with 2 when the analysis failed: no
+device, a device fault, or an exception that cut a contract's analysis
+short (the partial report is printed). `analyze`, `safe-functions`,
+`foundry` and `concolic` run the batched solve windows on the CUDA device
+by default (--solver-backend gpu); --torch-device cpu runs the kernels'
+plain PyTorch versions instead, and --solver-backend cpu the host CDCL
+alone. `safe-functions` prints the functions no issue was found in (exit
+0; 2 as `analyze`'s). Inputs are -c/-f bytecode, -a ADDRESS over --rpc
+HOST:PORT (storage, balances and callee code then come from the chain as
+the engine reads them), or solidity files through solc (--solv,
+--solc-args). `read-storage`, `disassemble`, `function-to-hash`,
+`hash-to-address` and `list-detectors` need no device. `serve` runs the
+multi-tenant daemon (serve/), or with --shards N > 1 the sharded fleet
+(fleet/), on the same device rules: it exits 0 after a SIGTERM drain and 2
+without a device or once a device fault stopped it. `autotune`
+(tune/search.py) measures candidate knob configurations on `analyze`
+children of the same device rules and persists the platform's winner as a
+tuned profile, which `analyze` and `serve` apply at start; it exits 2 when
+the baseline run failed (no device among others) and never falls back to
+the CPU."""
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -27,14 +40,33 @@ from mythril_tpu_torch.version import __version__
 
 log = logging.getLogger(__name__)
 
-COMMAND_ALIASES = {"a": "analyze"}
+COMMAND_ALIASES = {"a": "analyze", "d": "disassemble", "c": "concolic"}
 
 
 def main() -> None:
+    # discover and load pip-installed `mythril_tpu_torch.plugins` entry
+    # points (reference interfaces/cli.py:32)
+    from mythril_tpu_torch.plugin import MythrilPluginLoader
+
+    _ = MythrilPluginLoader()
     parser = build_parser()
     argv = sys.argv[1:]
     if argv and argv[0] in COMMAND_ALIASES:
         argv[0] = COMMAND_ALIASES[argv[0]]
+    if "--epic" in argv:
+        # run again, piped through the rainbow filter (reference cli.py:907)
+        argv.remove("--epic")
+        import subprocess
+
+        epic = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "epic.py")
+        child = subprocess.Popen(
+            [sys.executable, "-m", "mythril_tpu_torch"] + argv,
+            stdout=subprocess.PIPE)
+        filt = subprocess.Popen([sys.executable, epic], stdin=child.stdout)
+        child.stdout.close()
+        filt.communicate()
+        sys.exit(child.wait())
     parsed = parser.parse_args(argv)
     if parsed.command == "help":
         parser.print_help()
@@ -62,12 +94,34 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--version", action="version",
                         version=f"mythril_tpu_torch {__version__}")
+    parser.add_argument("--epic", action="store_true", help=argparse.SUPPRESS)
     subparsers = parser.add_subparsers(dest="command")
 
     analyze = subparsers.add_parser("analyze", help="analyze a contract")
     add_input_args(analyze)
     add_analysis_args(analyze)
     add_output_args(analyze)
+
+    disassemble = subparsers.add_parser("disassemble", help="print EASM")
+    add_input_args(disassemble)
+
+    subparsers.add_parser("list-detectors", help="list detection modules")
+
+    f2h = subparsers.add_parser("function-to-hash",
+                                help="4-byte selector of a signature")
+    f2h.add_argument("func_name", help="e.g. 'transfer(address,uint256)'")
+
+    h2a = subparsers.add_parser(
+        "hash-to-address",
+        help="resolve a selector through the signature DB "
+             "(<MYTHRIL_GPU_CACHE_DIR>/signatures.db, read only)")
+    h2a.add_argument("hash", help="e.g. 0xa9059cbb")
+
+    safe = subparsers.add_parser(
+        "safe-functions", help="functions proven issue-free"
+    )
+    add_input_args(safe)
+    add_analysis_args(safe)
 
     serve = subparsers.add_parser(
         "serve",
@@ -131,7 +185,38 @@ def build_parser() -> argparse.ArgumentParser:
     autotune.add_argument("-v", "--verbose", type=int, default=2,
                           help="log level 0-5")
 
-    subparsers.add_parser("list-detectors", help="list detection modules")
+    concolic = subparsers.add_parser("concolic", help="concolic branch flipping")
+    concolic.add_argument("input", help="concrete input json")
+    concolic.add_argument("--branches", required=True,
+                          help="comma-separated branch addresses to flip")
+    concolic.add_argument("--solver-timeout", type=int, default=100000)
+    add_device_args(concolic)
+
+    foundry = subparsers.add_parser(
+        "foundry", help="analyze a foundry project (forge build artifacts)"
+    )
+    foundry.add_argument("--project-root", default=None,
+                         help="foundry project directory (default: cwd)")
+    foundry.add_argument("--skip-forge-build", action="store_true",
+                         help="read existing build-info artifacts only")
+    foundry.add_argument("-v", "--verbose", type=int, default=2)
+    add_analysis_args(foundry)
+    add_output_args(foundry)
+
+    read_storage = subparsers.add_parser(
+        "read-storage",
+        help="read storage slots of an on-chain contract over RPC",
+    )
+    read_storage.add_argument(
+        "storage_slots",
+        help="position | position,length | position,length,array | "
+             "mapping,position,key1[,key2...]",
+    )
+    read_storage.add_argument("address", help="contract address")
+    read_storage.add_argument("--rpc", help="custom RPC endpoint host:port")
+    read_storage.add_argument("--rpctls", action="store_true")
+    read_storage.add_argument("-v", "--verbose", type=int, default=2)
+
     subparsers.add_parser("version", help="print version")
     subparsers.add_parser("help", add_help=False,
                           help="print this help message")
@@ -139,14 +224,40 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def add_input_args(parser) -> None:
+    parser.add_argument("solidity_files", nargs="*",
+                        help="solidity files (requires solc)")
     parser.add_argument("-c", "--code", help="hex bytecode string")
     parser.add_argument("-f", "--codefile", action="append",
                         help="file containing hex bytecode (repeatable: "
                              "each -f adds one contract to the run)")
+    parser.add_argument("-a", "--address", help="on-chain contract address")
     parser.add_argument("--bin-runtime", action="store_true",
                         help="treat -c/-f input as runtime (deployed) code")
+    parser.add_argument("--solv", metavar="VERSION",
+                        help="solc version to use (resolved as solc-vVERSION "
+                             "on PATH, in $SOLC_DIR or in the data "
+                             "directory's solc/; nothing is downloaded)")
+    parser.add_argument("--solc-args",
+                        help="extra arguments passed through to solc")
+    parser.add_argument("--rpc", help="custom RPC endpoint host:port")
+    parser.add_argument("--rpctls", action="store_true", help="RPC over TLS")
     parser.add_argument("-v", "--verbose", type=int, default=2,
                         help="log level 0-5")
+
+
+def add_device_args(parser) -> None:
+    """The port's device options: the satisfiability backend and the
+    torch device of the gpu backend."""
+    parser.add_argument("--solver-backend", default="gpu",
+                        choices=["gpu", "cpu"],
+                        help="satisfiability backend: gpu (default) sends "
+                             "batched windows through the router to the "
+                             "circuit-SLS kernel on the device; cpu is the "
+                             "host CDCL alone")
+    parser.add_argument("--torch-device", dest="torch_device", default=None,
+                        help="torch device of the gpu backend (default: the "
+                             "current CUDA device, an error without one; "
+                             "cpu runs the kernels' plain PyTorch versions)")
 
 
 def add_analysis_args(parser) -> None:
@@ -180,16 +291,7 @@ def add_analysis_args(parser) -> None:
                              "off; MYTHRIL_GPU_CORPUS_INTERLEAVE wins over "
                              "it")
     parser.add_argument("--solver-log", help="directory for SMT2 query dumps")
-    parser.add_argument("--solver-backend", default="gpu",
-                        choices=["gpu", "cpu"],
-                        help="satisfiability backend: gpu (default) sends "
-                             "batched windows through the router to the "
-                             "circuit-SLS kernel on the device; cpu is the "
-                             "host CDCL alone")
-    parser.add_argument("--torch-device", dest="torch_device", default=None,
-                        help="torch device of the gpu backend (default: the "
-                             "current CUDA device, an error without one; "
-                             "cpu runs the kernels' plain PyTorch versions)")
+    add_device_args(parser)
     parser.add_argument("--solve-cache", dest="solve_cache",
                         default="memory", choices=["off", "memory", "disk"],
                         help="solve-result cache tiers: memory (default) is "
@@ -321,7 +423,50 @@ def load_code(parsed) -> List[tuple]:
                 blobs.append((handle.read().strip(),
                               os.path.basename(path) if multi else None))
         return blobs
-    raise CliError("no input: provide -c <hex> or -f <file>")
+    raise CliError(
+        "no input: provide -c <hex>, -f <file>, -a <address>, or a .sol file"
+    )
+
+
+def _build_disassembler_and_load(parsed):
+    """The disassembler of `parsed`'s input (reference cli.py:374-407): -a
+    over an RPC client built from --rpc/--rpctls, solidity files through
+    solc, else -c/-f bytecode."""
+    from mythril_tpu_torch.core import MythrilDisassembler
+
+    eth = None
+    if getattr(parsed, "address", None):
+        from mythril_tpu_torch.ethereum.interface.client import EthJsonRpc
+
+        eth = EthJsonRpc.from_cli(getattr(parsed, "rpc", None),
+                                  getattr(parsed, "rpctls", False))
+    disassembler = MythrilDisassembler(eth=eth)
+    if getattr(parsed, "address", None):
+        from mythril_tpu_torch.ethereum.interface.client import RpcError
+
+        try:
+            disassembler.load_from_address(parsed.address)
+        except RpcError as error:
+            raise CliError(str(error))
+    elif getattr(parsed, "solidity_files", None):
+        try:
+            import shlex
+
+            disassembler.load_from_solidity(
+                parsed.solidity_files,
+                solc_version=getattr(parsed, "solv", None),
+                solc_args=shlex.split(
+                    getattr(parsed, "solc_args", None) or "") or None,
+            )
+        except ImportError as error:
+            raise CliError(f"solidity support unavailable: {error}")
+    else:
+        for blob, name in load_code(parsed):
+            disassembler.load_from_bytecode(
+                blob, bin_runtime=getattr(parsed, "bin_runtime", False),
+                name=name,
+            )
+    return disassembler
 
 
 def execute_command(parsed) -> int:
@@ -337,50 +482,50 @@ def execute_command(parsed) -> int:
             print(f"{module.name}: {module.description}")
         return 0
 
-    if command == "analyze":
-        from mythril_tpu_torch.core import MythrilAnalyzer, MythrilDisassembler
-        from mythril_tpu_torch.gpu.device import DeviceFault, NoDeviceError
+    if command == "function-to-hash":
+        from mythril_tpu_torch.utils.keccak import function_selector
 
-        disassembler = MythrilDisassembler()
-        for blob, name in load_code(parsed):
-            disassembler.load_from_bytecode(
-                blob, bin_runtime=parsed.bin_runtime, name=name)
-        strategy = parsed.strategy
-        if getattr(parsed, "beam_width", None):
-            strategy = "beam-search"
-        analyzer = MythrilAnalyzer(
-            disassembler, cmd_args=parsed, strategy=strategy)
-        modules = parsed.modules.split(",") if parsed.modules else None
+        print("0x" + function_selector(parsed.func_name).hex())
+        return 0
+
+    if command == "hash-to-address":
+        from mythril_tpu_torch.support.signatures import SignatureDB
+
+        for sig in SignatureDB().get(parsed.hash) or ["unknown"]:
+            print(sig)
+        return 0
+
+    if command == "disassemble":
+        contract = _build_disassembler_and_load(parsed).contracts[0]
+        if contract.code_bytes:
+            print("Runtime Disassembly:\n")
+            print(contract.get_easm())
+        if contract.creation_code_bytes:
+            print("Disassembly:\n")
+            print(contract.get_creation_easm())
+        return 0
+
+    if command == "concolic":
+        return concolic_command(parsed)
+
+    if command == "read-storage":
+        from mythril_tpu_torch.core import MythrilDisassembler
+        from mythril_tpu_torch.ethereum.interface.client import (
+            EthJsonRpc,
+            RpcError,
+        )
+
+        disassembler = MythrilDisassembler(
+            eth=EthJsonRpc.from_cli(parsed.rpc, parsed.rpctls))
         try:
-            if getattr(parsed, "graph", None):
-                html = analyzer.graph_html(enable_physics=False)
-                with open(parsed.graph, "w") as handle:
-                    handle.write(html)
-                return 0
-            if getattr(parsed, "statespace_json", None):
-                dump = analyzer.dump_statespace()
-                with open(parsed.statespace_json, "w") as handle:
-                    handle.write(dump)
-                return 0
-            report = analyzer.fire_lasers(
-                modules=modules, transaction_count=parsed.transaction_count
-            )
-        except (NoDeviceError, DeviceFault) as error:
+            print(disassembler.get_state_variable_from_storage(
+                parsed.address, parsed.storage_slots.split(",")))
+        except (RpcError, ValueError) as error:
             raise CliError(str(error))
-        outform = parsed.outform
-        if outform == "text":
-            print(report.as_text())
-        elif outform == "markdown":
-            print(report.as_markdown())
-        elif outform == "json":
-            print(report.as_json())
-        else:
-            print(report.as_swc_standard_format())
-        if report.exceptions:
-            # an exception cut a contract's analysis short: the report is
-            # partial, and "no issues" would be a claim it cannot make
-            return 2
-        return 1 if report.issues else 0
+        return 0
+
+    if command in ("analyze", "safe-functions", "foundry"):
+        return analyze_command(parsed)
 
     if command == "serve":
         return serve_command(parsed)
@@ -391,6 +536,115 @@ def execute_command(parsed) -> int:
         return run_autotune(parsed)
 
     raise CliError(f"unknown command {command!r}")
+
+
+def analyze_command(parsed) -> int:
+    """`analyze`, `safe-functions` and `foundry` (reference
+    cli.py:540-576): the device rules of the module docstring, and with -a
+    the analysis at that address, the engine reading the chain through a
+    DynLoader."""
+    from mythril_tpu_torch.core import MythrilAnalyzer
+    from mythril_tpu_torch.gpu.device import DeviceFault, NoDeviceError
+
+    command = parsed.command
+    if command == "foundry":
+        from mythril_tpu_torch.core import MythrilDisassembler
+
+        disassembler = MythrilDisassembler()
+        try:
+            disassembler.load_from_foundry(
+                parsed.project_root, run_forge=not parsed.skip_forge_build)
+        except (ValueError, NotImplementedError) as error:
+            raise CliError(str(error))
+    else:
+        disassembler = _build_disassembler_and_load(parsed)
+    address = None
+    if getattr(parsed, "address", None):
+        address = int(parsed.address, 16)
+    strategy = parsed.strategy
+    if getattr(parsed, "beam_width", None):
+        strategy = "beam-search"
+    analyzer = MythrilAnalyzer(
+        disassembler, cmd_args=parsed, strategy=strategy, address=address)
+    modules = parsed.modules.split(",") if parsed.modules else None
+    try:
+        if getattr(parsed, "graph", None):
+            html = analyzer.graph_html(enable_physics=False)
+            with open(parsed.graph, "w") as handle:
+                handle.write(html)
+            return 0
+        if getattr(parsed, "statespace_json", None):
+            dump = analyzer.dump_statespace()
+            with open(parsed.statespace_json, "w") as handle:
+                handle.write(dump)
+            return 0
+        report = analyzer.fire_lasers(
+            modules=modules, transaction_count=parsed.transaction_count
+        )
+    except (NoDeviceError, DeviceFault) as error:
+        raise CliError(str(error))
+    if command == "safe-functions":
+        _print_safe_functions(report, disassembler)
+        # a partial analysis proves no function safe
+        return 2 if report.exceptions else 0
+    outform = parsed.outform
+    if outform == "text":
+        print(report.as_text())
+    elif outform == "markdown":
+        print(report.as_markdown())
+    elif outform == "json":
+        print(report.as_json())
+    else:
+        print(report.as_swc_standard_format())
+    if report.exceptions:
+        # an exception cut a contract's analysis short: the report is
+        # partial, and "no issues" would be a claim it cannot make
+        return 2
+    return 1 if report.issues else 0
+
+
+def _print_safe_functions(report, disassembler) -> None:
+    """The first contract's functions that no issue names (reference
+    cli.py:578-600), by their signature DB names where the DB has them."""
+    contract = disassembler.contracts[0]
+    flagged = {issue.function for issue in report.issues.values()}
+    try:
+        from mythril_tpu_torch.support.signatures import SignatureDB
+
+        sig_db = SignatureDB()
+    except Exception:
+        sig_db = None
+    safe = []
+    for sel in contract.disassembly.function_entries:
+        raw = f"_function_0x{sel}"
+        # issues carry DB-resolved names; compare both spellings
+        resolved = (sig_db.get(f"0x{sel}") or [None])[0] if sig_db else None
+        if raw not in flagged and (resolved is None or resolved not in flagged):
+            safe.append(resolved or raw)
+    print(f"{len(safe)} functions are deemed safe in this contract:")
+    for name in safe:
+        print(name)
+
+
+def concolic_command(parsed) -> int:
+    """`concolic` (reference cli.py:517-529): the flip pass's windows on
+    the device flags' backend; without a card and with no device named,
+    NoDeviceError and exit 2."""
+    from mythril_tpu_torch.concolic.runner import run_concolic
+    from mythril_tpu_torch.gpu.device import DeviceFault, NoDeviceError
+    from mythril_tpu_torch.support.args import args
+
+    args.solver_backend = parsed.solver_backend
+    args.torch_device = parsed.torch_device
+    with open(parsed.input) as handle:
+        concrete_data = json.load(handle)
+    branches = [int(b, 0) for b in parsed.branches.split(",")]
+    try:
+        output = run_concolic(concrete_data, branches, parsed.solver_timeout)
+    except (NoDeviceError, DeviceFault) as error:
+        raise CliError(str(error))
+    print(json.dumps(output))
+    return 0
 
 
 def serve_command(parsed) -> int:

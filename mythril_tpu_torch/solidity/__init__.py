@@ -1,3 +1,3 @@
-"""Solidity frontend (reference mythril/solidity/): the solc-AST feature
-extraction the tx prioritiser reads (features.py). The solc
-standard-json compilation and source mapping wait for a later slice."""
+"""Solidity frontend: solc standard-json compilation, source mapping
+(soliditycontract.py) and the solc-AST feature extraction the tx
+prioritiser reads (features.py) (reference mythril/solidity/)."""

@@ -52,3 +52,28 @@ def test_the_pattern_catches_what_it_must():
                  "from mythril_tpu_torch.smt import terms",
                  "# replaces mythril_tpu/tpu/pallas_kernel.py"):
         assert not FORBIDDEN.search(line), line
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Every .py file of the JAX package has one in the port at the same
+    path (tpu/ read as gpu/), apart from tpu/pallas_kernel.py, K1, which
+    lives in csrc/ragged_round.cu and gpu/ragged_kernel.py."""
+    reference = os.path.join(ROOT, "mythril_tpu")
+    missing = []
+    for folder, _dirs, files in os.walk(reference):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(folder, name), reference)
+            parts = rel.split(os.sep)
+            if parts[0] == "tpu":
+                parts[0] = "gpu"
+            if parts == ["gpu", "pallas_kernel.py"]:
+                continue
+            if not os.path.isfile(os.path.join(ROOT, "mythril_tpu_torch",
+                                               *parts)):
+                missing.append(rel)
+    assert not missing, f"no counterpart in the port: {sorted(missing)}"
+    for path in (("csrc", "ragged_round.cu"), ("gpu", "ragged_kernel.py")):
+        assert os.path.isfile(os.path.join(ROOT, "mythril_tpu_torch",
+                                           *path))

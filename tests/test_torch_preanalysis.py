@@ -403,3 +403,123 @@ def test_rewritten_cones_never_alias_source_cones_in_the_pack_cache(fresh):
             is not backend.pack_cone(source, roots))
     assert backend.pack_cone(rewritten, roots) is backend.pack_cone(
         rewritten, roots)
+
+
+# -- gating (the cases of tests/test_preanalysis.py, on both packages) -------
+
+
+def _gating_contracts():
+    """(name, runtime hex or None, creation hex or None) of the gating
+    cases: KILLBILLY, an unresolvable dynamic jump, KILLBILLY in creation
+    mode and a reachable CREATE."""
+    from mythril_tpu.disasm.asm import easm_to_code
+    from tests.test_analysis import KILLBILLY, wrap_creation
+
+    dynamic = easm_to_code("""
+        PUSH1 0x00
+        CALLDATALOAD
+        JUMP
+    :a
+        JUMPDEST
+        STOP
+    """)
+    create = easm_to_code("""
+        PUSH1 0x00
+        PUSH1 0x00
+        PUSH1 0x00
+        CREATE
+        POP
+        STOP
+    """)
+    return {"killbilly": (KILLBILLY.hex(), None),
+            "dynamic_jump": (dynamic.hex(), None),
+            "creation_mode": (None, wrap_creation(KILLBILLY)),
+            "reachable_create": (create.hex(), None)}
+
+
+def _contract(package, code, creation):
+    import importlib
+
+    evm = importlib.import_module(f"{package}.ethereum.evmcontract")
+    if creation is not None:
+        return evm.EVMContract(creation_code=creation)
+    return evm.EVMContract(code=code)
+
+
+@pytest.mark.parametrize("name", ["killbilly", "dynamic_jump",
+                                  "creation_mode", "reachable_create"])
+def test_gating_opcodes_equal_the_references(fresh, name):
+    from mythril_tpu import preanalysis as ref_preanalysis
+
+    code, creation = _gating_contracts()[name]
+    ref = ref_preanalysis.gating_opcodes(
+        _contract("mythril_tpu", code, creation))
+    port = preanalysis.gating_opcodes(
+        _contract("mythril_tpu_torch", code, creation))
+    assert port == ref
+    assert (port is None) == (name != "killbilly")
+
+
+def test_gated_modules_equal_the_references(fresh):
+    """The modules KILLBILLY's reachable opcodes leave attached, and the
+    count gated, in both packages."""
+    from mythril_tpu import preanalysis as ref_preanalysis
+    from mythril_tpu.analysis.module import EntryPoint as RefEntryPoint
+    from mythril_tpu.analysis.module import ModuleLoader as RefModuleLoader
+    from mythril_tpu.smt.solver.statistics import (
+        SolverStatistics as RefStatistics,
+    )
+    from mythril_tpu_torch.analysis.module import EntryPoint, ModuleLoader
+
+    code, _creation = _gating_contracts()["killbilly"]
+    enabled = RefStatistics().enabled
+    RefStatistics().reset()
+    RefStatistics().enabled = True
+    gated = []
+    for loader, entry, stats, reachable in (
+            (RefModuleLoader, RefEntryPoint, RefStatistics,
+             ref_preanalysis.gating_opcodes(
+                 _contract("mythril_tpu", code, None))),
+            (ModuleLoader, EntryPoint, SolverStatistics,
+             preanalysis.gating_opcodes(
+                 _contract("mythril_tpu_torch", code, None)))):
+        before = stats().modules_gated
+        attached = loader().get_detection_modules(
+            entry.CALLBACK, reachable_opcodes=reachable)
+        gated.append((stats().modules_gated - before,
+                      sorted(m.name for m in attached)))
+    RefStatistics().reset()
+    RefStatistics().enabled = enabled
+    assert gated[0] == gated[1]
+    count, names = gated[1]
+    assert count > 0
+    for absent in ("arbitrary_delegatecall", "tx_origin", "external_calls"):
+        assert absent not in names
+
+
+def test_dynloader_disables_gating(fresh):
+    """A run that reads the chain (the port's DynLoader) gates nothing, as
+    the JAX package's does under its own."""
+    from mythril_tpu import preanalysis as ref_preanalysis
+    from mythril_tpu.support.loader import DynLoader as RefDynLoader
+    from mythril_tpu_torch.support.loader import DynLoader
+
+    code, _creation = _gating_contracts()["killbilly"]
+    assert preanalysis.gating_opcodes(
+        _contract("mythril_tpu_torch", code, None)) is not None
+    assert preanalysis.gating_opcodes(
+        _contract("mythril_tpu_torch", code, None),
+        dynloader=DynLoader(None)) is None
+    assert ref_preanalysis.gating_opcodes(
+        _contract("mythril_tpu", code, None),
+        dynloader=RefDynLoader(None)) is None
+
+
+def test_no_preanalysis_flag_disables_gating(fresh, monkeypatch):
+    code, _creation = _gating_contracts()["killbilly"]
+    port_args.no_preanalysis = True
+    assert preanalysis.gating_opcodes(
+        _contract("mythril_tpu_torch", code, None)) is None
+    monkeypatch.setenv("MYTHRIL_GPU_PREANALYSIS", "1")
+    assert preanalysis.gating_opcodes(
+        _contract("mythril_tpu_torch", code, None)) is not None

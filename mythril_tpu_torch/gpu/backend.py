@@ -38,6 +38,7 @@ from mythril_tpu_torch.gpu import (
     xla_kernel,
 )
 from mythril_tpu_torch.gpu.device import mesh_over, resolve_device
+from mythril_tpu_torch.observe import transfers
 from mythril_tpu_torch.observe.tracer import span as trace_span
 from mythril_tpu_torch.preanalysis import cubes
 from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
@@ -486,12 +487,13 @@ class DeviceSolverBackend:
                     # solved is the mp MAX; only a newly solved slot's
                     # lanes come back to the host
                     x, found, round_solved = round_fn(placed, x, seed)
-                    round_solved = round_solved.cpu().numpy()
+                    round_solved = transfers.to_numpy(round_solved,
+                                                      "bucketed.solved")
                 else:
                     x, found = circuit_kernel.run_round_circuit_kernel(
                         tensors, x, seed=seed, steps=steps,
                         walk_depth=walk_depth, layout=layout)
-                    found_host = found.cpu().numpy()
+                    found_host = transfers.to_numpy(found, "bucketed.found")
                     round_solved = found_host.any(axis=1)
                 rounds += 1
                 self.flips += q * num_restarts * steps
@@ -502,12 +504,16 @@ class DeviceSolverBackend:
                 newly = round_solved & ~solved
                 if newly.any():
                     stall = 0
-                    x_host = None if multi else x.cpu().numpy()
+                    x_host = (None if multi
+                              else transfers.to_numpy(x, "bucketed.x"))
                     for slot in np.nonzero(newly)[0]:
                         slot = int(slot)
                         if multi:
-                            lane = int(np.argmax(found.row(slot).numpy()))
-                            best_rows[slot] = x.row(slot)[lane].numpy()
+                            # row() reads the slot's blocks to the host
+                            found_row = found.row(slot, site="bucketed.found")
+                            lane = int(np.argmax(found_row.numpy()))
+                            best_rows[slot] = x.row(
+                                slot, site="bucketed.x")[lane].numpy()
                         else:
                             lane = int(np.argmax(found_host[slot]))
                             best_rows[slot] = x_host[slot, lane].copy()
@@ -818,12 +824,13 @@ class DeviceSolverBackend:
                 rounds += 1
                 self.cells_stepped += cells_per_round
                 self.flips += n * lanes * steps
-                found_host = found[:, :n].cpu().numpy()  # [lanes, cones]
+                found_host = transfers.to_numpy(  # [lanes, cones]
+                    found[:, :n], "ragged.found")
                 newly = [ci for ci in range(n)
                          if ci not in solved and found_host[:, ci].any()]
                 if newly:
                     stall = 0
-                    x_host = x.cpu().numpy()
+                    x_host = transfers.to_numpy(x, "ragged.x")
                     for ci in newly:
                         lane = int(np.argmax(found_host[:, ci]))
                         solved[ci] = stream.cone_assignment(

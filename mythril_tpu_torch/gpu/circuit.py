@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from mythril_tpu_torch.gpu.ragged_kernel import _MASK32, _hash32
+from mythril_tpu_torch.observe import transfers
 
 # caps: circuits past these take the CDCL path
 MAX_LEVELS = 4096
@@ -416,11 +417,12 @@ class ShardGrid:
     def block(self, i: int, j: int) -> torch.Tensor:
         return self.blocks[i][j]
 
-    def row(self, slot: int, device="cpu") -> torch.Tensor:
+    def row(self, slot: int, site: str = "mesh.row") -> torch.Tensor:
         """Query slot `slot`'s whole lane axis (the mp blocks of its dp
-        block joined) on `device`."""
+        block joined) on the host, each block's copy counted under
+        `site` (observe/transfers.py)."""
         qs = self.blocks[0][0].shape[0]
-        return torch.cat([block[slot % qs].to(device)
+        return torch.cat([transfers.to_host(block[slot % qs], site)
                           for block in self.blocks[slot // qs]])
 
     def gather(self, device=None) -> torch.Tensor:

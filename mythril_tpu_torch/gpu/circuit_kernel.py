@@ -68,6 +68,7 @@ from mythril_tpu_torch.gpu.ragged_kernel import (
     _mul32,
     nvcc_library,
 )
+from mythril_tpu_torch.observe import transfers
 
 LEVEL_KEYS = ("out_idx", "a_var", "a_neg", "b_var", "b_neg")
 VAR_KEYS = ("ga_var", "ga_neg", "gb_var", "gb_neg", "is_gate")
@@ -212,7 +213,9 @@ def _require(checks, layout: str = "circuit_layout") -> None:
     """Raise ValueError on the first of (message, bool tensor) pairs whose
     tensor is not all true, naming `layout`; one device sync for all of
     them."""
-    ok = torch.stack([cond.all() for _message, cond in checks]).tolist()
+    ok = transfers.to_list(
+        torch.stack([cond.all() for _message, cond in checks]),
+        "circuit.check")
     for good, (message, _cond) in zip(ok, checks):
         if not good:
             raise ValueError(f"{layout}: {message}")
@@ -362,7 +365,8 @@ def circuit_layout(tensors: dict) -> CircuitLayout:
         return (torch.where(first, lit_a[qi, child], 2 * child),
                 torch.where(first, lit_b[qi, child], 2 * child))
 
-    stride = max(_align(int(stream_steps.max()), CHUNK_STEPS), CHUNK_STEPS)
+    most_steps = transfers.to_int(stream_steps.max(), "circuit.stride")
+    stride = max(_align(most_steps, CHUNK_STEPS), CHUNK_STEPS)
     stream = torch.zeros((q_count, stride, 2, STEP_GATES, 4),
                          dtype=torch.long, device=device)
     stream[qi, step, 0, slot], stream[qi, step, 1, slot] = slot_quads(
@@ -403,7 +407,8 @@ def run_round_circuit_plain(tensors: dict, x: torch.Tensor, seed: int,
     the lane walked (it had not found a model). Nothing else changes."""
     q_count, lanes, v1 = x.shape
     device = x.device
-    rows = level_rows(tensors).amax(dim=0).tolist() if q_count else []
+    rows = (transfers.to_list(level_rows(tensors).amax(dim=0),
+                              "circuit.rows") if q_count else [])
     # (a, an, b, bn, out, live) of each level's cells up to its last live
     # one, the indices expanded over the lanes once for every step
     levels = []

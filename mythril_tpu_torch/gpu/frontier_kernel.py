@@ -46,6 +46,7 @@ import torch
 
 from mythril_tpu_torch.gpu.ragged_kernel import nvcc_library
 from mythril_tpu_torch.laser.frontier import words
+from mythril_tpu_torch.observe import transfers
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SOURCE = os.path.join(_PACKAGE_DIR, "csrc", "frontier_step.cu")
@@ -400,8 +401,10 @@ def step_frame(run, dense, device):
     space, layout, views = pack_frame(run, dense, device)
     if _lib is None:
         build_kernel()
-    _launch(space.launch_args(run, layout), space.device)
+    args = space.launch_args(run, layout)
+    _launch(args, space.device)
     launches += 1
+    transfers.downloaded("frontier.step", args.download_bytes)
     mem_log = [(views["log_off"][:, k], views["log_val"][:, k])
                for k in range(layout.key[4])]
     fork_out = [views["fork_out"][:, k] for k in range(layout.key[5])]

@@ -61,6 +61,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from mythril_tpu_torch.observe import transfers
 from mythril_tpu_torch.support.env import env_int, env_str
 
 log = logging.getLogger(__name__)
@@ -538,7 +539,8 @@ def run_round_ragged_plain(flat: FlatStream, x: torch.Tensor, seed: int,
     lanes = x.shape[0]
     cones, roots = caps.cone_cap, max(flat.num_roots, 1)
     device = x.device
-    level_start = arrays["level_start"][: flat.num_levels + 1].tolist()
+    level_start = transfers.to_list(
+        arrays["level_start"][: flat.num_levels + 1], "ragged.levels")
     levels = []
     for start, end in zip(level_start[:-1], level_start[1:]):
         if end > start:

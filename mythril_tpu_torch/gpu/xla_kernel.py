@@ -91,6 +91,7 @@ from mythril_tpu_torch.gpu.ragged_kernel import (
     _mul32,
     nvcc_library,
 )
+from mythril_tpu_torch.observe import transfers
 
 LEVEL_KEYS = ("out_idx", "a_var", "a_neg", "b_var", "b_neg")
 VAR_KEYS = ("ga_var", "ga_neg", "gb_var", "gb_neg", "is_gate")
@@ -331,7 +332,8 @@ def xla_layout(tensors: dict, pages, widest: int = 32) -> XlaLayout:
     root_rows = root_live[:count]
     last = torch.where(root_rows, torch.arange(
         1, root_rows.shape[1] + 1, device=device), 0).amax(1).clamp(min=1)
-    steps_of, last_of = torch.stack((ends[:, -1], last)).tolist()
+    steps_of, last_of = transfers.to_list(torch.stack((ends[:, -1], last)),
+                                          "xla.shape")
 
     # each cone's shape, offsets and header row, on the host
     header = np.zeros((count, len(CONE_FIELDS)), dtype=np.int64)
@@ -446,7 +448,8 @@ def run_round_xla_plain(xs: XlaStream, x: torch.Tensor, seed: int,
     lanes = x.shape[0]
     device = x.device
     levels = []
-    for level, rows in enumerate(xs.level_rows.tolist()):
+    for level, rows in enumerate(transfers.to_list(xs.level_rows,
+                                                   "xla.rows")):
         if not rows:
             continue
         live = tensors["out_idx"][level, :rows] > 0

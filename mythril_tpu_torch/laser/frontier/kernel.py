@@ -47,6 +47,7 @@ import numpy as np
 from mythril_tpu_torch.laser.frontier import words
 from mythril_tpu_torch.laser.frontier.dense import DenseFrontier
 from mythril_tpu_torch.laser.frontier.fastset import Run
+from mythril_tpu_torch.observe import transfers
 
 BACKENDS = ("numpy", "torch", "cuda")
 
@@ -410,7 +411,8 @@ def _download(outputs):
     """Tensor outputs -> step_batch's numpy nine (mem_log and fork_out as
     lists)."""
     (stack_out, mem, written, msize, min_gas, max_gas, ok, log_off,
-     log_val, fork_out) = [tensor.cpu().numpy() for tensor in outputs]
+     log_val, fork_out) = [transfers.to_numpy(tensor, "frontier.outputs")
+                           for tensor in outputs]
     mem_log = [(log_off[:, k], log_val[:, k])
                for k in range(log_off.shape[1])]
     fork_words = [fork_out[:, k] for k in range(fork_out.shape[1])]

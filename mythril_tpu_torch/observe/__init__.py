@@ -14,6 +14,9 @@
                 dumped on a breaker trip or an incomplete run.
   stats_keys.py the lint that every counter reaches the stats JSON and
                 the heartbeat snapshot.
+  transfers.py  the ledger of the copies back from the card: every read
+                of a CUDA tensor on the solve and frontier paths, counted
+                by site (d2h_copies, d2h_bytes, the d2h_sites section).
 """
 
 from mythril_tpu_torch.observe.tracer import (  # noqa: F401 (public API)

@@ -65,7 +65,8 @@ class Instrument(NamedTuple):
 _GAUGE_NAMES = (
     "device_occupancy", "coalesce_occupancy", "frontier_batch_occupancy",
     "serve_tenant_window_share")
-_HISTOGRAM_NAMES = ("prepare_suffix_hist", "interp_opcode_wall")
+_HISTOGRAM_NAMES = ("prepare_suffix_hist", "interp_opcode_wall",
+                    "d2h_sites")
 _ROOFLINE_FIELDS = ("attained", "attainable", "sol_gap_s")
 
 
@@ -212,6 +213,8 @@ def snapshot(seq: int = 0, final: bool = False) -> dict:
             op: [count, round(seconds, 4)]
             for op, (count, seconds)
             in list(stats.interp_opcode_wall.items())},
+        "d2h_sites": {site: list(record)
+                      for site, record in list(stats.d2h_sites.items())},
     }
     roof = roofline.build(stats)
     roofline_view = {
@@ -289,9 +292,12 @@ def merge_snapshots(snaps) -> dict:
             section = histograms.setdefault(name, {})
             for bucket, value in buckets.items():
                 if isinstance(value, (list, tuple)):
-                    record = section.setdefault(bucket, [0, 0.0])
+                    # [count, seconds] or d2h_sites' [copies, bytes]
+                    record = section.setdefault(bucket, [0, 0])
                     record[0] += int(value[0])
-                    record[1] = round(record[1] + float(value[1]), 4)
+                    total = record[1] + value[1]
+                    record[1] = (round(total, 4) if isinstance(total, float)
+                                 else total)
                 else:
                     section[bucket] = section.get(bucket, 0) + int(value)
     merged["histograms"] = histograms
@@ -357,8 +363,9 @@ def prometheus_text(snap: Optional[dict] = None,
         prom = _prom_name(name)
         lines.append(f"# TYPE {prom} gauge")
         for bucket, value in sorted(buckets.items()):
-            # interp_opcode_wall buckets are [count, seconds] pairs;
-            # suffix-hist buckets are plain counts
+            # interp_opcode_wall buckets are [count, seconds] pairs and
+            # d2h_sites' [copies, bytes]; suffix-hist buckets are plain
+            # counts
             count = value[0] if isinstance(value, (list, tuple)) else value
             lines.append(
                 f'{prom}{{bucket="{_prom_escape(bucket)}"}} {count}')

@@ -18,6 +18,14 @@ an empty context manager. Completed spans append under one lock;
 Perfetto nests complete ("X") events by containment per (pid, tid) lane,
 so no parent tracking is needed. Export is the Chrome trace event format
 (`traceEvents` array).
+
+One clock: a span's start and end are integer time.time_ns() readings,
+nanoseconds since the Unix epoch, the clock torch.profiler's (kineto's)
+events are stamped on. So a span and the device activity of a profiled
+run lie on one time line, and a gap in the device's activity can be
+named by the span open across it. An event's `ts` and `dur` are those
+readings in microseconds (the Chrome format's unit); the exported file
+moves `ts` to start at its earliest event.
 """
 
 import json
@@ -55,7 +63,7 @@ NULL_SPAN = _NullSpan()
 class _Span:
     """One live span; records itself into the tracer on exit."""
 
-    __slots__ = ("_tracer", "name", "cat", "args", "_ts_us", "_t0")
+    __slots__ = ("_tracer", "name", "cat", "args", "_start_ns")
 
     def __init__(self, tracer, name, cat, attrs):
         self._tracer = tracer
@@ -64,15 +72,12 @@ class _Span:
         self.args = attrs
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
-        self._ts_us = self._tracer._anchor_wall_us + (
-            self._t0 - self._tracer._anchor_perf) * 1e6
+        self._start_ns = time.time_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        dur_us = (time.perf_counter() - self._t0) * 1e6
-        self._tracer._record(self.name, self.cat, self._ts_us, dur_us,
-                             self.args)
+        self._tracer._record(self.name, self.cat, self._start_ns,
+                             time.time_ns(), self.args)
         return False
 
     def set(self, **attrs):
@@ -98,8 +103,6 @@ class Tracer:
 
             cap = flightrec.ring_capacity()
             inst._ring = deque(maxlen=cap) if cap > 0 else None
-            inst._anchor_perf = time.perf_counter()
-            inst._anchor_wall_us = time.time() * 1e6
             # THE hot-path flag span() reads: full tracing or the ring
             # wants events
             inst._active = inst._ring is not None
@@ -113,8 +116,6 @@ class Tracer:
         """Start collecting spans; write() exports them to `path`."""
         self.path = path
         self._pid = os.getpid()
-        self._anchor_perf = time.perf_counter()
-        self._anchor_wall_us = time.time() * 1e6
         self.enabled = True
         self._active = True
 
@@ -141,13 +142,13 @@ class Tracer:
         with self._lock:
             return list(self._ring) if self._ring is not None else []
 
-    def _record(self, name, cat, ts_us, dur_us, attrs) -> None:
+    def _record(self, name, cat, start_ns, end_ns, attrs) -> None:
         event = {
             "name": name,
             "cat": cat,
             "ph": "X",
-            "ts": round(ts_us, 3),
-            "dur": round(dur_us, 3),
+            "ts": start_ns / 1e3,
+            "dur": (end_ns - start_ns) / 1e3,
             "pid": self._pid,
             "tid": threading.get_ident(),
         }

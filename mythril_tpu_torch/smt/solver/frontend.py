@@ -422,6 +422,47 @@ def get_global_blaster() -> Blaster:
     return _global_blaster
 
 
+class _StageClock:
+    """The stages of one prepare, each timed into its SolverStatistics
+    timer and traced as a span over the same code. enter(stage) ends the
+    running stage and begins `stage` on one time.monotonic() reading, so
+    the stages partition prepare from the first enter() to close(); an
+    early return still adds the stage it was in. Entering the running
+    stage again changes nothing."""
+
+    TIMERS = {"word": "prepare_word_wall", "blast": "prepare_blast_wall",
+              "aig_opt": "aig_opt_wall", "cnf_prep": "cnf_prep_wall"}
+
+    __slots__ = ("_stage", "_start", "_span")
+
+    def __init__(self):
+        self._stage = None
+        self._start = 0.0
+        self._span = NULL_SPAN
+
+    def enter(self, stage: str, **attrs):
+        """Begin `stage` (a TIMERS key); returns its span, for set()."""
+        if stage == self._stage:
+            return self._span
+        now = time.monotonic()
+        self._end(now)
+        self._stage, self._start = stage, now
+        self._span = trace_span("solver." + stage, cat="solver", **attrs)
+        self._span.__enter__()
+        return self._span
+
+    def close(self) -> None:
+        self._end(time.monotonic())
+
+    def _end(self, now: float) -> None:
+        if self._stage is None:
+            return
+        self._span.__exit__(None, None, None)
+        SolverStatistics().add_prepare_stage(self.TIMERS[self._stage],
+                                             now - self._start)
+        self._stage, self._span = None, NULL_SPAN
+
+
 class Solver:
     """Check a conjunction of Bool constraints; extract word-level models."""
 
@@ -459,21 +500,28 @@ class Solver:
     def _prepare(self, extra: List[Term],
                  objectives: List[Term] = ()) -> "_Prepared":
         """Simplify, lower, and blast the assertion set (+ objective bits).
-        Timed into
-        prepare_wall and traced as the solver.prepare stage (its `mode`
-        attr tells a prefix resume from the full pipeline)."""
+        Timed into prepare_wall and traced as the solver.prepare stage
+        (its `mode` attr tells a prefix resume from the full pipeline);
+        inside it, _StageClock times and traces the four stages."""
         start = time.monotonic()
+        stages = _StageClock()
         with trace_span("solver.prepare", cat="solver",
                         constraints=len(self.constraints) + len(extra)) as sp:
             try:
-                return self._prepare_impl(extra, objectives, sp)
+                return self._prepare_impl(extra, objectives, sp, stages)
             finally:
+                stages.close()
                 SolverStatistics().add_prepare_seconds(
                     time.monotonic() - start)
 
-    def _prepare_impl(self, extra: List[Term],
-                      objectives: List[Term] = (),
-                      sp=NULL_SPAN) -> "_Prepared":
+    def _prepare_impl(self, extra: List[Term], objectives: List[Term],
+                      sp, stages: "_StageClock") -> "_Prepared":
+        # the stages run in order, word, blast, aig_opt, cnf_prep, each
+        # until the next begins; blast runs twice when the AIG rewrite
+        # returns nothing or fails (bv_bits and assert_bool before it,
+        # the blaster's CNF after), adding to its timer both times with
+        # a span each
+        stages.enter("word")
         from mythril_tpu_torch import preanalysis
         from mythril_tpu_torch.smt.solver import incremental
 
@@ -585,7 +633,15 @@ class Solver:
         if not lowered and not objectives:
             prep.trivial = SAT
             return prep
+        if use_incr:
+            # per-root memoized scan: sibling queries share most roots
+            prep.symbols = set(incremental.free_symbols_cached(
+                list(lowered) + list(lowered_objectives)))
+        else:
+            prep.symbols = set(terms.free_symbols(
+                list(lowered) + list(lowered_objectives)))
 
+        stages.enter("blast")
         prep.lowering = lowering
         prep.blaster = get_global_blaster()
         objective_lits: List[int] = []
@@ -618,11 +674,10 @@ class Solver:
                     resilience.maybe_inject("aig.session")
                     roots = [prep.blaster.assert_bool(t) for t in lowered]
                     prep.blaster.last_roots = roots
-                    with trace_span("solver.aig_opt", cat="solver",
-                                    roots=len(roots),
-                                    deferred=aig_opt.defer_active()):
-                        opt = aig_opt.optimize_roots_cached(
-                            prep.blaster.aig, roots)
+                    stages.enter("aig_opt", roots=len(roots),
+                                 deferred=aig_opt.defer_active())
+                    opt = aig_opt.optimize_roots_cached(
+                        prep.blaster.aig, roots)
                     if opt is not None:
                         prep.num_vars, prep.clauses, opt_dense = \
                             opt.aig.to_cnf(list(opt.roots))
@@ -653,18 +708,12 @@ class Solver:
                     resilience.note_stage_failure("aig.session")
                     aig_opted = False
         if not aig_opted:
+            stages.enter("blast")
             prep.num_vars, prep.clauses, prep.var_dense = prep.blaster.cnf(
                 lowered, objective_lits)
             prep.aig_roots = (prep.blaster.aig,
                               list(prep.blaster.last_roots),
                               prep.var_dense)
-        if use_incr:
-            # per-root memoized scan: sibling queries share most roots
-            prep.symbols = set(incremental.free_symbols_cached(
-                list(lowered) + list(lowered_objectives)))
-        else:
-            prep.symbols = set(terms.free_symbols(
-                list(lowered) + list(lowered_objectives)))
         # CNF preprocessing (preanalysis/cnf_prep.py): unit propagation +
         # pure literals BEFORE router dispatch, numbering preserved. The
         # pure rule is withheld when the instance may ride the device: the
@@ -685,15 +734,14 @@ class Solver:
                 or aig_opted)
             # `deferred`: a fork-pair member, prepared under the deferred-
             # forcing sweep (support/model.get_models_batch)
-            with trace_span("solver.cnf_prep", cat="solver",
-                            clauses=len(prep.clauses),
-                            deferred=defer_active()) as prep_span:
-                simplified = preprocess_cnf(
-                    prep.num_vars, prep.clauses,
-                    allow_pure=not objectives and not device_possible)
-                if simplified is not None:
-                    prep_span.set(rounds=simplified.rounds,
-                                  units=simplified.units)
+            prep_span = stages.enter("cnf_prep", clauses=len(prep.clauses),
+                                     deferred=defer_active())
+            simplified = preprocess_cnf(
+                prep.num_vars, prep.clauses,
+                allow_pure=not objectives and not device_possible)
+            if simplified is not None:
+                prep_span.set(rounds=simplified.rounds,
+                              units=simplified.units)
             if simplified is not None and simplified.changed \
                     and not simplified.conflict:
                 SolverStatistics().add_cnf_preprocess(

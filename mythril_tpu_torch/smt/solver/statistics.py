@@ -5,7 +5,8 @@ path touches, under the same names; the Pallas launch counters are named
 kernel_* here (one CUDA kernel launch per ragged round). as_dict() is the
 stats JSON of core.MythrilAnalyzer (MYTHRIL_GPU_STATS_JSON), with the
 JAX package's sections: device, roofline, resilience, kernel_backend,
-trace_spans and the per-opcode interpreter wall."""
+trace_spans and the per-opcode interpreter wall, and the port's own
+d2h_sites (the copies back from the card by site)."""
 
 
 class SolverStatistics:
@@ -120,6 +121,11 @@ class SolverStatistics:
         # block-aligned gate cells they stepped
         "kernel_launches",
         "kernel_cells_stepped",
+        # copies back from the card (observe/transfers.py): the reads of
+        # CUDA tensors and K6's downloads, and their bytes; the per-site
+        # breakdown is the stats JSON "d2h_sites" section
+        "d2h_copies",
+        "d2h_bytes",
         # distinct kernel builds after the process's first: 0 here, since
         # K1, K2 and K3 each build once and take every shape at run time
         "kernel_recompiles",
@@ -224,6 +230,15 @@ class SolverStatistics:
         "route_device_seconds",
         "route_host_seconds",
         "prepare_wall",
+        # prepare_wall's four stages (Solver._prepare_impl), which
+        # partition it but for _prepare's own entry and exit: the word
+        # level (simplify, prefix resume, substitution, narrowing,
+        # lowering, free symbols), bit-blasting, the AIG rewrite with its
+        # CNF and partition, and the CNF preprocessing
+        "prepare_word_wall",
+        "prepare_blast_wall",
+        "aig_opt_wall",
+        "cnf_prep_wall",
         "settle_wall",
         "crosscheck_wall",
         # the interpreter's share of LaserEVM.exec (solver seconds inside
@@ -262,12 +277,13 @@ class SolverStatistics:
             for name in cls._TIMERS:
                 setattr(cls._instance, name, 0.0)
             # suffix-length histogram of prefix resumes, opcode ->
-            # [count, seconds] over the per-state interpreter, and fault
-            # site -> {event: count}: not scalars, so reset and as_dict
-            # handle them apart
+            # [count, seconds] over the per-state interpreter, fault
+            # site -> {event: count}, and copy site -> [copies, bytes]:
+            # not scalars, so reset and as_dict handle them apart
             cls._instance.prepare_suffix_hist = {}
             cls._instance.interp_opcode_wall = {}
             cls._instance.resilience_events = {}
+            cls._instance.d2h_sites = {}
         return cls._instance
 
     def _add(self, name: str, count=1) -> None:
@@ -645,6 +661,24 @@ class SolverStatistics:
         lowering + blasting + AIG rewrite + CNF preprocessing)."""
         self._add("prepare_wall", seconds)
 
+    def add_prepare_stage(self, timer: str, seconds: float) -> None:
+        """Wall of one of prepare's stages (a _TIMERS name,
+        prepare_word_wall to cnf_prep_wall)."""
+        self._add(timer, seconds)
+
+    def add_d2h(self, site: str, nbytes: int) -> None:
+        """One copy of `nbytes` back from the card at `site`
+        (observe/transfers.py)."""
+        if self.enabled:
+            self.d2h_copies += 1
+            self.d2h_bytes += nbytes
+            record = self.d2h_sites.get(site)
+            if record is None:
+                self.d2h_sites[site] = [1, nbytes]
+            else:
+                record[0] += 1
+                record[1] += nbytes
+
     def add_module_gated(self, count: int = 1) -> None:
         """A detection module the static reachability gate skipped."""
         self._add("modules_gated", count)
@@ -786,6 +820,7 @@ class SolverStatistics:
         self.prepare_suffix_hist = {}
         self.interp_opcode_wall = {}
         self.resilience_events = {}
+        self.d2h_sites = {}
 
     def as_dict(self) -> dict:
         """Plain-data snapshot: the MYTHRIL_GPU_STATS_JSON artifact."""
@@ -803,6 +838,8 @@ class SolverStatistics:
             op: [count, round(seconds, 4)]
             for op, (count, seconds) in self.interp_opcode_wall.items()}
         out["interp_opcode_wall_top"] = self.interp_opcode_wall_top()
+        out["d2h_sites"] = {site: list(record)
+                            for site, record in self.d2h_sites.items()}
         device = self.device_stats()
         out["device"] = device
         # per-stage attained vs attainable and the reconciled solver-wall
@@ -850,9 +887,10 @@ class SolverStatistics:
         counter and timer, the port's own device keys among them
         (kernel_launches and kernel_cells_stepped, the frontier's
         counters, the deadline runner's calls and hand-off wall), the
-        suffix histogram, the per-opcode wall and the per-site
-        resilience events. The device backend's stats stay per process:
-        the backend never crosses the spawn boundary."""
+        suffix histogram, the per-opcode wall, the per-site
+        resilience events and the per-site copies back from the card.
+        The device backend's stats stay per process: the backend never
+        crosses the spawn boundary."""
         if not self.enabled or not snapshot:
             return
         for name in self._COUNTERS:
@@ -870,6 +908,11 @@ class SolverStatistics:
             record = self.interp_opcode_wall.setdefault(op, [0, 0.0])
             record[0] += int(count)
             record[1] += float(seconds)
+        for site, (copies, nbytes) in (snapshot.get("d2h_sites")
+                                       or {}).items():
+            record = self.d2h_sites.setdefault(site, [0, 0])
+            record[0] += int(copies)
+            record[1] += int(nbytes)
         sites = (snapshot.get("resilience") or {}).get("sites") or {}
         for site, events in sites.items():
             per_site = self.resilience_events.setdefault(site, {})
@@ -920,7 +963,11 @@ class SolverStatistics:
         if self.prepare_wall or self.prepare_prefix_resumes \
                 or self.prepare_incremental_hits:
             out += (f", prepare: {self.prepare_wall:.2f}s wall"
-                    f" ({self.prepare_incremental_hits} simplify hits,"
+                    f" (word {self.prepare_word_wall:.2f}s,"
+                    f" blast {self.prepare_blast_wall:.2f}s,"
+                    f" aig opt {self.aig_opt_wall:.2f}s,"
+                    f" cnf prep {self.cnf_prep_wall:.2f}s;"
+                    f" {self.prepare_incremental_hits} simplify hits,"
                     f" {self.prepare_prefix_resumes} prefix resumes"
                     f"/{self.prepare_prefix_fallbacks} fallbacks,"
                     f" {self.prepare_suffix_terms} suffix terms,"
@@ -960,6 +1007,9 @@ class SolverStatistics:
                     f"/{self.resilience_deadline_trips} deadline trips"
                     f"/{self.resilience_stale_lock_breaks} stale lock"
                     f" breaks/{self.resilience_faults_injected} injected")
+        if self.d2h_copies:
+            out += (f", copies back from the card: {self.d2h_copies}"
+                    f" ({self.d2h_bytes} bytes)")
         if self.crosscheck_runs or self.crosscheck_cap_skips:
             out += (f", unsat crosschecks: {self.crosscheck_runs}"
                     f" (+{self.crosscheck_cap_skips} cap-skipped)")

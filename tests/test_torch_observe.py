@@ -469,3 +469,243 @@ def test_fully_disabled_span_is_shared_noop(monkeypatch):
         assert tracer.ring_events() == [] and tracer.events() == []
     finally:
         Tracer._instance = saved
+
+
+# -- prepare's stage clocks ------------------------------------------------------
+
+STAGE_TIMERS = ("prepare_word_wall", "prepare_blast_wall", "aig_opt_wall",
+                "cnf_prep_wall")
+STAGE_SPANS = ("solver.word", "solver.blast", "solver.aig_opt",
+               "solver.cnf_prep")
+WINDOW = 12
+
+
+def _prepare_window(count=WINDOW, seed=3):
+    """Prepare each query of a sibling window, as the service does, from
+    cleared solve state."""
+    import mythril_tpu_torch.smt as smt
+    from mythril_tpu_torch.smt.solver.frontend import Solver
+    from mythril_tpu_torch.support.model import clear_caches
+    from mythril_tpu_torch.support.workloads import sibling_window
+
+    clear_caches()
+    for constraints in sibling_window(smt, count, seed=seed):
+        solver = Solver()
+        solver.add(*constraints)
+        solver._prepare([])
+
+
+def _inside(inner, outer) -> bool:
+    return (inner["tid"] == outer["tid"] and outer["ts"] <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
+
+@pytest.mark.parametrize("traced", [False, True],
+                         ids=["untraced", "traced"])
+def test_prepare_stages_partition_prepare_wall(traced):
+    """The four stage timers add up to 95-100% of prepare_wall on a sibling
+    window, each stage read. Traced, every stage span nests inside a
+    solver.prepare span, and solver.prepare's self time is at most 5% of
+    its total."""
+    tracer = get_tracer()
+    if traced:
+        tracer.enable(None)
+    _prepare_window()
+    stats = SolverStatistics()
+    staged = [getattr(stats, timer) for timer in STAGE_TIMERS]
+    assert all(seconds > 0 for seconds in staged), staged
+    assert 0.95 * stats.prepare_wall <= sum(staged) <= stats.prepare_wall
+    if not traced:
+        return
+    events = tracer.events()
+    prepares = [e for e in events if e["name"] == "solver.prepare"]
+    stages = [e for e in events if e["name"] in STAGE_SPANS]
+    assert len(prepares) == WINDOW
+    assert {e["name"] for e in stages} == set(STAGE_SPANS)
+    for stage in stages:
+        assert any(_inside(stage, prepare) for prepare in prepares), stage
+    total = sum(e["dur"] for e in prepares)
+    assert total - sum(e["dur"] for e in stages) <= 0.05 * total
+
+
+@pytest.mark.parametrize("constraints", ["constant", "propagated"])
+def test_trivially_unsat_prepare_adds_to_the_word_stage(constraints):
+    """A query that prepare settles UNSAT at the word level (a constant
+    false assertion, or two definitions of one symbol) returns early and
+    still adds what ran to prepare_word_wall, and nothing to the stages
+    it never reached."""
+    import mythril_tpu_torch.smt as smt
+    from mythril_tpu_torch.smt.solver.frontend import UNSAT, Solver
+
+    sf = smt.symbol_factory
+    x = sf.BitVecSym("obs_unsat_x", 256)
+    solver = Solver()
+    if constraints == "constant":
+        solver.add(sf.BitVecVal(1, 256) == sf.BitVecVal(2, 256))
+    else:
+        solver.add(x == sf.BitVecVal(1, 256), x == sf.BitVecVal(2, 256))
+    assert solver._prepare([]).trivial == UNSAT
+    stats = SolverStatistics()
+    assert 0 < stats.prepare_word_wall <= stats.prepare_wall
+    assert stats.prepare_blast_wall == stats.aig_opt_wall \
+        == stats.cnf_prep_wall == 0
+
+
+# -- the ledger of copies back from the card -------------------------------------
+
+
+READS = {
+    "to_host": lambda tensor: tensor.cpu(),
+    "to_numpy": lambda tensor: tensor.cpu().numpy(),
+    "to_list": lambda tensor: tensor.tolist(),
+}
+
+
+@pytest.mark.parametrize("helper", sorted(READS))
+def test_copy_ledger_counts_card_reads_by_site(helper, monkeypatch):
+    """A read through the ledger returns what the bare read returns. From
+    a card (the device check faked on the CPU) it counts one copy and the
+    tensor's bytes under its site, in the stats JSON, the heartbeat's
+    histograms and a worker's absorbed snapshot; from a CPU tensor it
+    counts nothing."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.observe import metrics, transfers
+
+    tensor = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+    read = getattr(transfers, helper)
+    want = READS[helper](tensor)
+    assert np.array_equal(np.asarray(read(tensor, "ragged.x")),
+                          np.asarray(want))
+    stats = SolverStatistics()
+    assert (stats.d2h_copies, stats.d2h_bytes, stats.d2h_sites) \
+        == (0, 0, {})
+
+    monkeypatch.setattr(transfers, "on_card", lambda _tensor: True)
+    assert np.array_equal(np.asarray(read(tensor, "ragged.x")),
+                          np.asarray(want))
+    read(tensor[:, :2], "ragged.found")   # a strided view: its own bytes
+    read(tensor, "ragged.x")
+    assert stats.d2h_copies == 3 and stats.d2h_bytes == 48 + 24 + 48
+    assert stats.d2h_sites == {"ragged.x": [2, 96], "ragged.found": [1, 24]}
+    snapshot = stats.as_dict()
+    assert snapshot["d2h_sites"] == stats.d2h_sites
+    assert (snapshot["d2h_copies"], snapshot["d2h_bytes"]) == (3, 120)
+    beat = metrics.snapshot()
+    assert beat["histograms"]["d2h_sites"] == stats.d2h_sites
+    merged = metrics.merge_snapshots([beat, beat])
+    assert merged["histograms"]["d2h_sites"] == {
+        "ragged.x": [4, 192], "ragged.found": [2, 48]}
+    stats.absorb(snapshot)
+    assert stats.d2h_sites == {"ragged.x": [4, 192], "ragged.found": [2, 48]}
+    assert stats.d2h_copies == 6 and stats.d2h_bytes == 240
+
+
+def test_copy_ledger_counts_downloads_scalars_and_mesh_rows(monkeypatch):
+    """K6's C++ download counts the size its caller gives; a one-element
+    read counts its bytes; a sharded slot's row counts a copy per block
+    it joins. The CPU reads count nothing."""
+    import torch
+
+    from mythril_tpu_torch.gpu.circuit import ShardGrid
+    from mythril_tpu_torch.observe import transfers
+
+    stats = SolverStatistics()
+    grid = ShardGrid(None, [[torch.zeros(2, 3, 5, dtype=torch.int32),
+                             torch.ones(2, 3, 5, dtype=torch.int32)]])
+    assert transfers.to_int(torch.tensor([7]).max(), "circuit.stride") == 7
+    assert grid.row(1).tolist() == [[0] * 5] * 3 + [[1] * 5] * 3
+    assert stats.d2h_copies == 0
+
+    monkeypatch.setattr(transfers, "on_card", lambda _tensor: True)
+    transfers.downloaded("frontier.step", 1234)
+    assert transfers.to_int(torch.tensor([7]).max(), "circuit.stride") == 7
+    grid.row(0, site="bucketed.x")
+    assert stats.d2h_sites == {"frontier.step": [1, 1234],
+                               "circuit.stride": [1, 8],
+                               "bucketed.x": [2, 120]}
+    assert stats.d2h_copies == 4 and stats.d2h_bytes == 1234 + 8 + 120
+
+
+# the reads in gpu/ and laser/frontier/ that take a host tensor: the
+# blocks ShardGrid.row has copied, and the pinned host buffer of K6
+CPU_ONLY = {
+    ("gpu/backend.py", "lane = int(np.argmax(found_row.numpy()))"),
+    ("gpu/backend.py", 'slot, site="bucketed.x")[lane].numpy()'),
+    ("gpu/frontier_kernel.py", "self.host_np = self.host.numpy()"),
+}
+READ_RE = r"\.(cpu|item|tolist|numpy)\(\)"
+LEDGER_CALLS = {"to_host": 1, "to_numpy": 1, "to_list": 1, "to_int": 1,
+                "downloaded": 0}
+
+
+def test_every_device_read_goes_through_the_ledger():
+    """No .cpu(), .item(), .tolist() or .numpy() in gpu/ or
+    laser/frontier/ outside observe/transfers.py but the CPU-only lines;
+    every site the ledger's calls name is one of transfers.SITES, and
+    every site in SITES is named."""
+    import ast
+    import re
+
+    import mythril_tpu_torch
+    from mythril_tpu_torch.observe import transfers
+
+    root = os.path.dirname(mythril_tpu_torch.__file__)
+    paths = sorted(glob.glob(os.path.join(root, "gpu", "*.py"))
+                   + glob.glob(os.path.join(root, "laser", "frontier",
+                                            "*.py")))
+    bare, named = [], set()
+    for path in paths:
+        rel = os.path.relpath(path, root)
+        source = open(path).read()
+        for line in source.splitlines():
+            if re.search(READ_RE, line) \
+                    and (rel, line.strip()) not in CPU_ONLY:
+                bare.append(f"{rel}: {line.strip()}")
+        for node in ast.walk(ast.parse(source)):
+            if not isinstance(node, ast.Call):
+                continue
+            func = node.func
+            sites = [kw.value for kw in node.keywords if kw.arg == "site"]
+            if isinstance(func, ast.Attribute) \
+                    and isinstance(func.value, ast.Name) \
+                    and func.value.id == "transfers" \
+                    and func.attr in LEDGER_CALLS:
+                sites.append(node.args[LEDGER_CALLS[func.attr]])
+            for site in sites:
+                if isinstance(site, ast.Name) and site.id == "site":
+                    continue   # a parameter: its callers name the site
+                assert isinstance(site, ast.Constant), (rel, ast.dump(node))
+                named.add(site.value)
+        for node in ast.walk(ast.parse(source)):
+            if isinstance(node, ast.FunctionDef):   # a `site` default
+                arguments = node.args.args[len(node.args.args)
+                                           - len(node.args.defaults):]
+                named.update(default.value for arg, default
+                             in zip(arguments, node.args.defaults)
+                             if arg.arg == "site")
+    assert bare == []
+    assert set(transfers.SITES) == named, set(transfers.SITES) ^ named
+
+
+def test_span_clock_is_the_profilers():
+    """A program span opened around a torch.profiler record_function range
+    contains it by kineto's own start_ns() and duration_ns(): span times
+    and the profiler's events are on one clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tracer = get_tracer()
+    tracer.enable(None)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with span("obs.clock", cat="x"):
+            with record_function("obs.clock.range"):
+                torch.ones(64).sum()
+    (event,) = [e for e in prof.profiler.kineto_results.events()
+                if e.name() == "obs.clock.range"]
+    (program,) = [e for e in tracer.events() if e["name"] == "obs.clock"]
+    start_ns = program["ts"] * 1e3
+    end_ns = (program["ts"] + program["dur"]) * 1e3
+    assert start_ns <= event.start_ns()
+    assert event.start_ns() + event.duration_ns() <= end_ns

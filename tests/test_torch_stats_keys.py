@@ -27,7 +27,9 @@ PORT_ONLY = {"aig_device_component_hits", "aig_host_components",
              "router_device_found", "router_host_settled",
              "router_trivial_settled", "cnf_prep_rounds",
              "deadline_runner_calls", "deadline_handoff_wall",
-             "router_deadline_stops"}
+             "router_deadline_stops", "prepare_word_wall",
+             "prepare_blast_wall", "aig_opt_wall", "cnf_prep_wall",
+             "d2h_copies", "d2h_bytes", "d2h_sites"}
 
 
 @pytest.fixture(autouse=True)

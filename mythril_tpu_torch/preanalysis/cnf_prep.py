@@ -34,8 +34,11 @@ a full-space assignment Solver._reconstruct accepts.
 Everything here is total: any unexpected shape degrades to "no change",
 never to a wrong CNF.
 
-A copy of mythril_tpu.preanalysis.cnf_prep with the import root changed:
-both packages must hand the solvers the same CNF.
+Both packages must hand the solvers the same CNF: `split_components` and
+`merge_component_bits` are copies of mythril_tpu.preanalysis.cnf_prep's
+with the import root changed, and `preprocess_cnf` gives the reference's
+output byte for byte, its propagation visiting only the occurrences of
+the variables each round pins where the reference sweeps every literal.
 """
 
 from typing import List, Optional
@@ -44,9 +47,10 @@ import numpy as np
 
 from mythril_tpu_torch.smt.bitblast import CNF
 
-# instances past this many clauses skip preprocessing: the passes are
-# vectorized but still cost a few full-array sweeps per round, and cones
-# this size are dominated by CDCL wall anyway
+# instances past this many clauses skip preprocessing: propagation
+# visits only the pinned variables' occurrences, but the rebuild is a
+# pass over every literal, and cones this size are dominated by CDCL
+# wall anyway
 PREPROCESS_CLAUSE_CAP = 400_000
 MAX_ROUNDS = 40
 # component splitting runs scipy's native connected_components over the
@@ -60,10 +64,10 @@ SPLIT_MIN_CLAUSES = 64
 
 class PreprocessResult:
     __slots__ = ("cnf", "conflict", "units", "pures", "removed_clauses",
-                 "changed", "rounds")
+                 "changed", "rounds", "visited")
 
     def __init__(self, cnf, conflict, units, pures, removed_clauses,
-                 rounds=0):
+                 rounds=0, visited=0):
         self.cnf = cnf
         self.conflict = conflict
         self.units = units          # assignments forced by propagation
@@ -71,9 +75,14 @@ class PreprocessResult:
         self.removed_clauses = removed_clauses
         self.changed = conflict or units > 0 or pures > 0 \
             or removed_clauses > 0
-        # propagation rounds run: one per level of forced units, each a
-        # pass over every literal
+        # propagation rounds run: one per level of forced units, the last
+        # (which forced nothing) included
         self.rounds = rounds
+        # literal occurrences unit propagation read: the unit clauses'
+        # literals and the occurrences of the variables they pinned (a
+        # pass over every literal each round reads rounds x literals);
+        # the pure rule's passes are not counted
+        self.visited = visited
 
 
 def _as_buffers(clauses):
@@ -91,10 +100,35 @@ def _as_buffers(clauses):
     return lits, offsets, len(clauses)
 
 
+def _ranges(starts, counts):
+    """The concatenated aranges [starts[i], starts[i] + counts[i])."""
+    ends = np.cumsum(counts)
+    return (np.repeat(starts - (ends - counts), counts)
+            + np.arange(counts.sum()))
+
+
+def _occurrence_index(var, num_vars):
+    """CSR from variable to literal positions: the positions of variable
+    v are order[start[v]:start[v + 1]], ascending. Below 2**16 variables
+    the key is 16 bits wide, which numpy sorts by radix."""
+    key = var.astype(np.uint16) if num_vars < 1 << 16 else var
+    order = np.argsort(key, kind="stable")
+    start = np.zeros(num_vars + 2, dtype=np.int64)
+    np.cumsum(np.bincount(var, minlength=num_vars + 1), out=start[1:])
+    return order, start
+
+
 def preprocess_cnf(num_vars: int, clauses,
                    allow_pure: bool = True) -> Optional[PreprocessResult]:
     """Simplify `clauses` (same variable numbering); None = not applicable
-    (empty/oversize instance or nothing to do)."""
+    (empty/oversize instance or nothing to do).
+
+    Level-synchronous unit propagation over an occurrence index: each
+    clause keeps a satisfied flag and a count of false literals, updated
+    only at the occurrences of the variables a round pins, and a round
+    examines only the clauses those pins touched (round 1: the clauses of
+    length 1). No other clause can have become unit or empty, so every
+    round decides exactly what a pass over all literals would."""
     buffers = _as_buffers(clauses)
     if buffers is None or num_vars <= 0:
         return None
@@ -106,58 +140,72 @@ def preprocess_cnf(num_vars: int, clauses,
         # an already-empty clause: syntactic conflict
         return PreprocessResult(None, True, 0, 0, 0)
     var = np.abs(lits)
-    if var.max(initial=0) > num_vars:
+    if var.max(initial=0) > num_vars or var.min(initial=1) == 0:
         return None  # malformed instance: leave it to the solver
-    sign = np.sign(lits).astype(np.int8)
-    clause_ids = np.repeat(np.arange(n_clauses, dtype=np.int64), lengths)
 
     assign = np.zeros(num_vars + 1, dtype=np.int8)  # 0 free, +1/-1 pinned
+    sat = np.zeros(n_clauses, dtype=bool)
+    n_false = np.zeros(n_clauses, dtype=np.int64)  # one per occurrence
+    index = None  # built at the first pin
+    pinned_occ = []  # the occurrences of every pinned variable
     forced_by_up = 0
     forced_by_pure = 0
+    visited = 0
 
+    def pin(pinned, values):
+        """Assign the free, distinct `pinned`, update the clauses at
+        their occurrences; the touched clauses, ascending."""
+        nonlocal index
+        assign[pinned] = values
+        if index is None:
+            index = _occurrence_index(var, num_vars)
+        order, start = index
+        occ = order[_ranges(start[pinned], start[pinned + 1] - start[pinned])]
+        pinned_occ.append(occ)
+        clause = np.searchsorted(offsets, occ, side="right") - 1
+        true = (lits[occ] > 0) == (assign[var[occ]] > 0)
+        sat[clause[true]] = True
+        falsified, count = np.unique(clause[~true], return_counts=True)
+        n_false[falsified] += count
+        return np.unique(clause)
+
+    candidates = np.flatnonzero(lengths == 1)
     rounds = 0
     for rounds in range(1, MAX_ROUNDS + 1):
-        lit_val = assign[var] * sign          # +1 true, -1 false, 0 free
-        clause_sat = np.zeros(n_clauses, dtype=bool)
-        np.logical_or.at(clause_sat, clause_ids, lit_val == 1)
-        false_per_clause = np.zeros(n_clauses, dtype=np.int64)
-        np.add.at(false_per_clause, clause_ids, lit_val == -1)
-        eff_len = lengths - false_per_clause
-        live = ~clause_sat
-        if (live & (eff_len == 0)).any():
+        live = candidates[~sat[candidates]]
+        free = lengths[live] - n_false[live]
+        if (free == 0).any():
             return PreprocessResult(None, True, forced_by_up,
-                                    forced_by_pure, 0)
-        unit_mask = live & (eff_len == 1)
-        progressed = False
-        if unit_mask.any():
-            pick = unit_mask[clause_ids] & (lit_val == 0)
-            unit_vars = var[pick]
-            unit_signs = sign[pick]
+                                    forced_by_pure, 0, visited=visited)
+        units = live[free == 1]
+        if len(units):
+            # each unit clause's one free literal
+            at = _ranges(offsets[units], lengths[units])
+            visited += len(at)
+            at = at[assign[var[at]] == 0]
+            # distinct (variable, polarity) pairs, by variable
+            forced = np.unique(2 * var[at] + (lits[at] > 0))
+            unit_vars = forced >> 1
             # conflicting forcings in one round (x and -x both unit)
-            order = np.argsort(unit_vars, kind="stable")
-            uv, us = unit_vars[order], unit_signs[order]
-            same = uv[1:] == uv[:-1]
-            if (same & (us[1:] != us[:-1])).any():
+            if (unit_vars[1:] == unit_vars[:-1]).any():
                 return PreprocessResult(None, True, forced_by_up,
-                                        forced_by_pure, 0)
-            before = int(np.count_nonzero(assign))
-            assign[uv] = us
-            forced_by_up += int(np.count_nonzero(assign)) - before
-            progressed = True
+                                        forced_by_pure, 0, visited=visited)
+            forced_by_up += len(unit_vars)
+            candidates = pin(unit_vars, 2 * (forced & 1) - 1)
+            visited += len(pinned_occ[-1])
         elif allow_pure:
-            live_lit = live[clause_ids] & (lit_val == 0)
+            # purity depends on every live literal: one pass over them
+            live_lit = np.repeat(~sat, lengths) & (assign[var] == 0)
             pos = np.zeros(num_vars + 1, dtype=bool)
             neg = np.zeros(num_vars + 1, dtype=bool)
-            np.logical_or.at(pos, var[live_lit & (sign == 1)], True)
-            np.logical_or.at(neg, var[live_lit & (sign == -1)], True)
-            pure = (pos ^ neg) & (assign == 0)
-            pure[0] = False
-            if pure.any():
-                assign[pure & pos] = 1
-                assign[pure & neg] = -1
-                forced_by_pure += int(np.count_nonzero(pure))
-                progressed = True
-        if not progressed:
+            pos[var[live_lit & (lits > 0)]] = True
+            neg[var[live_lit & (lits < 0)]] = True
+            pure = np.flatnonzero(pos ^ neg)
+            if not len(pure):
+                break
+            forced_by_pure += len(pure)
+            candidates = pin(pure, np.where(pos[pure], 1, -1))
+        else:
             break
 
     assigned = int(np.count_nonzero(assign))
@@ -166,15 +214,18 @@ def preprocess_cnf(num_vars: int, clauses,
 
     # rebuild: live clauses minus falsified literals, plus one unit clause
     # per pinned variable (pins the model so replay/validation stays exact)
-    lit_val = assign[var] * sign
-    clause_sat = np.zeros(n_clauses, dtype=bool)
-    np.logical_or.at(clause_sat, clause_ids, lit_val == 1)
-    live = ~clause_sat
-    keep_lit = live[clause_ids] & (lit_val == 0)
-    kept_lits = lits[keep_lit]
-    kept_counts = np.zeros(n_clauses, dtype=np.int64)
-    np.add.at(kept_counts, clause_ids, keep_lit)
-    kept_counts = kept_counts[live]
+    live = ~sat
+    kept_counts = (lengths - n_false)[live]
+    if (kept_counts == 0).any():
+        # a clause lost every literal after the rounds budget ran out with
+        # forcings still pending: that is a conflict, not an empty clause
+        return PreprocessResult(None, True, forced_by_up, forced_by_pure, 0,
+                                visited=visited)
+    keep = np.ones(len(lits), dtype=bool)
+    keep[np.concatenate(pinned_occ)] = False
+    satisfied = np.flatnonzero(sat)
+    keep[_ranges(offsets[satisfied], lengths[satisfied])] = False
+    kept_lits = lits[keep]
 
     pinned_vars = np.nonzero(assign)[0]
     unit_lits = pinned_vars * assign[pinned_vars]
@@ -183,16 +234,12 @@ def preprocess_cnf(num_vars: int, clauses,
         kept_lits, unit_lits.astype(np.int64)]).astype(np.int32)
     new_lengths = np.concatenate([
         kept_counts, np.ones(len(unit_lits), dtype=np.int64)])
-    if len(kept_counts) and (kept_counts == 0).any():
-        # a clause lost every literal after the rounds budget ran out with
-        # forcings still pending: that is a conflict, not an empty clause
-        return PreprocessResult(None, True, forced_by_up, forced_by_pure, 0)
     new_offsets = np.zeros(len(new_lengths) + 1, dtype=np.int64)
     np.cumsum(new_lengths, out=new_offsets[1:])
     new_cnf = CNF(new_lits, new_offsets, len(new_lengths), False)
     removed = n_clauses - int(np.count_nonzero(live))
     return PreprocessResult(new_cnf, False, forced_by_up, forced_by_pure,
-                            removed, rounds)
+                            removed, rounds, visited)
 
 
 class Component:

@@ -741,12 +741,14 @@ class Solver:
                 allow_pure=not objectives and not device_possible)
             if simplified is not None:
                 prep_span.set(rounds=simplified.rounds,
-                              units=simplified.units)
+                              units=simplified.units,
+                              visited=simplified.visited)
             if simplified is not None and simplified.changed \
                     and not simplified.conflict:
                 SolverStatistics().add_cnf_preprocess(
                     simplified.units, simplified.pures,
-                    simplified.removed_clauses, simplified.rounds)
+                    simplified.removed_clauses, simplified.rounds,
+                    simplified.visited)
                 prep.clauses = simplified.cnf
         return prep
 

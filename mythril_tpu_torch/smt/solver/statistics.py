@@ -67,9 +67,11 @@ class SolverStatistics:
         "cnf_pure_literals",
         "cnf_clauses_removed",
         "cnf_components_split",
-        # propagation rounds of the preprocessed instances (one pass over
-        # every literal each)
+        # propagation rounds of the preprocessed instances, and the
+        # literal occurrences their propagation read (a pass over every
+        # literal each round would read rounds x literals)
         "cnf_prep_rounds",
+        "cnf_prep_lits_visited",
         # the AIG rewrite (preanalysis/aig_opt.py): cone sizes before and
         # after, what each pass removed, the components of the rewritten
         # cones, and the components that rode a device launch alone
@@ -410,14 +412,17 @@ class SolverStatistics:
         self._add("crosscheck_wall", seconds)
 
     def add_cnf_preprocess(self, units: int, pures: int,
-                           removed_clauses: int, rounds: int = 0) -> None:
+                           removed_clauses: int, rounds: int = 0,
+                           visited: int = 0) -> None:
         """One blasted instance simplified by the CNF preprocessor
-        (preanalysis/cnf_prep.py) in `rounds` propagation rounds."""
+        (preanalysis/cnf_prep.py) in `rounds` propagation rounds that
+        read `visited` literal occurrences."""
         if self.enabled:
             self.cnf_units_propagated += units
             self.cnf_pure_literals += pures
             self.cnf_clauses_removed += removed_clauses
             self.cnf_prep_rounds += rounds
+            self.cnf_prep_lits_visited += visited
 
     def add_cnf_split(self, components: int) -> None:
         """One instance the CDCL settled as `components` variable-disjoint

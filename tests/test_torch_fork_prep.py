@@ -1,7 +1,8 @@
 """The fork-pair members' prepare, traced: the `solver.cnf_prep` and
 `solver.aig_opt` spans carry `deferred` (the query is one side of a
 batched JUMPI fork pair, prepared under aig_opt's deferred-forcing sweep),
-and cnf_prep's span its propagation rounds and units.
+and cnf_prep's span its propagation rounds, units and literal
+occurrences visited.
 
 Run as a script, this file measures where the device path's prepare goes
 with the batched frontier on, in the port and in the JAX package, on the
@@ -36,7 +37,8 @@ def test_fork_pair_prepares_are_traced_as_deferred(monkeypatch, backend):
     """Two fork pairs through get_models_batch: on the device backend
     every side prepares under the deferred-forcing sweep and its spans
     say so; on the host backend none does. Every cnf_prep span that
-    simplified its instance records the rounds and units it took."""
+    simplified its instance records the rounds and units it took and the
+    literal occurrences its propagation read."""
     monkeypatch.setenv("MYTHRIL_GPU_CALIBRATE", "0")
     monkeypatch.setenv("MYTHRIL_GPU_RESTARTS", "8")
     monkeypatch.setenv("MYTHRIL_GPU_CIRCUIT_STEPS", "16")
@@ -65,6 +67,7 @@ def test_fork_pair_prepares_are_traced_as_deferred(monkeypatch, backend):
         if event["name"] == "solver.cnf_prep" and "rounds" in event["args"]:
             assert event["args"]["rounds"] >= 1
             assert event["args"]["units"] >= 0
+            assert event["args"]["visited"] >= event["args"]["units"]
 
 
 # -- the measurement ------------------------------------------------------------

@@ -27,7 +27,7 @@ from mythril_tpu.support import model as ref_model
 from mythril_tpu.support.args import args as ref_args
 from mythril_tpu_torch import preanalysis
 from mythril_tpu_torch.preanalysis import aig_opt, aig_partition, cnf_prep
-from mythril_tpu_torch.smt.bitblast import AIG
+from mythril_tpu_torch.smt.bitblast import AIG, CNF
 from mythril_tpu_torch.smt.solver import frontend as port_frontend
 from mythril_tpu_torch.smt.solver import incremental
 from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
@@ -164,27 +164,244 @@ def _cnf_arrays(cnf):
     return (np.asarray(cnf.lits), np.asarray(cnf.offsets))
 
 
-@pytest.mark.parametrize("allow_pure", [False, True])
-def test_preprocess_cnf_matches_reference(allow_pure):
-    rng = random.Random(0xC0FFEE)
-    changed = 0
-    for trial in range(200):
-        num_vars = rng.randint(3, 16)
-        clauses = _random_cnf(rng, num_vars, rng.randint(2, 48))
-        want = ref_cnf_prep.preprocess_cnf(num_vars, clauses, allow_pure)
-        got = cnf_prep.preprocess_cnf(num_vars, clauses, allow_pure)
-        assert (got is None) == (want is None), trial
+def _rounds_by_sweep(num_vars, clauses, allow_pure):
+    """The rounds a pass over every clause each round takes, in plain
+    Python: a round that forced nothing ends the count and counts; a
+    conflict reads 0, as the port's result does."""
+    assign = [0] * (num_vars + 1)
+    rounds = 0
+    for rounds in range(1, cnf_prep.MAX_ROUNDS + 1):
+        live, units = [], {}
+        for clause in clauses:
+            values = [assign[abs(lit)] * (1 if lit > 0 else -1)
+                      for lit in clause]
+            if 1 in values:
+                continue
+            free = [lit for lit, value in zip(clause, values) if not value]
+            if not free:
+                return 0
+            live.append(free)
+            if len(free) == 1:
+                units.setdefault(abs(free[0]), set()).add(free[0] > 0)
+        if any(len(signs) > 1 for signs in units.values()):
+            return 0
+        if units:
+            for variable, (positive,) in units.items():
+                assign[variable] = 1 if positive else -1
+            continue
+        polarity = {}
+        for lit in (lit for free in live for lit in free):
+            polarity.setdefault(abs(lit), set()).add(lit > 0)
+        pure = {v: signs for v, signs in polarity.items() if len(signs) == 1}
+        if not allow_pure or not pure:
+            return rounds
+        for variable, (positive,) in pure.items():
+            assign[variable] = 1 if positive else -1
+    for clause in clauses:
+        values = [assign[abs(lit)] * (1 if lit > 0 else -1)
+                  for lit in clause]
+        if 1 not in values and 0 not in values:
+            return 0  # a clause emptied by the last round's forcings
+    return rounds
+
+
+def _chain(length):
+    """x1, then x1 -> x2 -> ... -> x{length}: one level a round."""
+    return length, [(1,)] + [(-i, i + 1) for i in range(1, length)]
+
+
+def _twin_chains(depth):
+    """x1 implies two chains of `depth` links whose ends exclude each
+    other: both ends are pinned in one round, which empties the clause
+    (-x_end, -y_end) the round after."""
+    x = list(range(1, depth + 2))
+    y = [1] + list(range(depth + 2, 2 * depth + 2))
+    clauses = [(1,)] + [(-a, b) for chain in (x, y)
+                        for a, b in zip(chain, chain[1:])]
+    return 2 * depth + 1, clauses + [(-x[-1], -y[-1])]
+
+
+def _both_ways(depth):
+    """A chain whose end forces x and -x in the same round."""
+    num_vars, clauses = _chain(depth)
+    return num_vars + 1, clauses + [(-depth, depth + 1),
+                                    (-depth, -(depth + 1))]
+
+
+def _random_implications(rng, num_vars):
+    """Mostly binary clauses over `num_vars` variables with a few units
+    and longer clauses, each satisfied by one planted assignment:
+    propagation runs several levels deep and never conflicts."""
+    planted = [rng.choice([-1, 1]) for _ in range(num_vars + 1)]
+    clauses = []
+    for _ in range(num_vars * 2):
+        clause = [rng.choice([-1, 1]) * rng.randint(1, num_vars)
+                  for _ in range(rng.choice([2, 2, 2, 3, 4]))]
+        var = rng.randint(1, num_vars)
+        clause[rng.randrange(len(clause))] = planted[var] * var
+        clauses.append(tuple(clause))
+    for _ in range(max(1, num_vars // 40)):
+        var = rng.randint(1, num_vars)
+        clauses.append((planted[var] * var,))
+    return num_vars, clauses
+
+
+def _parity_cases(case):
+    """(num_vars, clauses, port's rounds or None to take the plain sweep's)
+    instances of one parity case."""
+    if case == "random":
+        rng = random.Random(0xC0FFEE)
+        for _trial in range(200):
+            num_vars = rng.randint(3, 16)
+            yield num_vars, _random_cnf(rng, num_vars,
+                                        rng.randint(2, 48)), None
+    elif case == "chains":
+        # shorter than, equal to and past MAX_ROUNDS: the last two are cut
+        # at the cap, the longest mid-propagation
+        for length, rounds in ((20, 21), (39, 40), (40, 40), (100, 40)):
+            yield (*_chain(length), rounds)
+    elif case == "conflict_at_depth":
+        for depth in (1, 12, 30):
+            yield (*_twin_chains(depth), 0)
+    elif case == "both_ways":
+        for depth in (1, 2, 25):
+            yield (*_both_ways(depth), 0)
+    elif case == "repeats_and_tautologies":
+        yield 7, [(1,), (-1, 2, 2), (-1, -1, 3), (-3, 4, -4), (-2, 5, 5, 6),
+                  (6, 6), (-6, 7, -7), (-4, 6)], None
+        yield 3, [(1,), (-1, -1), (2, 3)], 0
+        yield 4, [(1,), (-1, 2, -2), (-1, 3, 3), (-3, 4)], None
+    elif case == "no_unit":
+        rng = random.Random(0x0F1)
+        for _trial in range(20):
+            num_vars = rng.randint(8, 200)
+            yield num_vars, [tuple(rng.choice([-1, 1])
+                                   * rng.randint(1, num_vars)
+                                   for _ in range(rng.randint(2, 4)))
+                             for _ in range(num_vars * 2)], None
+    elif case == "random_large":
+        rng = random.Random(0x1A29E)
+        for _trial in range(24):
+            yield (*_random_implications(rng, rng.randint(160, 1600)),
+                   None)
+        # variables numbered past 2**16 (the occurrence index's wide key)
+        num_vars, clauses = _random_implications(rng, 800)
+        yield num_vars + 70_000, [
+            tuple(lit + 70_000 if lit > 0 else lit - 70_000
+                  for lit in clause) for clause in clauses], None
+
+
+PARITY_CASES = ("chains", "conflict_at_depth", "both_ways",
+                "repeats_and_tautologies", "no_unit", "random_large")
+
+
+def _assert_matches_reference(num_vars, clauses, allow_pure, where):
+    """The port's preprocess_cnf against the JAX package's: the same
+    verdict, counts and output buffers (dtype and bytes)."""
+    want = ref_cnf_prep.preprocess_cnf(num_vars, clauses, allow_pure)
+    got = cnf_prep.preprocess_cnf(num_vars, clauses, allow_pure)
+    assert (got is None) == (want is None), where
+    if got is None:
+        return None
+    for key in ("conflict", "units", "pures", "removed_clauses",
+                "changed"):
+        assert getattr(got, key) == getattr(want, key), (where, key)
+    assert (got.cnf is None) == (want.cnf is None), where
+    if got.cnf is not None:
+        assert len(got.cnf) == len(want.cnf), where
+        for a, b in zip(_cnf_arrays(got.cnf), _cnf_arrays(want.cnf)):
+            assert a.dtype == b.dtype, where
+            assert a.tobytes() == b.tobytes(), where
+    return got
+
+
+# the original random case keeps its ids (False, True)
+@pytest.mark.parametrize("case,allow_pure", [
+    pytest.param("random", False, id="False"),
+    pytest.param("random", True, id="True"),
+    *(pytest.param(case, allow_pure, id=f"{case}-{allow_pure}")
+      for case in PARITY_CASES for allow_pure in (False, True))])
+def test_preprocess_cnf_matches_reference(case, allow_pure):
+    changed = conflicts = 0
+    for trial, (num_vars, clauses, rounds) in enumerate(
+            _parity_cases(case)):
+        where = (case, trial)
+        got = _assert_matches_reference(num_vars, clauses, allow_pure,
+                                        where)
         if got is None:
             continue
         changed += got.changed
-        for key in ("conflict", "units", "pures", "removed_clauses",
-                    "changed"):
-            assert getattr(got, key) == getattr(want, key), (trial, key)
-        assert (got.cnf is None) == (want.cnf is None), trial
-        if got.cnf is not None:
-            for a, b in zip(_cnf_arrays(got.cnf), _cnf_arrays(want.cnf)):
-                np.testing.assert_array_equal(a, b)
-    assert changed > 50
+        conflicts += got.conflict
+        if rounds is None:
+            rounds = _rounds_by_sweep(num_vars, clauses, allow_pure)
+        assert got.rounds == rounds, where
+        if case == "no_unit":
+            assert got.visited == 0, where
+    if case == "random":
+        assert changed > 50
+    elif case in ("conflict_at_depth", "both_ways"):
+        assert conflicts == 3
+    elif case == "random_large":
+        assert changed - conflicts >= 4
+
+
+def test_lits_visited_is_a_small_share_of_a_sweep():
+    """On a 100-link chain cut at MAX_ROUNDS the propagation reads each
+    unit clause (two literals) and the pinned variable's two occurrences
+    once: four literals a round, against a sweep's every literal every
+    round; an instance without a unit clause reads nothing."""
+    num_vars, clauses = _chain(100)
+    result = cnf_prep.preprocess_cnf(num_vars, clauses, allow_pure=False)
+    lits = sum(len(clause) for clause in clauses)
+    assert result.rounds == cnf_prep.MAX_ROUNDS
+    assert 0 < result.visited <= 4 * result.rounds
+    assert result.visited * 20 < result.rounds * lits
+    no_unit = [(-i, i + 1) for i in range(1, 100)]
+    assert cnf_prep.preprocess_cnf(100, no_unit, allow_pure=False) is None
+    pure = cnf_prep.preprocess_cnf(100, no_unit, allow_pure=True)
+    assert pure.pures > 0 and pure.visited == 0
+
+
+def test_preprocess_cnf_matches_reference_on_prepared_instances(fresh):
+    """Every instance KILLBILLY's analyze at -t 2 hands cnf_prep on the
+    device path (one runs 34 propagation rounds): the port's output equals
+    the JAX package's byte for byte, and `cnf_prep_lits_visited` sums the
+    results' `visited`, a small share of rounds x literals."""
+    from tests.test_analysis import KILLBILLY, wrap_creation
+    from tests.torch_helpers import run_analyze
+
+    preprocess = cnf_prep.preprocess_cnf
+    instances = []
+
+    def harvest(num_vars, clauses, allow_pure=True):
+        lits = np.array(clauses.lits, copy=True)
+        offsets = np.array(clauses.offsets, copy=True)
+        result = preprocess(num_vars, clauses, allow_pure)
+        instances.append((num_vars, lits, offsets, allow_pure, result))
+        return result
+
+    cnf_prep.preprocess_cnf = harvest
+    try:
+        run_analyze("mythril_tpu_torch", wrap_creation(KILLBILLY), 2, "gpu",
+                    60, device="cpu", pruning_factor=1)
+    finally:
+        cnf_prep.preprocess_cnf = preprocess
+    simplified = [result for *_, result in instances
+                  if result is not None and result.changed
+                  and not result.conflict]
+    assert max(result.rounds for result in simplified) >= 30
+    swept = 0
+    for i, (num_vars, lits, offsets, allow_pure, result) in enumerate(
+            instances):
+        cnf = CNF(lits, offsets, len(offsets) - 1, False)
+        got = _assert_matches_reference(num_vars, cnf, allow_pure, i)
+        if result is not None:
+            assert got.rounds == result.rounds, i
+            if result in simplified:
+                swept += result.rounds * len(lits)
+    visited = fresh.as_dict()["cnf_prep_lits_visited"]
+    assert visited == sum(result.visited for result in simplified) > 0
+    assert visited * 100 < swept
 
 
 def test_split_components_match_reference():

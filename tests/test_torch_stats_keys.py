@@ -21,11 +21,13 @@ NOT_PORTED = {}
 RENAMED = {"pallas_launches": "kernel_launches",
            "pallas_cells_stepped": "kernel_cells_stepped"}
 # the port's own counters: what K1 itself solved, how the router found a
-# model, cnf_prep's propagation rounds, the deadline runner's calls and
-# their hand-off cost, and the dispatch loops' stops at the window budget
+# model, cnf_prep's propagation rounds and the literal occurrences they
+# read, the deadline runner's calls and their hand-off cost, and the
+# dispatch loops' stops at the window budget
 PORT_ONLY = {"aig_device_component_hits", "aig_host_components",
              "router_device_found", "router_host_settled",
              "router_trivial_settled", "cnf_prep_rounds",
+             "cnf_prep_lits_visited",
              "deadline_runner_calls", "deadline_handoff_wall",
              "router_deadline_stops", "prepare_word_wall",
              "prepare_blast_wall", "aig_opt_wall", "cnf_prep_wall",

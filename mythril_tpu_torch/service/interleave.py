@@ -43,16 +43,29 @@ lock.
 Knobs: MYTHRIL_GPU_CORPUS_INTERLEAVE / --corpus-interleave selects the
 interleaved run (core.MythrilAnalyzer._fire_lasers_interleaved);
 MYTHRIL_GPU_INTERLEAVE_QUANTUM sets the exec iterations a turn (16).
+
+Spans (cat "interleave"): `interleave.turn`, a slot's hold of the baton
+(origin, ticks: the exec-loop yield points it passed); `interleave.switch`,
+one engine-context save or restore at a hand-off (origin, op);
+`interleave.park`, a slot waiting on its parked handles (handles);
+`interleave.flush`, the coordinator's flush of the shared window
+(origins, queries). Counters (SolverStatistics): interleave_handoffs,
+interleave_switch_wall (the saves' and restores' seconds),
+interleave_flushes and interleave_flush_origins (the distinct origins of
+each flushed window, summed).
 """
 
 import logging
 import threading
+import time
 from collections import deque
 from contextlib import contextmanager
 from typing import List, Optional
 
+from mythril_tpu_torch.observe.tracer import span as trace_span
 from mythril_tpu_torch.service import tenancy
 from mythril_tpu_torch.service.tenancy import EngineContext
+from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
 
 log = logging.getLogger(__name__)
 
@@ -164,6 +177,10 @@ class Coordinator:
         self._tls = threading.local()
         self._current_origin: Optional[str] = None
         self._ticks = 0
+        # the baton holder's open interleave.turn span and the yield
+        # points it has passed (only the holder touches either)
+        self._turn = None
+        self._turn_ticks = 0
         self._cancelled = False
         # the first error that escaped a slot's analysis (a DeviceFault);
         # the caller re-raises it once every slot thread has ended
@@ -199,6 +216,8 @@ class Coordinator:
                     self._contexts[slot_id] = context
                 context.install_fresh(preserve_caches=self._warm)
                 self._current_origin = origin
+                if self._turn is not None:
+                    self._turn.set(origin=origin)
                 self._ticks = 0
                 try:
                     analyze_one(idx, contract)
@@ -237,6 +256,7 @@ class Coordinator:
             self._live.add(slot_id)
             if self._current is None:
                 self._current = slot_id
+                self._begin_turn()
                 return
             self._waitq.append(slot_id)
             while self._current != slot_id:
@@ -244,6 +264,7 @@ class Coordinator:
                 self._cond.wait()
             self._check_cancelled()
             self._restore(slot_id)
+            self._begin_turn()
 
     def _detach(self, slot_id: int) -> None:
         _thread_coordinator.value = None
@@ -254,6 +275,7 @@ class Coordinator:
             if slot_id in self._waitq:
                 self._waitq.remove(slot_id)
             if self._current == slot_id:
+                self._end_turn()
                 self._current = None
                 if self._waitq:
                     # any waiter may run next: a flush-parked slot that
@@ -287,6 +309,8 @@ class Coordinator:
             next_id = self._pick_next(ready_only)
             if next_id is None:
                 return False
+            SolverStatistics().add_interleave_handoff()
+            self._end_turn()
             self._save(me)
             self._waitq.append(me)
             self._current = next_id
@@ -296,22 +320,46 @@ class Coordinator:
                 self._cond.wait()
             self._check_cancelled()
             self._restore(me)
+            self._begin_turn()
         return True
+
+    def _begin_turn(self) -> None:
+        """The baton holder's turn starts: its interleave.turn span opens,
+        and _end_turn closes it when the baton moves on."""
+        self._turn_ticks = 0
+        self._turn = trace_span("interleave.turn", cat="interleave",
+                                origin=self._current_origin)
+        self._turn.__enter__()
+
+    def _end_turn(self) -> None:
+        turn, self._turn = self._turn, None
+        if turn is not None:
+            turn.set(ticks=self._turn_ticks)
+            turn.__exit__(None, None, None)
 
     def _save(self, slot_id: int) -> None:
         context = self._contexts.get(slot_id)
         if context is not None:
-            context.save()
+            self._switch(context, "save")
         self._current_origin = None
 
     def _restore(self, slot_id: int) -> None:
         context = self._contexts.get(slot_id)
         if context is not None:
-            context.restore()
+            self._switch(context, "restore")
             self._current_origin = context.origin
         else:
             self._current_origin = None
         self._ticks = 0
+
+    @staticmethod
+    def _switch(context: EngineContext, op: str) -> None:
+        """One engine-context save or restore, timed and traced."""
+        started = time.monotonic()
+        with trace_span("interleave.switch", cat="interleave",
+                        origin=context.origin, op=op):
+            getattr(context, op)()
+        SolverStatistics().add_interleave_switch(time.monotonic() - started)
 
     def cancel(self) -> None:
         """Abandon every slot: each raises BatchCancelled at its next
@@ -334,6 +382,7 @@ class Coordinator:
             raise BatchCancelled(
                 "engine thread is not a slot of the live coordinator")
         self._ticks += 1
+        self._turn_ticks += 1
         if self._ticks < self.quantum:
             return
         self._ticks = 0
@@ -349,23 +398,25 @@ class Coordinator:
         window, which then carries every parked origin's queries: the
         mixed-origin window K1 runs as one stream."""
         me = self._tls.slot
-        while True:
-            self._check_cancelled()
-            if all(handle.done for handle in handles):
-                return
-            with self._cond:
-                self._wants_flush.add(me)
-                self._parked_handles[me] = handles
-            try:
-                switched = self._handoff(ready_only=True)
-            finally:
+        with trace_span("interleave.park", cat="interleave",
+                        handles=len(handles)):
+            while True:
+                self._check_cancelled()
+                if all(handle.done for handle in handles):
+                    return
                 with self._cond:
-                    self._wants_flush.discard(me)
-                    self._parked_handles.pop(me, None)
-            if not switched:
-                # nobody else can progress: the window is as mixed as it
-                # will get, so flush it here
-                self._flush_safely(scheduler)
+                    self._wants_flush.add(me)
+                    self._parked_handles[me] = handles
+                try:
+                    switched = self._handoff(ready_only=True)
+                finally:
+                    with self._cond:
+                        self._wants_flush.discard(me)
+                        self._parked_handles.pop(me, None)
+                if not switched:
+                    # nobody else can progress: the window is as mixed as
+                    # it will get, so flush it here
+                    self._flush_safely(scheduler)
 
     @staticmethod
     def _flush_safely(scheduler) -> None:
@@ -376,8 +427,14 @@ class Coordinator:
         scheduler.flush). A device error propagates: the run stops."""
         from mythril_tpu_torch.gpu.device import DeviceFault, NoDeviceError
 
+        queries, origins = scheduler.pending(), 0
+        if queries:
+            origins = scheduler.pending_origins()
+            SolverStatistics().add_interleave_flush(origins)
         try:
-            scheduler.flush()
+            with trace_span("interleave.flush", cat="interleave",
+                            origins=origins, queries=queries):
+                scheduler.flush()
         except (DeviceFault, NoDeviceError):
             raise
         except Exception:

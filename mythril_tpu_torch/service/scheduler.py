@@ -124,6 +124,10 @@ class CoalescingScheduler:
     def pending(self) -> int:
         return len(self._buffer)
 
+    def pending_origins(self) -> int:
+        """Distinct origin tags among the buffered queries."""
+        return len({entry[3] for entry in self._buffer})
+
     def submit(self, constraints, crosscheck: Optional[bool] = None
                ) -> SolveHandle:
         """Buffer one query; returns a handle. With coalescing disabled the

@@ -115,6 +115,12 @@ class SolverStatistics:
         "xcontract_windows",
         "xcontract_cones_packed",
         "xcontract_dedup_hits",
+        # the interleave coordinator: baton hand-offs between slots, and
+        # its flushes of the shared window with the distinct origins
+        # each carried, summed
+        "interleave_handoffs",
+        "interleave_flushes",
+        "interleave_flush_origins",
         # the cube-and-conquer second pass: cubes shipped as pinned
         # replicas, and cubes that came back modelless
         "cubes_dispatched",
@@ -252,6 +258,9 @@ class SolverStatistics:
         # the deadline runner's queue hand-offs: each guarded call's wall
         # less the call's own wall on the runner thread
         "deadline_handoff_wall",
+        # the interleave coordinator's engine-context saves and restores
+        # at its hand-offs (service/tenancy.EngineContext)
+        "interleave_switch_wall",
         # the serve daemon: summed queue wait of admitted requests, and
         # the drain (stop admitting to the final heartbeat)
         "serve_admission_wall",
@@ -524,6 +533,21 @@ class SolverStatistics:
         stored by one contract's analysis and served to another
         contract's query in this process (:520)."""
         self._add("xcontract_dedup_hits", count)
+
+    def add_interleave_handoff(self) -> None:
+        """The interleave coordinator passed the baton to another slot."""
+        self._add("interleave_handoffs")
+
+    def add_interleave_switch(self, seconds: float) -> None:
+        """Wall of one engine-context save or restore at a hand-off."""
+        self._add("interleave_switch_wall", seconds)
+
+    def add_interleave_flush(self, origins: int) -> None:
+        """The coordinator flushed the shared window, which held queries
+        of `origins` distinct origins."""
+        if self.enabled:
+            self.interleave_flushes += 1
+            self.interleave_flush_origins += origins
 
     def add_serve_admission(self, admitted: bool) -> None:
         """One admission decision of the serve daemon: admitted into the
@@ -1003,6 +1027,11 @@ class SolverStatistics:
             out += (f", cross-contract: {self.xcontract_windows} mixed"
                     f" windows ({self.xcontract_cones_packed} cones,"
                     f" {self.xcontract_dedup_hits} dedup hits)")
+        if self.interleave_handoffs or self.interleave_flushes:
+            out += (f", interleave: {self.interleave_handoffs} hand-offs"
+                    f" ({self.interleave_switch_wall:.2f}s switching),"
+                    f" {self.interleave_flushes} flushes of"
+                    f" {self.interleave_flush_origins} origins")
         if self.resilience_events:
             out += (f", resilience: {self.resilience_retries} retries"
                     f"/{self.resilience_degraded} degraded"

@@ -22,8 +22,9 @@ RENAMED = {"pallas_launches": "kernel_launches",
            "pallas_cells_stepped": "kernel_cells_stepped"}
 # the port's own counters: what K1 itself solved, how the router found a
 # model, cnf_prep's propagation rounds and the literal occurrences they
-# read, the deadline runner's calls and their hand-off cost, and the
-# dispatch loops' stops at the window budget
+# read, the deadline runner's calls and their hand-off cost, the
+# dispatch loops' stops at the window budget, and the interleave
+# coordinator's hand-offs, context switches and window flushes
 PORT_ONLY = {"aig_device_component_hits", "aig_host_components",
              "router_device_found", "router_host_settled",
              "router_trivial_settled", "cnf_prep_rounds",
@@ -31,7 +32,9 @@ PORT_ONLY = {"aig_device_component_hits", "aig_host_components",
              "deadline_runner_calls", "deadline_handoff_wall",
              "router_deadline_stops", "prepare_word_wall",
              "prepare_blast_wall", "aig_opt_wall", "cnf_prep_wall",
-             "d2h_copies", "d2h_bytes", "d2h_sites"}
+             "d2h_copies", "d2h_bytes", "d2h_sites",
+             "interleave_handoffs", "interleave_switch_wall",
+             "interleave_flushes", "interleave_flush_origins"}
 
 
 @pytest.fixture(autouse=True)

@@ -362,6 +362,9 @@ def test_device_fault_in_a_slot_cancels_the_parked_sibling():
     from mythril_tpu_torch.gpu.device import DeviceFault
 
     class NeverFlushes:
+        def pending(self):
+            return 0
+
         def flush(self):
             pass
 

@@ -46,9 +46,11 @@ Everything here is total: any unexpected shape degrades to "no change"
 (None), never to a wrong cone. Gated by `args.no_aig_opt` /
 MYTHRIL_GPU_AIG_OPT on top of the preanalysis master switch.
 
-A copy of mythril_tpu.preanalysis.aig_opt with the import root and the
-knob prefix changed: given the same AIG and roots, both packages emit the
-same rewritten gates, roots and input map.
+Ported from mythril_tpu.preanalysis.aig_opt with the import root and the
+knob prefix changed, and its cone passes in native code where the
+library of csrc/aig_passes.cpp is built (aig_native; the Python passes
+are the fallback and the differential reference): given the same AIG and
+roots, both packages emit the same rewritten gates, roots and input map.
 """
 
 import contextlib
@@ -57,12 +59,15 @@ import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
+import numpy as np
+
+from mythril_tpu_torch.preanalysis import aig_native
 from mythril_tpu_torch.smt.bitblast import AIG, FALSE_LIT, TRUE_LIT
 
-# cones past this many variables skip the rewrite: the sweep is a few
-# linear Python passes over the cone, and cones this size are dominated
-# by CDCL/device wall anyway (the CNF preprocessor has the same shape of
-# cap for the same reason)
+# cones past this many variables skip the rewrite: the rebuild steps
+# through the cone in Python, and cones this size are dominated by
+# CDCL/device wall anyway (the CNF preprocessor has the same shape of cap
+# for the same reason)
 AIG_OPT_NODE_CAP = 150_000
 
 _CACHE_MAX = 256
@@ -108,8 +113,27 @@ class _StrashSession:
         self.source_uid = source_uid
         self.aig = AIG()
         self.aig._aig_opt_cone = True  # partition-eligible (aig_partition)
-        self.input_vars: Dict[int, int] = {}   # source var -> session var
-        self.clean_memo: Dict[int, int] = {}   # source gate var -> session lit
+        # indexed by source var, 0 where none is stored: an input's
+        # session var (never 0), and a clean gate's session literal plus
+        # one. Zeroed arrays come from the allocator untouched, so a
+        # throwaway session (the incremental layer off) costs no pass
+        # over the source AIG
+        self.input_vars = np.zeros(1024, dtype=np.int32)
+        self.clean_memo = np.zeros(1024, dtype=np.int32)
+
+    def tables(self, num_vars: int):
+        """(input_vars, clean_memo), grown by doubling to cover source vars
+        up to `num_vars` (the source AIG only grows)."""
+        size = len(self.clean_memo)
+        if size <= num_vars:
+            while size <= num_vars:
+                size *= 2
+            for name in ("input_vars", "clean_memo"):
+                grown = np.zeros(size, dtype=np.int32)
+                old = getattr(self, name)
+                grown[:len(old)] = old
+                setattr(self, name, grown)
+        return self.input_vars, self.clean_memo
 
 
 _session: Optional[_StrashSession] = None
@@ -233,11 +257,12 @@ class ComposedDense:
 class AIGOptResult:
     __slots__ = ("aig", "roots", "input_map", "nodes_before", "nodes_after",
                  "strash_merges", "const_folds", "trivially_unsat",
-                 "xquery_merges")
+                 "xquery_merges", "native", "visited", "root_labels")
 
     def __init__(self, aig, roots, input_map, nodes_before, nodes_after,
                  strash_merges, const_folds, trivially_unsat,
-                 xquery_merges=0):
+                 xquery_merges=0, native=False, visited=0,
+                 root_labels=None):
         self.aig = aig                # shared session AIG (cone of roots)
         self.roots = roots            # root literals in the new numbering
         self.input_map = input_map    # orig input var -> new var
@@ -248,10 +273,19 @@ class AIGOptResult:
         self.trivially_unsat = trivially_unsat
         # gates reused from SIBLING queries via the session strash table
         self.xquery_merges = xquery_merges
+        # the cone passes ran in native code (aig_native), and the cone
+        # vars the Python rebuild loop stepped through
+        self.native = native
+        self.visited = visited
+        # per root its component in the rewritten cone, from the native
+        # pass that counted nodes_after (aig_partition reuses it); None
+        # from the Python passes
+        self.root_labels = root_labels
 
 
 def _trivially_unsat_result(nodes_before: int, const_folds: int,
-                            strash_merges: int = 0) -> AIGOptResult:
+                            strash_merges: int = 0, native: bool = False,
+                            visited: int = 0) -> AIGOptResult:
     """A statically proven UNSAT root set rewrites to a one-variable
     contradiction: two unit roots the CDCL refutes by propagation in
     microseconds — through the normal solve path, so the detection-path
@@ -262,7 +296,61 @@ def _trivially_unsat_result(nodes_before: int, const_folds: int,
     new_aig._aig_opt_cone = True
     return AIGOptResult(new_aig, [2 * var, 2 * var + 1], {},
                         nodes_before, 0, strash_merges, const_folds,
-                        trivially_unsat=True)
+                        trivially_unsat=True, native=native,
+                        visited=visited)
+
+
+class _Rebuild:
+    """One rewrite's forward rebuild into the session AIG: forced
+    constants substitute at every use site (`new_lit`, source var -> new
+    literal), surviving gates re-hash through the SESSION strash table —
+    gates a sibling query already rebuilt merge instead of rebuilding —
+    and each merge is counted by what made it."""
+
+    __slots__ = ("new_aig", "session_start", "gate_lhs", "gate_rhs",
+                 "input_vars", "memo", "new_lit", "input_map", "new_roots",
+                 "strash_merges", "xquery_merges", "rebuild_folds")
+
+    def __init__(self, session: _StrashSession, aig: AIG):
+        self.input_vars, self.memo = session.tables(aig.num_vars)
+        self.new_aig = session.aig
+        # watermark: older vars are sibling work
+        self.session_start = self.new_aig.num_vars
+        self.gate_lhs, self.gate_rhs = aig.gate_lhs, aig.gate_rhs
+        self.new_lit: Dict[int, int] = {0: FALSE_LIT}
+        self.input_map: Dict[int, int] = {}
+        self.new_roots: List[int] = []
+        self.strash_merges = 0
+        self.xquery_merges = 0
+        self.rebuild_folds = 0
+
+    def input(self, var: int) -> int:
+        """The session var of source input `var`, created on its first
+        use in the session: sibling queries share it."""
+        new_var = int(self.input_vars[var])
+        if not new_var:
+            new_var = self.new_aig.new_var()
+            self.input_vars[var] = new_var
+        self.input_map[var] = new_var
+        return new_var
+
+    def gate(self, var: int) -> int:
+        """Source gate `var` rebuilt over its substituted fanins."""
+        new_lit = self.new_lit
+        lhs, rhs = self.gate_lhs[var], self.gate_rhs[var]
+        a = new_lit[lhs >> 1] ^ (lhs & 1)
+        b = new_lit[rhs >> 1] ^ (rhs & 1)
+        new_aig = self.new_aig
+        before = new_aig.num_vars
+        lit = new_aig.and_gate(a, b)
+        if new_aig.num_vars == before:
+            if lit in (TRUE_LIT, FALSE_LIT) or (lit >> 1) in (a >> 1, b >> 1):
+                self.rebuild_folds += 1  # collapsed by a swept constant/absorption
+            elif (lit >> 1) <= self.session_start:
+                self.xquery_merges += 1  # strash hit on a sibling query's gate
+            else:
+                self.strash_merges += 1  # merged with an already-rebuilt gate
+        return lit
 
 
 def optimize_roots(aig: AIG, roots: List[int],
@@ -279,17 +367,109 @@ def optimize_roots(aig: AIG, roots: List[int],
     session AIG and the router's shared-cone pair packing hits. The
     rewrite is returned even when structurally unchanged: symmetry
     between the sides is the point (one side rewritten and the other
-    degraded to the original AIG could never pair)."""
+    degraded to the original AIG could never pair).
+
+    The cone passes (the cone, the sweep, the liveness, the rewritten
+    cone's count and components) run in native code (aig_native) where
+    its library is built, and the rebuild loop then steps only through
+    the vars that create or look up something; otherwise the Python
+    passes below run. Both give the same result."""
+    lib = aig_native.library()
     live_roots = []
     for lit in roots:
         if lit == TRUE_LIT:
             continue  # vacuous root
         if lit == FALSE_LIT:
-            return _trivially_unsat_result(0, 0)
+            return _trivially_unsat_result(0, 0, native=lib is not None)
         live_roots.append(lit)
     if not live_roots:
         return None
+    if lib is not None:
+        return _optimize_native(lib, aig, live_roots, force_roots)
+    return _optimize_python(aig, live_roots, force_roots)
 
+
+def _deferred_without_session(force_roots: bool) -> bool:
+    """Deferred forcing needs the shared session: without it each side
+    would rebuild into a private throwaway AIG and the sides could never
+    pair, so the ORIGINAL aig/roots are kept (both sides share the source
+    AIG, so the pair still packs there)."""
+    if force_roots:
+        return False
+    from mythril_tpu_torch.smt.solver import incremental
+
+    return not incremental.enabled()
+
+
+def _optimize_native(lib, aig: AIG, live_roots: List[int],
+                     force_roots: bool) -> Optional[AIGOptResult]:
+    meta, cone, kinds = aig_native.source_pass(
+        lib, aig, live_roots, force_roots, AIG_OPT_NODE_CAP)
+    status, _count, nodes_before, forced, pinned, folds = meta
+    if status == aig_native.OVER_CAP or _deferred_without_session(
+            force_roots):
+        return None
+    if status == aig_native.CONTRADICTION:
+        return _trivially_unsat_result(nodes_before, folds, native=True)
+
+    rebuild = _Rebuild(_get_session(aig), aig)
+    new_lit, new_roots = rebuild.new_lit, rebuild.new_roots
+    input_vars, memo = rebuild.input_vars, rebuild.memo
+    # forced vars substitute as constants (TRUE_LIT is 1, FALSE_LIT 0)
+    constant = (kinds >= aig_native.PINNED_TRUE) & (
+        kinds <= aig_native.FORCED_TRUE)
+    truth = (kinds == aig_native.PINNED_TRUE) | (
+        kinds == aig_native.FORCED_TRUE)
+    new_lit.update(zip(cone[constant].tolist(),
+                       truth[constant].astype(np.int32).tolist()))
+    # resolved in bulk, as the loop would resolve them: free inputs the
+    # session already holds (they create nothing), and pure gates the
+    # memo holds (memo[v] is written only at v's own turn, so its value
+    # now is the value the loop would read)
+    known = (kinds == aig_native.INPUT) & (input_vars[cone] > 0)
+    known_vars = cone[known]
+    session_vars = input_vars[known_vars]
+    rebuild.input_map.update(zip(known_vars.tolist(), session_vars.tolist()))
+    new_lit.update(zip(known_vars.tolist(), (2 * session_vars).tolist()))
+    memo_lits = memo[cone] - 1
+    hits = (kinds == aig_native.PURE) & (memo_lits >= 0)
+    new_lit.update(zip(cone[hits].tolist(), memo_lits[hits].tolist()))
+    rebuild.xquery_merges = int(np.count_nonzero(hits))
+    steps = (kinds != aig_native.SKIP) & (
+        kinds != aig_native.FORCED_TRUE) & ~hits & ~known
+    order, order_kinds = cone[steps].tolist(), kinds[steps].tolist()
+
+    gate, session_input = rebuild.gate, rebuild.input
+    impure, pure = aig_native.IMPURE, aig_native.PURE
+    free_input, forced_false = aig_native.INPUT, aig_native.FORCED_FALSE
+    pinned_false = aig_native.PINNED_FALSE
+    trivially_unsat = False
+    visited = len(order)
+    for step, (var, kind) in enumerate(zip(order, order_kinds)):
+        if kind == pure:
+            lit = new_lit[var] = gate(var)
+            memo[var] = lit + 1
+        elif kind == free_input:
+            new_lit[var] = 2 * session_input(var)
+        elif kind == impure:
+            new_lit[var] = gate(var)
+        elif kind == forced_false:
+            asserted = gate(var) ^ 1
+            if asserted == FALSE_LIT:
+                trivially_unsat = True
+                visited = step + 1
+                break
+            if asserted != TRUE_LIT:  # TRUE = tautology under the sweep
+                new_roots.append(asserted)
+        else:  # a pinned input
+            new_roots.append(2 * session_input(var)
+                             + (kind == pinned_false))
+    return _finish(rebuild, live_roots, force_roots, nodes_before, forced,
+                   pinned > 0, trivially_unsat, visited, lib)
+
+
+def _optimize_python(aig: AIG, live_roots: List[int],
+                     force_roots: bool) -> Optional[AIGOptResult]:
     gate_lhs, gate_rhs = aig.gate_lhs, aig.gate_rhs
 
     # -- cone of influence (ascending var ids ARE topological order: the
@@ -315,15 +495,8 @@ def optimize_roots(aig: AIG, roots: List[int],
     cone_vars = sorted(in_cone)
     nodes_before = sum(1 for v in cone_vars if gate_lhs[v] >= 0)
 
-    if not force_roots:
-        from mythril_tpu_torch.smt.solver import incremental
-
-        if not incremental.enabled():
-            # without the shared session each side would rebuild into a
-            # private throwaway AIG — the sides could never pair. Keep
-            # the ORIGINAL aig/roots (both sides share the source AIG,
-            # so the pair still packs there).
-            return None
+    if _deferred_without_session(force_roots):
+        return None
 
     # -- constant sweep, backward half: decompose forced-TRUE AND gates
     #    (skipped wholesale when root forcing is deferred) -----------------
@@ -370,52 +543,21 @@ def optimize_roots(aig: AIG, roots: List[int],
         live_struct = set(cone_vars)
 
     # -- rebuild (forward): substitute forced constants at every use site,
-    #    re-hash surviving gates through the SESSION strash table — gates
-    #    a sibling query already rebuilt merge instead of rebuilding, and
-    #    forced-free ("clean") sub-cones short-circuit through the
-    #    per-gate rewrite memo ----------------------------------------------
-    session = _get_session(aig)
-    new_aig = session.aig
-    session_start = new_aig.num_vars  # watermark: older vars = sibling work
-    new_lit: Dict[int, int] = {0: FALSE_LIT}
+    #    re-hash surviving gates through the SESSION strash table, and
+    #    short-circuit forced-free ("clean") sub-cones through the
+    #    per-gate rewrite memo --------------------------------------------
+    rebuild = _Rebuild(_get_session(aig), aig)
+    new_lit, new_roots, memo = rebuild.new_lit, rebuild.new_roots, rebuild.memo
     for var, value in forced.items():
         new_lit[var] = TRUE_LIT if value else FALSE_LIT
-    input_map: Dict[int, int] = {}
-    new_roots: List[int] = []
-    strash_merges = 0
-    xquery_merges = 0
-    rebuild_folds = 0
     trivially_unsat = False
     # var -> True iff no var in its fanin cone is forced THIS query: the
     # exact condition under which its rebuild is query-independent and the
     # session clean_memo may serve (or store) it
     clean: Dict[int, bool] = {}
-
-    def _sub(lit: int) -> int:
-        return new_lit[lit >> 1] ^ (lit & 1)
-
-    def _session_input(var: int) -> int:
-        new_var = session.input_vars.get(var)
-        if new_var is None:
-            new_var = new_aig.new_var()
-            session.input_vars[var] = new_var
-        return new_var
-
-    def _rebuild_gate(var: int) -> int:
-        nonlocal strash_merges, rebuild_folds, xquery_merges
-        a, b = _sub(gate_lhs[var]), _sub(gate_rhs[var])
-        before = new_aig.num_vars
-        lit = new_aig.and_gate(a, b)
-        if new_aig.num_vars == before:
-            if lit in (TRUE_LIT, FALSE_LIT) or (lit >> 1) in (a >> 1, b >> 1):
-                rebuild_folds += 1  # collapsed by a swept constant/absorption
-            elif (lit >> 1) <= session_start:
-                xquery_merges += 1  # strash hit on a sibling query's gate
-            else:
-                strash_merges += 1  # merged with an already-rebuilt gate
-        return lit
-
+    visited = 0
     for var in cone_vars:
+        visited += 1
         is_gate = gate_lhs[var] >= 0
         value = forced.get(var)
         if value is not None and not is_gate:
@@ -424,15 +566,13 @@ def optimize_roots(aig: AIG, roots: List[int],
             # its uses were substituted as structural constants above.
             # Session-shared: sibling queries pinning the same input (to
             # either polarity) assert units over ONE session variable.
-            new_var = _session_input(var)
-            input_map[var] = new_var
+            new_var = rebuild.input(var)
             new_roots.append(2 * new_var + (0 if value else 1))
             continue
         if value is False and is_gate:
             # asserted-false gate: its structure stays asserted (rebuilt
             # with substituted fanins); its fanout uses the constant
-            rebuilt = _rebuild_gate(var)
-            asserted = rebuilt ^ 1
+            asserted = rebuild.gate(var) ^ 1
             if asserted == FALSE_LIT:
                 trivially_unsat = True
                 break
@@ -444,54 +584,74 @@ def optimize_roots(aig: AIG, roots: List[int],
         if var not in live_struct:
             continue  # dead fanout: pruned
         if not is_gate:
-            new_var = _session_input(var)
-            input_map[var] = new_var
-            new_lit[var] = 2 * new_var
+            new_lit[var] = 2 * rebuild.input(var)
             clean[var] = True
             continue
         lhs_var, rhs_var = gate_lhs[var] >> 1, gate_rhs[var] >> 1
         pure = (clean.get(lhs_var, lhs_var == 0)
                 and clean.get(rhs_var, rhs_var == 0))
         if pure:
-            hit = session.clean_memo.get(var)
-            if hit is not None:
+            hit = int(memo[var]) - 1
+            if hit >= 0:
                 new_lit[var] = hit
                 clean[var] = True
-                xquery_merges += 1
+                rebuild.xquery_merges += 1
                 continue
-        new_lit[var] = _rebuild_gate(var)
+        new_lit[var] = rebuild.gate(var)
         if pure:
             clean[var] = True
-            session.clean_memo[var] = new_lit[var]
+            memo[var] = new_lit[var] + 1
 
-    const_folds = len(forced) + rebuild_folds
+    pinned = any(gate_lhs[v] < 0 for v in forced)
+    return _finish(rebuild, live_roots, force_roots, nodes_before,
+                   len(forced), pinned, trivially_unsat, visited, None)
+
+
+def _finish(rebuild: _Rebuild, live_roots: List[int], force_roots: bool,
+            nodes_before: int, forced: int, pinned: bool,
+            trivially_unsat: bool, visited: int,
+            lib) -> Optional[AIGOptResult]:
+    """The rewrite's result from its rebuild: the roots, the rewritten
+    cone's count (and, from the native pass, its components), and the
+    "unchanged" decision. `forced` counts the forced vars, `pinned` says
+    whether any is an input."""
+    native = lib is not None
+    strash_merges = rebuild.strash_merges
+    const_folds = forced + rebuild.rebuild_folds
     if trivially_unsat:
         return _trivially_unsat_result(nodes_before, const_folds,
-                                       strash_merges)
+                                       strash_merges, native, visited)
+    new_roots = rebuild.new_roots
     if not force_roots:
         # deferred forcing: roots were not decomposed, so they emit by
         # direct literal mapping — the rebuilt cone's image of each
         # original root, polarity preserved
         for lit in live_roots:
-            mapped = new_lit.get(lit >> 1)
+            mapped = rebuild.new_lit.get(lit >> 1)
             if mapped is None:
                 return None  # unexpected shape: degrade to "no change"
             mapped ^= lit & 1
             if mapped == FALSE_LIT:
                 return _trivially_unsat_result(nodes_before, const_folds,
-                                               strash_merges)
+                                               strash_merges, native,
+                                               visited)
             if mapped == TRUE_LIT:
                 continue
             new_roots.append(mapped)
     new_roots = list(dict.fromkeys(new_roots))
+    new_aig = rebuild.new_aig
     # cone-local count: the session AIG also holds sibling queries' cones
-    nodes_after = _cone_gate_count(new_aig, new_roots)
+    if native:
+        nodes_after, root_labels = aig_native.cone_components(
+            lib, new_aig, new_roots)
+    else:
+        nodes_after, root_labels = _cone_gate_count(new_aig, new_roots), None
     unchanged = force_roots and (
         nodes_after >= nodes_before
         and strash_merges == 0
-        and rebuild_folds == 0
+        and rebuild.rebuild_folds == 0
         and len(new_roots) == len(live_roots)
-        and not any(gate_lhs[v] < 0 for v in forced)  # no pinned inputs
+        and not pinned  # no pinned inputs
     )
     if unchanged:
         # the rebuild reproduced the cone one-to-one. Usually that means
@@ -502,11 +662,14 @@ def optimize_roots(aig: AIG, roots: List[int],
         # rewrite is still worth keeping.
         from mythril_tpu_torch.preanalysis import aig_partition
 
-        if aig_partition.partition_roots(new_aig, new_roots) is None:
+        if aig_partition.partition_roots(new_aig, new_roots,
+                                         root_labels) is None:
             return None
-    return AIGOptResult(new_aig, new_roots, input_map, nodes_before,
+    return AIGOptResult(new_aig, new_roots, rebuild.input_map, nodes_before,
                         nodes_after, strash_merges, const_folds,
-                        trivially_unsat=False, xquery_merges=xquery_merges)
+                        trivially_unsat=False,
+                        xquery_merges=rebuild.xquery_merges, native=native,
+                        visited=visited, root_labels=root_labels)
 
 
 def optimize_roots_cached(aig: AIG, roots: List[int]) \

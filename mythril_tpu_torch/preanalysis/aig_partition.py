@@ -21,8 +21,10 @@ Partitioning applies ONLY to AIGs carrying the `_aig_opt_cone` marker:
 the shared global blaster AIG holds every cone ever blasted and walking
 it per query would be both wrong (foreign cones) and unaffordable.
 
-A copy of mythril_tpu.preanalysis.aig_partition with the import root
-changed: both packages must split a query into the same components.
+Ported from mythril_tpu.preanalysis.aig_partition with the import root
+changed, and the cone walk and connectivity in native code
+(aig_native, one union-find pass over the cone) where its library is
+built: both packages must split a query into the same components.
 """
 
 from collections import OrderedDict
@@ -30,6 +32,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from mythril_tpu_torch.preanalysis import aig_native
 from mythril_tpu_torch.smt.bitblast import AIG
 
 _CACHE_MAX = 256
@@ -92,23 +95,10 @@ def _cone_vars(lhs, rhs, root_vars) -> np.ndarray:
     return np.fromiter(seen, dtype=np.int64, count=len(seen))
 
 
-def partition_roots(aig: AIG, roots: List[int]) -> Optional[AIGPartition]:
-    """Partition an optimized AIG's roots into variable-disjoint
-    components; None when not applicable (unmarked AIG, scipy missing,
-    single component, constant roots, or a pathological component
-    count).
-
-    Connectivity is computed over the CONE of this root set, not the
-    whole gate table: the session strash AIG (aig_opt._StrashSession)
-    accumulates every sibling query's rewrite, so a whole-graph pass
-    would both cost O(session) per query and glue THIS query's disjoint
-    components together through foreign gates that merely share their
-    inputs."""
-    if not getattr(aig, "_aig_opt_cone", False):
-        return None
-    root_vars = [lit >> 1 for lit in roots]
-    if not root_vars or any(v == 0 for v in root_vars):
-        return None  # constant roots: the monolith path handles them
+def _scipy_root_labels(aig: AIG, root_vars: List[int]) -> Optional[List[int]]:
+    """Each root var's component label, by scipy's connectivity pass over
+    the cone (the Python path, where aig_native's library is not built);
+    None without scipy."""
     from mythril_tpu_torch.preanalysis.components import connected_labels
 
     lhs, rhs = aig.gate_arrays()
@@ -127,18 +117,51 @@ def partition_roots(aig: AIG, roots: List[int]) -> Optional[AIGPartition]:
     if labels is None:
         return None
     root_idx = np.searchsorted(cone, np.asarray(root_vars, dtype=np.int64))
+    return labels[root_idx].tolist()
+
+
+def partition_roots(aig: AIG, roots: List[int],
+                    root_labels=None) -> Optional[AIGPartition]:
+    """Partition an optimized AIG's roots into variable-disjoint
+    components; None when not applicable (unmarked AIG, scipy missing on
+    the Python path, single component, constant roots, or a pathological
+    component count).
+
+    Connectivity is computed over the CONE of this root set, not the
+    whole gate table: the session strash AIG (aig_opt._StrashSession)
+    accumulates every sibling query's rewrite, so a whole-graph pass
+    would both cost O(session) per query and glue THIS query's disjoint
+    components together through foreign gates that merely share their
+    inputs. `root_labels` (per root, a label of its component that sorts
+    as the component's smallest var) comes from aig_opt's native pass
+    when it has walked this cone already; else aig_native's pass, or
+    scipy's where its library is not built, labels the roots here.
+    Components come out in the order of their smallest var."""
+    if not getattr(aig, "_aig_opt_cone", False):
+        return None
+    root_vars = [lit >> 1 for lit in roots]
+    if not root_vars or any(v == 0 for v in root_vars):
+        return None  # constant roots: the monolith path handles them
+    if root_labels is None:
+        lib = aig_native.library()
+        if lib is not None:
+            _gates, root_labels = aig_native.cone_components(lib, aig, roots)
+        else:
+            root_labels = _scipy_root_labels(aig, root_vars)
+            if root_labels is None:
+                return None
     groups: Dict[int, List[int]] = {}
-    for lit, idx in zip(roots, root_idx):
-        groups.setdefault(int(labels[idx]), []).append(lit)
+    for lit, label in zip(roots, root_labels):
+        groups.setdefault(label, []).append(lit)
     if len(groups) < 2 or len(groups) > MAX_COMPONENTS:
         return None
 
-    is_gate = lhs >= 0
+    gate_lhs = aig.gate_lhs
     components: List[AIGComponent] = []
     for label in sorted(groups):
         comp_roots = groups[label]
         trivial = None
-        if all(not is_gate[lit >> 1] for lit in comp_roots):
+        if all(gate_lhs[lit >> 1] < 0 for lit in comp_roots):
             trivial = {}
             for lit in comp_roots:
                 var, value = lit >> 1, not (lit & 1)
@@ -177,13 +200,14 @@ def component_vars(component_dense):
     return np.nonzero(component_dense.arr)[0]
 
 
-def partition_cached(aig: AIG, roots) -> Optional[AIGPartition]:
+def partition_cached(aig: AIG, roots,
+                     root_labels=None) -> Optional[AIGPartition]:
     key = (getattr(aig, "uid", id(aig)), tuple(roots))
     hit = _cache.get(key)
     if hit is not None:
         _cache.move_to_end(key)
         return None if hit is _NOT_APPLICABLE else hit
-    result = partition_roots(aig, list(roots))
+    result = partition_roots(aig, list(roots), root_labels)
     _cache[key] = _NOT_APPLICABLE if result is None else result
     while len(_cache) > _CACHE_MAX:
         _cache.popitem(last=False)

@@ -674,11 +674,13 @@ class Solver:
                     resilience.maybe_inject("aig.session")
                     roots = [prep.blaster.assert_bool(t) for t in lowered]
                     prep.blaster.last_roots = roots
-                    stages.enter("aig_opt", roots=len(roots),
-                                 deferred=aig_opt.defer_active())
+                    opt_span = stages.enter(
+                        "aig_opt", roots=len(roots),
+                        deferred=aig_opt.defer_active())
                     opt = aig_opt.optimize_roots_cached(
                         prep.blaster.aig, roots)
                     if opt is not None:
+                        opt_span.set(native=opt.native, visited=opt.visited)
                         prep.num_vars, prep.clauses, opt_dense = \
                             opt.aig.to_cnf(list(opt.roots))
                         prep.aig_roots = (opt.aig, list(opt.roots),
@@ -689,14 +691,15 @@ class Solver:
                         stats.add_aig_opt(
                             opt.nodes_before, opt.nodes_after,
                             opt.strash_merges, opt.const_folds,
-                            trivial_unsat=opt.trivially_unsat)
+                            trivial_unsat=opt.trivially_unsat,
+                            native=opt.native, visited=opt.visited)
                         stats.add_strash_xquery(opt.xquery_merges)
                         from mythril_tpu_torch.preanalysis import (
                             aig_partition,
                         )
 
                         partition = aig_partition.partition_cached(
-                            opt.aig, opt.roots)
+                            opt.aig, opt.roots, opt.root_labels)
                         if partition is not None:
                             stats.add_aig_components(
                                 len(partition.components))

@@ -38,11 +38,14 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _compile_native() -> ctypes.CDLL:
+def build_library(source: str, so_name: str) -> str:
+    """Build the C++ file `source` with g++ into BUILD_DIR/`so_name`,
+    unless a build newer than the source is there; returns the path. A
+    failed or missing compiler raises (OSError, SubprocessError)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(BUILD_DIR, "libsat.so")
+    so_path = os.path.join(BUILD_DIR, so_name)
     if (not os.path.exists(so_path)
-            or os.path.getmtime(so_path) < os.path.getmtime(_SOURCE)):
+            or os.path.getmtime(so_path) < os.path.getmtime(source)):
         # build to a temp name and rename: concurrent test workers may
         # race to build, and a half-written .so must never be loaded
         with tempfile.NamedTemporaryFile(
@@ -50,14 +53,18 @@ def _compile_native() -> ctypes.CDLL:
         ) as tmp:
             tmp_path = tmp.name
         cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-               "-o", tmp_path, _SOURCE]
+               "-o", tmp_path, source]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
             os.replace(tmp_path, so_path)
         finally:
             if os.path.exists(tmp_path):
                 os.unlink(tmp_path)
-    lib = ctypes.CDLL(so_path)
+    return so_path
+
+
+def _compile_native() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_library(_SOURCE, "libsat.so"))
     i32p = ctypes.POINTER(ctypes.c_int)
     i64p = ctypes.POINTER(ctypes.c_longlong)
     u8p = ctypes.POINTER(ctypes.c_ubyte)

@@ -20,14 +20,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def run_concolic(package, input_word, backend=None, device=None):
     """`package`'s concolic_execution of the two-way branch run with
-    `input_word`, flipping its JUMPI, from fresh solve state."""
+    `input_word`, flipping its JUMPI, from fresh solve state: the shared
+    blaster too, as run_analyze starts, since its numbering steers the
+    values the CDCL gives unconstrained bits (the flip's origin)."""
     concolic = importlib.import_module(f"{package}.concolic")
     args = importlib.import_module(f"{package}.support.args").args
     model = importlib.import_module(f"{package}.support.model")
+    frontend = importlib.import_module(f"{package}.smt.solver.frontend")
     time_handler = importlib.import_module(
         f"{package}.support.time_handler").time_handler
     args.reset()
     model.clear_caches()
+    frontend._global_blaster = None
     if backend is not None:
         args.solver_backend = backend
         args.torch_device = device

@@ -24,8 +24,10 @@ RENAMED = {"pallas_launches": "kernel_launches",
 # model, cnf_prep's propagation rounds and the literal occurrences they
 # read, the deadline runner's calls and their hand-off cost, the
 # dispatch loops' stops at the window budget, and the interleave
-# coordinator's hand-offs, context switches and window flushes
+# coordinator's hand-offs, context switches and window flushes, and the
+# AIG rewrite's native cone passes and the vars its rebuild stepped through
 PORT_ONLY = {"aig_device_component_hits", "aig_host_components",
+             "aig_opt_native_passes", "aig_opt_rebuild_visits",
              "router_device_found", "router_host_settled",
              "router_trivial_settled", "cnf_prep_rounds",
              "cnf_prep_lits_visited",
@@ -105,3 +107,59 @@ def test_opcode_wall_and_suffix_hist_equal_the_reference():
             dict(stats.prepare_suffix_hist))
     assert seen["mythril_tpu"][0], "no opcode ran on the per-state path"
     assert seen["mythril_tpu_torch"] == seen["mythril_tpu"]
+
+
+def test_native_passes_count_every_rewrite(monkeypatch):
+    """With the AIG rewrite's native library built, every rewrite a
+    prepare records ran its cone passes in native code:
+    aig_opt_native_passes equals the rewrites, aig_opt_rebuild_visits sums
+    the vars each rebuild stepped through, and each rewrite's
+    `solver.aig_opt` span carries both."""
+    import shutil
+
+    import mythril_tpu_torch.smt as smt
+    from mythril_tpu_torch.observe.tracer import get_tracer
+    from mythril_tpu_torch.preanalysis import aig_native
+    from mythril_tpu_torch.smt.solver import frontend
+    from mythril_tpu_torch.support.model import clear_caches
+    from mythril_tpu_torch.support.workloads import sibling_window
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is missing: the native passes cannot be built")
+    assert aig_native.library() is not None
+    for name in ("MYTHRIL_GPU_PREANALYSIS", "MYTHRIL_GPU_AIG_OPT",
+                 "MYTHRIL_GPU_INCR_PREP"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(frontend, "_global_blaster", None)
+    stats = SolverStatistics()
+    monkeypatch.setattr(stats, "enabled", True)
+    rewrites = []
+    add_aig_opt = SolverStatistics.add_aig_opt
+
+    def counted(self, *args, **kwargs):
+        rewrites.append(kwargs["visited"])
+        return add_aig_opt(self, *args, **kwargs)
+
+    monkeypatch.setattr(SolverStatistics, "add_aig_opt", counted)
+    tracer = get_tracer()
+    tracer.reset()
+    tracer.enable(None)
+    clear_caches()
+    try:
+        for constraints in sibling_window(smt, 12, seed=5):
+            solver = frontend.Solver(timeout=20)
+            solver.add(constraints)
+            solver._prepare([])
+        events = tracer.events()
+    finally:
+        tracer.reset()
+        clear_caches()
+    counts = stats.as_dict()
+    assert len(rewrites) == 12
+    assert counts["aig_opt_native_passes"] == len(rewrites)
+    assert counts["aig_opt_rebuild_visits"] == sum(rewrites) > 0
+    spans = [event["args"] for event in events
+             if event["name"] == "solver.aig_opt"]
+    assert len(spans) == len(rewrites)
+    assert all(span["native"] is True for span in spans)
+    assert [span["visited"] for span in spans] == rewrites

@@ -1,6 +1,8 @@
 // Host-side cone passes of the AIG rewrite (preanalysis/aig_opt.py) and of
 // its partition (preanalysis/aig_partition.py), bound through a plain C ABI
-// with ctypes (preanalysis/aig_native.py builds this file with g++).
+// with ctypes (g++ builds this file into the port's host library with
+// native/sat.cpp, smt/solver/sat_backend.py; preanalysis/aig_native.py
+// calls it).
 //
 //   aig_source_pass      the source side of one rewrite: the cone of the
 //                        roots in ascending var order, the node cap, the
@@ -16,9 +18,10 @@
 // global blaster's holds every query ever blasted, the rewrite session's
 // every sibling's rewrite). Per-var scratch is stamped with an epoch and
 // kept per thread across calls, so a call touches only the vars it visits.
-// Each pass reproduces the Python passes beside it exactly, down to the
-// order the root sweep forces constants in; the Python code is the
-// fallback and the differential reference (tests/test_torch_aig_native.py).
+// Each pass reproduces the JAX package's Python passes
+// (mythril_tpu/preanalysis/aig_opt.py, aig_partition.py) exactly, down to
+// the order the root sweep forces constants in
+// (tests/test_torch_aig_native.py holds the two equal).
 
 #include <algorithm>
 #include <cstdint>
@@ -138,7 +141,7 @@ void aig_source_pass(int num_vars, const int32_t* lhs, const int32_t* rhs,
   meta[2] = gates;
 
   // the root sweep: forced-TRUE AND gates decompose into forced fanins, in
-  // the Python sweep's order (a stack seeded with the roots), so that a
+  // the reference sweep's order (a stack seeded with the roots), so that a
   // contradiction is found with the same number of constants forced
   int64_t n_forced = 0, n_pinned = 0;
   if (force_roots) {

@@ -1,72 +1,27 @@
-"""ctypes binding of the AIG rewrite's native cone passes
+"""ctypes calls of the AIG rewrite's cone passes
 (mythril_tpu_torch/csrc/aig_passes.cpp).
 
-The library is built with g++ on first use into the port's build directory,
-as the host CDCL's is. Where it cannot be built, library() returns None and
-aig_opt / aig_partition run their Python passes, which give the same
-results (tests/test_torch_aig_native.py holds the two against each other).
+The passes are built into the port's host library with the host CDCL
+(smt/solver/sat_backend.get_native_lib), which binds them: they load, and
+fail to load, with it.
 """
 
 import ctypes
-import logging
-import os
-import subprocess
-import threading
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 
 from mythril_tpu_torch.smt.bitblast import AIG
-
-_SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "aig_passes.cpp")
+from mythril_tpu_torch.smt.solver import sat_backend
 
 # aig_source_pass's status (meta[0]) and its kinds of cone var
 OK, OVER_CAP, CONTRADICTION = 0, 1, 2
 (SKIP, PINNED_TRUE, PINNED_FALSE, FORCED_FALSE, FORCED_TRUE, INPUT, IMPURE,
  PURE) = range(8)
 
-log = logging.getLogger(__name__)
-
-_lib = None
-_tried = False
-_lock = threading.Lock()
-
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _i8p = ctypes.POINTER(ctypes.c_int8)
 _i64p = ctypes.POINTER(ctypes.c_int64)
-
-
-def _load() -> ctypes.CDLL:
-    from mythril_tpu_torch.smt.solver.sat_backend import build_library
-
-    lib = ctypes.CDLL(build_library(_SOURCE, "libaig_passes.so"))
-    lib.aig_source_pass.restype = None
-    lib.aig_source_pass.argtypes = [
-        ctypes.c_int, _i32p, _i32p, _i32p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, _i32p, _i8p, _i64p,
-    ]
-    lib.aig_cone_components.restype = ctypes.c_int64
-    lib.aig_cone_components.argtypes = [
-        ctypes.c_int, _i32p, _i32p, _i32p, ctypes.c_int, _i32p,
-    ]
-    return lib
-
-
-def library() -> Optional[ctypes.CDLL]:
-    """The built library, or None where it cannot be built (no g++, or the
-    build failed): the callers' Python passes run then."""
-    global _lib, _tried
-    if not _tried:
-        with _lock:
-            if not _tried:
-                try:
-                    _lib = _load()
-                except (OSError, subprocess.SubprocessError) as exc:
-                    log.warning("AIG cone passes not built (%s); the Python "
-                                "passes run", exc)
-                _tried = True
-    return _lib
 
 
 def _gate_tables(aig: AIG, roots: List[int]):
@@ -81,13 +36,14 @@ def _gate_tables(aig: AIG, roots: List[int]):
     return lhs, rhs, num_vars, roots_arr
 
 
-def source_pass(lib, aig: AIG, roots: List[int], force_roots: bool,
+def source_pass(aig: AIG, roots: List[int], force_roots: bool,
                 cap: int) -> Tuple[List[int], np.ndarray, np.ndarray]:
     """optimize_roots' passes over the source cone of `roots` (constants
     already dropped). Returns meta [status, cone size, gates in the cone,
     forced vars, forced inputs, const folds at a contradiction], the cone
     in ascending var order and each cone var's kind; both arrays are
     empty unless the status is OK."""
+    lib = sat_backend.get_native_lib()
     lhs, rhs, num_vars, roots_arr = _gate_tables(aig, roots)
     size = min(cap, num_vars)
     cone = np.empty(size, dtype=np.int32)
@@ -103,9 +59,10 @@ def source_pass(lib, aig: AIG, roots: List[int], force_roots: bool,
     return meta, cone[:count], kinds[:count]
 
 
-def cone_components(lib, aig: AIG, roots: List[int]) -> Tuple[int, List[int]]:
+def cone_components(aig: AIG, roots: List[int]) -> Tuple[int, List[int]]:
     """Gates in the cone of `roots`, and for each root the smallest var of
     its variable-disjoint component (0 for a constant root)."""
+    lib = sat_backend.get_native_lib()
     lhs, rhs, num_vars, roots_arr = _gate_tables(aig, roots)
     reps = np.empty(len(roots_arr), dtype=np.int32)
     gates = lib.aig_cone_components(

@@ -47,10 +47,11 @@ Everything here is total: any unexpected shape degrades to "no change"
 MYTHRIL_GPU_AIG_OPT on top of the preanalysis master switch.
 
 Ported from mythril_tpu.preanalysis.aig_opt with the import root and the
-knob prefix changed, and its cone passes in native code where the
-library of csrc/aig_passes.cpp is built (aig_native; the Python passes
-are the fallback and the differential reference): given the same AIG and
-roots, both packages emit the same rewritten gates, roots and input map.
+knob prefix changed, and its cone passes in native code
+(csrc/aig_passes.cpp, through aig_native): the source cone, the sweep,
+the liveness, and the rewritten cone's count and components. Given the
+same AIG and roots, both packages emit the same rewritten gates, roots
+and input map.
 """
 
 import contextlib
@@ -100,8 +101,8 @@ class _StrashSession:
     Sound because the source AIG is append-only (an original var's gate
     never changes) and `input_vars`/`clean_memo` key on original vars:
     a memo entry is only consulted when the current query proves the
-    gate's whole fanin cone forced-constant-free (`clean` tracking in
-    optimize_roots), which is exactly the condition under which the
+    gate's whole fanin cone forced-constant-free (the source pass's PURE
+    kind, aig_native), which is exactly the condition under which the
     rebuild is query-independent. A new source AIG uid (term-generation
     bump rebuilds the global blaster) or the var cap retires the session;
     results cached against a retired session stay valid — they hold
@@ -193,29 +194,6 @@ def defer_active() -> bool:
     return bool(getattr(_defer_tls, "depth", 0))
 
 
-def _cone_gate_count(aig: AIG, roots) -> int:
-    """Gates in the cone of `roots` — the session AIG holds every sibling
-    query's rewrite, so per-instance node counts must be cone-local."""
-    gate_lhs, gate_rhs = aig.gate_lhs, aig.gate_rhs
-    seen = set()
-    count = 0
-    stack = [lit >> 1 for lit in roots if (lit >> 1) != 0]
-    while stack:
-        var = stack.pop()
-        if var in seen:
-            continue
-        seen.add(var)
-        lhs = gate_lhs[var]
-        if lhs >= 0:
-            count += 1
-            if (lhs >> 1) != 0:
-                stack.append(lhs >> 1)
-            rhs = gate_rhs[var]
-            if (rhs >> 1) != 0:
-                stack.append(rhs >> 1)
-    return count
-
-
 def enabled() -> bool:
     """The AIG layer rides the preanalysis subsystem: it is on by default
     whenever preanalysis is, `--no-aig-opt` turns just this layer off, and
@@ -257,12 +235,11 @@ class ComposedDense:
 class AIGOptResult:
     __slots__ = ("aig", "roots", "input_map", "nodes_before", "nodes_after",
                  "strash_merges", "const_folds", "trivially_unsat",
-                 "xquery_merges", "native", "visited", "root_labels")
+                 "xquery_merges", "visited", "root_labels")
 
     def __init__(self, aig, roots, input_map, nodes_before, nodes_after,
                  strash_merges, const_folds, trivially_unsat,
-                 xquery_merges=0, native=False, visited=0,
-                 root_labels=None):
+                 xquery_merges=0, visited=0, root_labels=None):
         self.aig = aig                # shared session AIG (cone of roots)
         self.roots = roots            # root literals in the new numbering
         self.input_map = input_map    # orig input var -> new var
@@ -273,18 +250,16 @@ class AIGOptResult:
         self.trivially_unsat = trivially_unsat
         # gates reused from SIBLING queries via the session strash table
         self.xquery_merges = xquery_merges
-        # the cone passes ran in native code (aig_native), and the cone
-        # vars the Python rebuild loop stepped through
-        self.native = native
+        # the cone vars the Python rebuild loop stepped through
         self.visited = visited
         # per root its component in the rewritten cone, from the native
-        # pass that counted nodes_after (aig_partition reuses it); None
-        # from the Python passes
+        # pass that counted nodes_after (aig_partition reuses it); None on
+        # a trivially UNSAT result
         self.root_labels = root_labels
 
 
 def _trivially_unsat_result(nodes_before: int, const_folds: int,
-                            strash_merges: int = 0, native: bool = False,
+                            strash_merges: int = 0,
                             visited: int = 0) -> AIGOptResult:
     """A statically proven UNSAT root set rewrites to a one-variable
     contradiction: two unit roots the CDCL refutes by propagation in
@@ -296,8 +271,7 @@ def _trivially_unsat_result(nodes_before: int, const_folds: int,
     new_aig._aig_opt_cone = True
     return AIGOptResult(new_aig, [2 * var, 2 * var + 1], {},
                         nodes_before, 0, strash_merges, const_folds,
-                        trivially_unsat=True, native=native,
-                        visited=visited)
+                        trivially_unsat=True, visited=visited)
 
 
 class _Rebuild:
@@ -353,6 +327,18 @@ class _Rebuild:
         return lit
 
 
+def _deferred_without_session(force_roots: bool) -> bool:
+    """Deferred forcing needs the shared session: without it each side
+    would rebuild into a private throwaway AIG and the sides could never
+    pair, so the ORIGINAL aig/roots are kept (both sides share the source
+    AIG, so the pair still packs there)."""
+    if force_roots:
+        return False
+    from mythril_tpu_torch.smt.solver import incremental
+
+    return not incremental.enabled()
+
+
 def optimize_roots(aig: AIG, roots: List[int],
                    force_roots: bool = True) -> Optional[AIGOptResult]:
     """Rewrite the cone of `roots` (sweep + strash); None when nothing
@@ -370,47 +356,26 @@ def optimize_roots(aig: AIG, roots: List[int],
     degraded to the original AIG could never pair).
 
     The cone passes (the cone, the sweep, the liveness, the rewritten
-    cone's count and components) run in native code (aig_native) where
-    its library is built, and the rebuild loop then steps only through
-    the vars that create or look up something; otherwise the Python
-    passes below run. Both give the same result."""
-    lib = aig_native.library()
+    cone's count and components) run in native code (aig_native), and
+    the rebuild loop steps only through the vars that create or look up
+    something."""
     live_roots = []
     for lit in roots:
         if lit == TRUE_LIT:
             continue  # vacuous root
         if lit == FALSE_LIT:
-            return _trivially_unsat_result(0, 0, native=lib is not None)
+            return _trivially_unsat_result(0, 0)
         live_roots.append(lit)
     if not live_roots:
         return None
-    if lib is not None:
-        return _optimize_native(lib, aig, live_roots, force_roots)
-    return _optimize_python(aig, live_roots, force_roots)
-
-
-def _deferred_without_session(force_roots: bool) -> bool:
-    """Deferred forcing needs the shared session: without it each side
-    would rebuild into a private throwaway AIG and the sides could never
-    pair, so the ORIGINAL aig/roots are kept (both sides share the source
-    AIG, so the pair still packs there)."""
-    if force_roots:
-        return False
-    from mythril_tpu_torch.smt.solver import incremental
-
-    return not incremental.enabled()
-
-
-def _optimize_native(lib, aig: AIG, live_roots: List[int],
-                     force_roots: bool) -> Optional[AIGOptResult]:
     meta, cone, kinds = aig_native.source_pass(
-        lib, aig, live_roots, force_roots, AIG_OPT_NODE_CAP)
+        aig, live_roots, force_roots, AIG_OPT_NODE_CAP)
     status, _count, nodes_before, forced, pinned, folds = meta
     if status == aig_native.OVER_CAP or _deferred_without_session(
             force_roots):
         return None
     if status == aig_native.CONTRADICTION:
-        return _trivially_unsat_result(nodes_before, folds, native=True)
+        return _trivially_unsat_result(nodes_before, folds)
 
     rebuild = _Rebuild(_get_session(aig), aig)
     new_lit, new_roots = rebuild.new_lit, rebuild.new_roots
@@ -465,162 +430,20 @@ def _optimize_native(lib, aig: AIG, live_roots: List[int],
             new_roots.append(2 * session_input(var)
                              + (kind == pinned_false))
     return _finish(rebuild, live_roots, force_roots, nodes_before, forced,
-                   pinned > 0, trivially_unsat, visited, lib)
-
-
-def _optimize_python(aig: AIG, live_roots: List[int],
-                     force_roots: bool) -> Optional[AIGOptResult]:
-    gate_lhs, gate_rhs = aig.gate_lhs, aig.gate_rhs
-
-    # -- cone of influence (ascending var ids ARE topological order: the
-    #    append-only AIG creates every gate after its fanins) ---------------
-    in_cone = set()
-    stack = [lit >> 1 for lit in live_roots if (lit >> 1) != 0]
-    while stack:
-        var = stack.pop()
-        if var in in_cone:
-            continue
-        in_cone.add(var)
-        if len(in_cone) > AIG_OPT_NODE_CAP:
-            return None
-        lhs = gate_lhs[var]
-        if lhs >= 0:
-            if (lhs >> 1) != 0:
-                stack.append(lhs >> 1)
-            rhs = gate_rhs[var]
-            if (rhs >> 1) != 0:
-                stack.append(rhs >> 1)
-    if not in_cone:
-        return None
-    cone_vars = sorted(in_cone)
-    nodes_before = sum(1 for v in cone_vars if gate_lhs[v] >= 0)
-
-    if _deferred_without_session(force_roots):
-        return None
-
-    # -- constant sweep, backward half: decompose forced-TRUE AND gates
-    #    (skipped wholesale when root forcing is deferred) -----------------
-    forced: Dict[int, bool] = {}
-    queue = list(live_roots) if force_roots else []
-    while queue:
-        lit = queue.pop()
-        if lit == TRUE_LIT:
-            continue
-        if lit == FALSE_LIT:
-            return _trivially_unsat_result(nodes_before, len(forced) + 1)
-        var, value = lit >> 1, not (lit & 1)
-        known = forced.get(var)
-        if known is not None:
-            if known != value:
-                return _trivially_unsat_result(nodes_before,
-                                               len(forced) + 1)
-            continue
-        forced[var] = value
-        if value and gate_lhs[var] >= 0:
-            # the gate output must be 1 => both fanin literals must be 1
-            queue.append(gate_lhs[var])
-            queue.append(gate_rhs[var])
-
-    # -- liveness, backward half: only structure reachable from the gates
-    #    that stay asserted (forced-FALSE gates) is ever rebuilt — the
-    #    decomposed conjunction skeleton and dead fanout cones are pruned --
-    if force_roots:
-        live_struct = set()
-        for var in reversed(cone_vars):
-            is_gate = gate_lhs[var] >= 0
-            needs_structure = var in live_struct or (
-                is_gate and forced.get(var) is False)
-            if not needs_structure or not is_gate:
-                continue
-            live_struct.add(var)
-            for child_lit in (gate_lhs[var], gate_rhs[var]):
-                child = child_lit >> 1
-                if child != 0 and child not in forced:
-                    live_struct.add(child)
-    else:
-        # no forcing: every root stays asserted structurally, so the
-        # whole cone of influence is live
-        live_struct = set(cone_vars)
-
-    # -- rebuild (forward): substitute forced constants at every use site,
-    #    re-hash surviving gates through the SESSION strash table, and
-    #    short-circuit forced-free ("clean") sub-cones through the
-    #    per-gate rewrite memo --------------------------------------------
-    rebuild = _Rebuild(_get_session(aig), aig)
-    new_lit, new_roots, memo = rebuild.new_lit, rebuild.new_roots, rebuild.memo
-    for var, value in forced.items():
-        new_lit[var] = TRUE_LIT if value else FALSE_LIT
-    trivially_unsat = False
-    # var -> True iff no var in its fanin cone is forced THIS query: the
-    # exact condition under which its rebuild is query-independent and the
-    # session clean_memo may serve (or store) it
-    clean: Dict[int, bool] = {}
-    visited = 0
-    for var in cone_vars:
-        visited += 1
-        is_gate = gate_lhs[var] >= 0
-        value = forced.get(var)
-        if value is not None and not is_gate:
-            # pinned input: keep it as a variable pinned by a unit root so
-            # reconstruction (and stored-bit replay) still sees its value;
-            # its uses were substituted as structural constants above.
-            # Session-shared: sibling queries pinning the same input (to
-            # either polarity) assert units over ONE session variable.
-            new_var = rebuild.input(var)
-            new_roots.append(2 * new_var + (0 if value else 1))
-            continue
-        if value is False and is_gate:
-            # asserted-false gate: its structure stays asserted (rebuilt
-            # with substituted fanins); its fanout uses the constant
-            asserted = rebuild.gate(var) ^ 1
-            if asserted == FALSE_LIT:
-                trivially_unsat = True
-                break
-            if asserted != TRUE_LIT:  # TRUE = tautology under the sweep
-                new_roots.append(asserted)
-            continue
-        if value is not None:
-            continue  # forced-TRUE gate: fully decomposed, nothing to keep
-        if var not in live_struct:
-            continue  # dead fanout: pruned
-        if not is_gate:
-            new_lit[var] = 2 * rebuild.input(var)
-            clean[var] = True
-            continue
-        lhs_var, rhs_var = gate_lhs[var] >> 1, gate_rhs[var] >> 1
-        pure = (clean.get(lhs_var, lhs_var == 0)
-                and clean.get(rhs_var, rhs_var == 0))
-        if pure:
-            hit = int(memo[var]) - 1
-            if hit >= 0:
-                new_lit[var] = hit
-                clean[var] = True
-                rebuild.xquery_merges += 1
-                continue
-        new_lit[var] = rebuild.gate(var)
-        if pure:
-            clean[var] = True
-            memo[var] = new_lit[var] + 1
-
-    pinned = any(gate_lhs[v] < 0 for v in forced)
-    return _finish(rebuild, live_roots, force_roots, nodes_before,
-                   len(forced), pinned, trivially_unsat, visited, None)
+                   pinned > 0, trivially_unsat, visited)
 
 
 def _finish(rebuild: _Rebuild, live_roots: List[int], force_roots: bool,
             nodes_before: int, forced: int, pinned: bool,
-            trivially_unsat: bool, visited: int,
-            lib) -> Optional[AIGOptResult]:
+            trivially_unsat: bool, visited: int) -> Optional[AIGOptResult]:
     """The rewrite's result from its rebuild: the roots, the rewritten
-    cone's count (and, from the native pass, its components), and the
-    "unchanged" decision. `forced` counts the forced vars, `pinned` says
-    whether any is an input."""
-    native = lib is not None
+    cone's count and components, and the "unchanged" decision. `forced`
+    counts the forced vars, `pinned` says whether any is an input."""
     strash_merges = rebuild.strash_merges
     const_folds = forced + rebuild.rebuild_folds
     if trivially_unsat:
         return _trivially_unsat_result(nodes_before, const_folds,
-                                       strash_merges, native, visited)
+                                       strash_merges, visited)
     new_roots = rebuild.new_roots
     if not force_roots:
         # deferred forcing: roots were not decomposed, so they emit by
@@ -633,19 +456,14 @@ def _finish(rebuild: _Rebuild, live_roots: List[int], force_roots: bool,
             mapped ^= lit & 1
             if mapped == FALSE_LIT:
                 return _trivially_unsat_result(nodes_before, const_folds,
-                                               strash_merges, native,
-                                               visited)
+                                               strash_merges, visited)
             if mapped == TRUE_LIT:
                 continue
             new_roots.append(mapped)
     new_roots = list(dict.fromkeys(new_roots))
     new_aig = rebuild.new_aig
     # cone-local count: the session AIG also holds sibling queries' cones
-    if native:
-        nodes_after, root_labels = aig_native.cone_components(
-            lib, new_aig, new_roots)
-    else:
-        nodes_after, root_labels = _cone_gate_count(new_aig, new_roots), None
+    nodes_after, root_labels = aig_native.cone_components(new_aig, new_roots)
     unchanged = force_roots and (
         nodes_after >= nodes_before
         and strash_merges == 0
@@ -668,7 +486,7 @@ def _finish(rebuild: _Rebuild, live_roots: List[int], force_roots: bool,
     return AIGOptResult(new_aig, new_roots, rebuild.input_map, nodes_before,
                         nodes_after, strash_merges, const_folds,
                         trivially_unsat=False,
-                        xquery_merges=rebuild.xquery_merges, native=native,
+                        xquery_merges=rebuild.xquery_merges,
                         visited=visited, root_labels=root_labels)
 
 

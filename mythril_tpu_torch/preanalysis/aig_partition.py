@@ -22,9 +22,9 @@ the shared global blaster AIG holds every cone ever blasted and walking
 it per query would be both wrong (foreign cones) and unaffordable.
 
 Ported from mythril_tpu.preanalysis.aig_partition with the import root
-changed, and the cone walk and connectivity in native code
-(aig_native, one union-find pass over the cone) where its library is
-built: both packages must split a query into the same components.
+changed, and the cone walk and connectivity in native code (aig_native,
+one union-find pass over the cone): both packages must split a query
+into the same components.
 """
 
 from collections import OrderedDict
@@ -75,57 +75,11 @@ class AIGPartition:
         self.components = components
 
 
-def _cone_vars(lhs, rhs, root_vars) -> np.ndarray:
-    """Vars in the cone of `root_vars` over the numpy gate arrays (cones
-    are bounded by aig_opt's AIG_OPT_NODE_CAP upstream)."""
-    seen = set()
-    stack = [v for v in root_vars if v]
-    while stack:
-        var = stack.pop()
-        if var in seen:
-            continue
-        seen.add(var)
-        a = int(lhs[var])
-        if a >= 0:
-            if a >> 1:
-                stack.append(a >> 1)
-            b = int(rhs[var])
-            if b >> 1:
-                stack.append(b >> 1)
-    return np.fromiter(seen, dtype=np.int64, count=len(seen))
-
-
-def _scipy_root_labels(aig: AIG, root_vars: List[int]) -> Optional[List[int]]:
-    """Each root var's component label, by scipy's connectivity pass over
-    the cone (the Python path, where aig_native's library is not built);
-    None without scipy."""
-    from mythril_tpu_torch.preanalysis.components import connected_labels
-
-    lhs, rhs = aig.gate_arrays()
-    cone = np.sort(_cone_vars(lhs, rhs, root_vars))
-    gate_vars = cone[lhs[cone] >= 0]
-    edges_u = np.concatenate([gate_vars, gate_vars])
-    edges_v = np.concatenate(
-        [lhs[gate_vars] >> 1, rhs[gate_vars] >> 1])
-    keep = edges_v != 0  # constant fanins do not connect components
-    # compact node space: every kept endpoint is a cone member (cones are
-    # closed under fanin), so searchsorted is an exact index
-    labels = connected_labels(
-        len(cone),
-        np.searchsorted(cone, edges_u[keep]),
-        np.searchsorted(cone, edges_v[keep]))
-    if labels is None:
-        return None
-    root_idx = np.searchsorted(cone, np.asarray(root_vars, dtype=np.int64))
-    return labels[root_idx].tolist()
-
-
 def partition_roots(aig: AIG, roots: List[int],
                     root_labels=None) -> Optional[AIGPartition]:
     """Partition an optimized AIG's roots into variable-disjoint
-    components; None when not applicable (unmarked AIG, scipy missing on
-    the Python path, single component, constant roots, or a pathological
-    component count).
+    components; None when not applicable (unmarked AIG, single
+    component, constant roots, or a pathological component count).
 
     Connectivity is computed over the CONE of this root set, not the
     whole gate table: the session strash AIG (aig_opt._StrashSession)
@@ -134,22 +88,15 @@ def partition_roots(aig: AIG, roots: List[int],
     components together through foreign gates that merely share their
     inputs. `root_labels` (per root, a label of its component that sorts
     as the component's smallest var) comes from aig_opt's native pass
-    when it has walked this cone already; else aig_native's pass, or
-    scipy's where its library is not built, labels the roots here.
-    Components come out in the order of their smallest var."""
+    when it has walked this cone already; else aig_native's pass labels
+    the roots here. Components come out in the order of their smallest
+    var."""
     if not getattr(aig, "_aig_opt_cone", False):
         return None
-    root_vars = [lit >> 1 for lit in roots]
-    if not root_vars or any(v == 0 for v in root_vars):
+    if not roots or any(lit >> 1 == 0 for lit in roots):
         return None  # constant roots: the monolith path handles them
     if root_labels is None:
-        lib = aig_native.library()
-        if lib is not None:
-            _gates, root_labels = aig_native.cone_components(lib, aig, roots)
-        else:
-            root_labels = _scipy_root_labels(aig, root_vars)
-            if root_labels is None:
-                return None
+        _gates, root_labels = aig_native.cone_components(aig, roots)
     groups: Dict[int, List[int]] = {}
     for lit, label in zip(roots, root_labels):
         groups.setdefault(label, []).append(lit)

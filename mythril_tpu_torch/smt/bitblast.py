@@ -236,23 +236,14 @@ class AIG:
         CNF in global numbering would make every solve pay O(all vars ever
         blasted). Returns (num_dense_vars, cnf, dense_of_global) where `cnf`
         is a CNF of DIMACS-signed DENSE literals and dense_of_global a
-        DenseMap. Cone extraction + emission run in native/sat.cpp when the
-        library is available (the pure-Python exporter dominated
-        heavy-contract wall time); the Python path below is the fallback
-        and the differential reference for it (tests/test_bitblast.py)."""
-        native = self._to_cnf_native(roots, defined)
-        if native is not None:
-            return native
-        return self._to_cnf_python(roots, defined)
-
-    def _to_cnf_native(self, roots, defined):
+        DenseMap. Cone extraction + emission run in native/sat.cpp, in the
+        port's host library (a pure-Python exporter dominated heavy-contract
+        wall time; the JAX package keeps one as the reference)."""
         import ctypes
 
         from mythril_tpu_torch.smt.solver import sat_backend
 
         lib = sat_backend.get_native_lib()
-        if lib is None:
-            return None
         i32p = ctypes.POINTER(ctypes.c_int)
         i64p = ctypes.POINTER(ctypes.c_longlong)
         u8p = ctypes.POINTER(ctypes.c_ubyte)
@@ -284,53 +275,6 @@ class AIG:
         cnf = CNF(lits[:n_lits], offsets[:num_clauses + 1], num_clauses,
                   bool(meta[2]))
         return int(meta[0]), cnf, DenseMap(dense_arr)
-
-    def _to_cnf_python(self, roots, defined):
-        clauses: List[Tuple[int, ...]] = []
-
-        # find reachable gates (the gate table is maintained incrementally
-        # so a small cone never pays for the whole shared AIG)
-        needed = set()
-        gate_of_var = self.gate_of_var
-        stack = [r >> 1 for r in list(roots) + list(defined) if r >> 1 != 0]
-        while stack:
-            var = stack.pop()
-            if var in needed:
-                continue
-            needed.add(var)
-            gate = gate_of_var.get(var)
-            if gate is not None:
-                for lit in gate:
-                    if lit >> 1 != 0:
-                        stack.append(lit >> 1)
-
-        dense = {var: i for i, var in enumerate(sorted(needed), start=1)}
-
-        def dimacs(lit: int) -> int:
-            var = dense[lit >> 1]
-            return -var if lit & 1 else var
-
-        for var in sorted(needed):
-            gate = gate_of_var.get(var)
-            if gate is None:
-                continue  # circuit input
-            lhs, rhs = gate
-            g, a, b = dense[var], dimacs(lhs), dimacs(rhs)
-            clauses.append((-g, a))
-            clauses.append((-g, b))
-            clauses.append((g, -a, -b))
-
-        for root in roots:
-            if root == FALSE_LIT:
-                clauses.append(())  # empty clause: trivially unsat
-            elif root == TRUE_LIT:
-                continue
-            else:
-                clauses.append((dimacs(root),))
-        dense_arr = np.zeros(self.num_vars + 1, dtype=np.int32)
-        for var, dvar in dense.items():
-            dense_arr[var] = dvar
-        return len(dense), CNF.from_clauses(clauses), DenseMap(dense_arr)
 
 
 class Blaster:

@@ -669,7 +669,8 @@ class Solver:
                 # a fault anywhere in the rewrite degrades THIS query to
                 # the un-rewritten blaster CNF below (assert_bool/cnf are
                 # memoized, so the fallback lands on identical roots);
-                # repeated faults blow the session fuse
+                # repeated faults blow the session fuse. A host library
+                # that cannot be built raises again there, from to_cnf
                 try:
                     resilience.maybe_inject("aig.session")
                     roots = [prep.blaster.assert_bool(t) for t in lowered]
@@ -680,7 +681,7 @@ class Solver:
                     opt = aig_opt.optimize_roots_cached(
                         prep.blaster.aig, roots)
                     if opt is not None:
-                        opt_span.set(native=opt.native, visited=opt.visited)
+                        opt_span.set(visited=opt.visited)
                         prep.num_vars, prep.clauses, opt_dense = \
                             opt.aig.to_cnf(list(opt.roots))
                         prep.aig_roots = (opt.aig, list(opt.roots),
@@ -692,7 +693,7 @@ class Solver:
                             opt.nodes_before, opt.nodes_after,
                             opt.strash_merges, opt.const_folds,
                             trivial_unsat=opt.trivially_unsat,
-                            native=opt.native, visited=opt.visited)
+                            visited=opt.visited)
                         stats.add_strash_xquery(opt.xquery_merges)
                         from mythril_tpu_torch.preanalysis import (
                             aig_partition,

@@ -2,8 +2,10 @@
 
 Compiled on first use with g++ into the port's own build directory
 (mythril_tpu_torch/_build/) and bound through a plain C ABI with ctypes.
-The library also hosts the AIG cone / Tseitin exporters smt/bitblast.py
-calls. A build failure raises: there is no pure-Python solver behind it.
+The library is all of the port's host C++: it also hosts the AIG cone /
+Tseitin exporters smt/bitblast.py calls and the AIG rewrite's cone passes
+(csrc/aig_passes.cpp, called through preanalysis/aig_native.py). A build
+failure raises: there is no pure-Python path behind any of them.
 """
 
 import ctypes
@@ -23,7 +25,8 @@ from mythril_tpu_torch.smt.solver.statistics import SolverStatistics
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SOURCE = os.path.join(os.path.dirname(_PACKAGE_DIR), "native", "sat.cpp")
+_SOURCES = (os.path.join(os.path.dirname(_PACKAGE_DIR), "native", "sat.cpp"),
+            os.path.join(_PACKAGE_DIR, "csrc", "aig_passes.cpp"))
 BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
 # the host CDCL probe solve_cnf runs before the device: its conflict budget
 # (0 skips the probe) and its wall-clock bound
@@ -38,14 +41,15 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def build_library(source: str, so_name: str) -> str:
-    """Build the C++ file `source` with g++ into BUILD_DIR/`so_name`,
-    unless a build newer than the source is there; returns the path. A
-    failed or missing compiler raises (OSError, SubprocessError)."""
+def build_library(sources: Sequence[str], so_name: str) -> str:
+    """Build the C++ files `sources` with g++ into one BUILD_DIR/`so_name`,
+    unless a build newer than every source is there; returns the path. A
+    missing source or a failed or missing compiler raises (OSError,
+    SubprocessError)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     so_path = os.path.join(BUILD_DIR, so_name)
-    if (not os.path.exists(so_path)
-            or os.path.getmtime(so_path) < os.path.getmtime(source)):
+    if (not os.path.exists(so_path) or os.path.getmtime(so_path)
+            < max(os.path.getmtime(source) for source in sources)):
         # build to a temp name and rename: concurrent test workers may
         # race to build, and a half-written .so must never be loaded
         with tempfile.NamedTemporaryFile(
@@ -53,7 +57,7 @@ def build_library(source: str, so_name: str) -> str:
         ) as tmp:
             tmp_path = tmp.name
         cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-               "-o", tmp_path, source]
+               "-o", tmp_path, *sources]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
             os.replace(tmp_path, so_path)
@@ -64,7 +68,7 @@ def build_library(source: str, so_name: str) -> str:
 
 
 def _compile_native() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library(_SOURCE, "libsat.so"))
+    lib = ctypes.CDLL(build_library(_SOURCES, "libhost.so"))
     i32p = ctypes.POINTER(ctypes.c_int)
     i64p = ctypes.POINTER(ctypes.c_longlong)
     u8p = ctypes.POINTER(ctypes.c_ubyte)
@@ -96,11 +100,22 @@ def _compile_native() -> ctypes.CDLL:
         ctypes.c_void_p, i32p, ctypes.c_int, ctypes.c_double,
         ctypes.c_longlong, i8p,
     ]
+    # the AIG rewrite's cone passes (csrc/aig_passes.cpp)
+    lib.aig_source_pass.restype = None
+    lib.aig_source_pass.argtypes = [
+        ctypes.c_int, i32p, i32p, i32p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, i32p, i8p, i64p,
+    ]
+    lib.aig_cone_components.restype = ctypes.c_longlong
+    lib.aig_cone_components.argtypes = [
+        ctypes.c_int, i32p, i32p, i32p, ctypes.c_int, i32p,
+    ]
     return lib
 
 
 def get_native_lib() -> ctypes.CDLL:
-    """The compiled native library (built on first use)."""
+    """The compiled native library (built on first use; a failed build
+    raises here, and again at the next call)."""
     global _lib
     if _lib is None:
         with _lib_lock:

@@ -86,10 +86,8 @@ class SolverStatistics:
         # the router planned for its in-router host settle
         "aig_device_component_hits",
         "aig_host_components",
-        # rewrites whose cone passes ran in native code, and the cone vars
-        # the rewrites' Python rebuild loop stepped through (read against
-        # aig_nodes_before)
-        "aig_opt_native_passes",
+        # the cone vars the rewrites' Python rebuild loop stepped through
+        # (read against aig_nodes_before)
         "aig_opt_rebuild_visits",
         # queries the router returned a model for: every non-trivial part
         # found by K1 (device_found), at least one component settled on
@@ -445,12 +443,10 @@ class SolverStatistics:
 
     def add_aig_opt(self, nodes_before: int, nodes_after: int,
                     strash_merges: int, const_folds: int,
-                    trivial_unsat: bool = False, native: bool = False,
-                    visited: int = 0) -> None:
+                    trivial_unsat: bool = False, visited: int = 0) -> None:
         """One blasted cone rewritten by the AIG sweep + strash
-        (preanalysis/aig_opt.py); `native` when its cone passes ran in
-        native code, `visited` the cone vars its rebuild loop stepped
-        through."""
+        (preanalysis/aig_opt.py); `visited` the cone vars its rebuild loop
+        stepped through."""
         if self.enabled:
             self.aig_nodes_before += nodes_before
             self.aig_nodes_after += nodes_after
@@ -458,8 +454,6 @@ class SolverStatistics:
             self.aig_const_folds += const_folds
             if trivial_unsat:
                 self.aig_trivial_unsat += 1
-            if native:
-                self.aig_opt_native_passes += 1
             self.aig_opt_rebuild_visits += visited
 
     def add_aig_components(self, components: int) -> None:
